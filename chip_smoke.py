@@ -18,7 +18,26 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      through the gather kernel, each ATE < 0.5 m, the 5-seed mean in the JAX
      reference band [0.136, 0.264] m;
   5. the main path at the real-size shape for 30 frames: finite, both
-     kernels launched, frames/s and peak device memory.
+     kernels launched, frames/s and peak device memory;
+  6. the two 3-D kernels (measurement_update_3d, score_3d) against their
+     twins: each model at the bench shape (P=1024, L=8192, Z=32) and stereo
+     at the KITTI shape (P=2048, L=10240, Z=128), with median times, then
+     the options (external scores, no weight update, freeze, cull_unseen,
+     no cull, full and empty maps, L=1100, Z=128 past the 64-slot cap) at
+     small shapes. Masks, counts, target lanes, n_match, descriptors and
+     score lanes equal; scores, means and covariances within
+     rtol=atol=1e-5, log_w within atol=2e-3 + rtol=1e-6 (sums over up to
+     128 observations in another order); the update fed score_3d's scores
+     equal to the update that scores itself;
+  7. the vision path at full width, driver config 3 (configs/kitti_00.yaml:
+     FastSLAM 2.0, stereo_3d, P=2048, L=10240, Z=128) for 30 frames of the
+     synthetic drive world: one score_3d and one measurement_update_3d
+     launch per frame, one gather per resample, a finite trajectory,
+     frames/s, peak device memory, ATE against ground truth and dead
+     reckoning (printed, not gated); the kernel path and the twin path
+     give equal masks and counts over the first 3 frames from the same
+     draws;
+  8. the ekf_update_3d, fs1_step and fs2_step rows of the kernel bench.
 Exits non-zero at the first failed check, and without a result when there
 is no CUDA device or no package beside the script. The last line is
 {"ok": true, "device": {...}}, the line before it the kernels' JSON record
@@ -261,6 +280,263 @@ def phase_real_size(device):
     check(launches[0] == 30 and launches[1] >= 1, f"real-size launches {launches}")
 
 
+# --------------------------------------------------------------------------
+# Slice 2: the 3-D vision filter
+# --------------------------------------------------------------------------
+
+BENCH_3D = (1024, 8192, 32)
+KITTI_3D = (2048, 10240, 128)
+STATE_3D = ("pose", "log_w", "lm_mean", "lm_cov", "lm_desc", "lm_valid", "lm_count")
+NOISE_3D = {"pinhole_3d": (2.0, 2.0), "stereo_3d": (1.5, 1.5, 1.0), "equirect_3d": (3.0, 3.0)}
+# (model, (P, L, Z), map fill, options) of the small-shape variants
+UPDATE_3D_VARIANTS = (
+    ("stereo_3d", (64, 512, 32), "holes", {"ext": True}),
+    ("pinhole_3d", (64, 512, 32), "holes", {"update_weights": False}),
+    ("stereo_3d", (64, 512, 32), "holes", {"freeze": 4}),
+    ("equirect_3d", (64, 512, 32), "holes", {"cull_unseen": True}),
+    ("pinhole_3d", (64, 512, 32), "holes", {"cull": False}),
+    ("equirect_3d", (64, 512, 32), "full", {}),
+    ("stereo_3d", (64, 512, 32), "empty", {}),
+    ("pinhole_3d", (16, 1100, 8), "holes", {}),
+    ("stereo_3d", (16, 256, 128), "empty", {}),
+)
+
+
+def _kw_3d(model, **flags):
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import camera_par
+
+    kw = dict(model=model, desc_words=8, par=camera_par(model),
+              r_var=tuple(v * v for v in NOISE_3D[model]), desc_weight=0.5, log_p0=-30.0,
+              init_infl=1.0, init_range_prior=8.0, init_range_sigma=3.0, max_range=35.0,
+              cull=True)
+    kw.update(flags)
+    return kw
+
+
+def _score_kw(kw):
+    return {k: kw[k] for k in ("model", "desc_words", "par", "r_var", "desc_weight")}
+
+
+def _frame_3d(model, shape, fill, device):
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import prefilled_frame_3d
+
+    P, L, Z = shape
+    fr = prefilled_frame_3d(P, L, Z, model, seed=P + L + Z, fill=fill)
+    return {k: torch.as_tensor(v.view(np.int32) if v.dtype == np.uint32 else v, device=device)
+            for k, v in fr.items()}
+
+
+def _compare_3d(what, got, ref):
+    """Equal masks, counts, lanes and descriptors; floats within the stated
+    tolerances. Returns the largest float difference."""
+    import torch
+
+    names = ("log_w", "lm_mean", "lm_cov", "lm_desc", "lm_valid", "lm_count", "n_match", "target")
+    err = 0.0
+    for name, g, r in zip(names, got, ref):
+        if name in ("lm_desc", "lm_valid", "lm_count", "n_match", "target"):
+            n_bad = int((g != r).sum())
+            check(n_bad == 0, f"{what}: {name} differs in {n_bad} entries")
+            continue
+        d = float((g - r).abs().max()) if g.numel() else 0.0
+        err = max(err, d)
+        tol = dict(rtol=1e-6, atol=2e-3) if name == "log_w" else dict(rtol=1e-5, atol=1e-5)
+        check(torch.allclose(g, r, **tol), f"{what}: {name} max |diff| {d}")
+    return err
+
+
+def check_update_3d(model, shape, device, fill="holes", timed=True, ext=False, **flags):
+    """measurement_update_3d and score_3d against their twins on one frame."""
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import ekf_update_3d as E
+
+    T = _frame_3d(model, shape, fill, device)
+    kw = _kw_3d(model, **flags)
+    state = [T[k] for k in STATE_3D]
+    obs = [T["z"], T["desc"], T["valid"]]
+    score_args = (T["pose"], T["lm_mean"], T["lm_cov"], T["lm_desc"], T["lm_valid"],
+                  T["z"], T["desc"])
+    sk = _score_kw(kw)
+    ll, ix = E.score_3d(*score_args, **sk)
+    r_ll, r_ix = E.score_3d_reference(*score_args, **sk)
+    torch.cuda.synchronize()
+    what = f"{model} P,L,Z={shape} {fill} {flags}{' ext' if ext else ''}"
+    check(torch.equal(ix, r_ix), f"score_3d {what}: lanes differ in {int((ix != r_ix).sum())}")
+    s_err = float((ll - r_ll).abs().max())
+    check(torch.allclose(ll, r_ll, rtol=1e-5, atol=1e-5), f"score_3d {what}: ll max |diff| {s_err}")
+    extra = (ll, ix) if ext else ()
+    ref = E.measurement_update_3d_reference(*state, *obs, *((r_ll, r_ix) if ext else ()), **kw)
+    work = [t.clone() for t in state]
+    got = E.measurement_update_3d(*work, *obs, *extra, **kw)
+    torch.cuda.synchronize()
+    err = max(s_err, _compare_3d(f"measurement_update_3d {what}", got, ref))
+    n_upd = int((ref[7] >= 0).sum())
+    if not ext:  # the update fed score_3d's scores == the update that scores itself
+        fed = [t.clone() for t in state]
+        out = E.measurement_update_3d(*fed, *obs, ll, ix, **kw)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("log_w", "lm_mean", "lm_cov", "lm_desc", "lm_valid",
+                               "lm_count", "n_match", "target"), out, got):
+            check(torch.equal(a, b), f"{what}: update with score_3d scores differs in {name}")
+    if not timed:
+        print(f"ekf_update_3d {what}: targets={n_upd} max_abs_err={err:.3g} agrees")
+        return err, None
+    P = shape[0]
+    reps_k, reps_t = (10, 5) if P <= 1024 else (5, 3)
+
+    def reset():
+        for w, s in zip(work, state):
+            w.copy_(s)
+
+    t = {
+        "update": cuda_ms(lambda: E.measurement_update_3d(*work, *obs, **kw), reps_k, reset),
+        "update_twin": cuda_ms(lambda: E.measurement_update_3d_reference(*state, *obs, **kw), reps_t),
+        "score": cuda_ms(lambda: E.score_3d(*score_args, **sk), reps_k),
+        "score_twin": cuda_ms(lambda: E.score_3d_reference(*score_args, **sk), reps_t),
+    }
+    print(f"ekf_update_3d {what}: targets={n_upd} max_abs_err={err:.3g} "
+          f"update kernel={t['update']:.4f} ms twin={t['update_twin']:.4f} ms | "
+          f"score_3d kernel={t['score']:.4f} ms twin={t['score_twin']:.4f} ms")
+    return err, t
+
+
+def phase_kernels_3d(device):
+    res = {}
+    for model in ("pinhole_3d", "stereo_3d", "equirect_3d"):
+        res[model] = check_update_3d(model, BENCH_3D, device)
+    res["kitti"] = check_update_3d("stereo_3d", KITTI_3D, device)
+    err = max(r[0] for r in res.values())
+    for model, shape, fill, flags in UPDATE_3D_VARIANTS:
+        err = max(err, check_update_3d(model, shape, device, fill, timed=False, **flags)[0])
+    return res, err
+
+
+def _reset_counts_3d():
+    from parakeet_slam_tpu_torch.kernels import ekf_update_3d, resample_cuda
+
+    ekf_update_3d.score_3d.launches = 0
+    ekf_update_3d.measurement_update_3d.launches = 0
+    resample_cuda.gather_state.launches = 0
+
+
+def _counts_3d():
+    from parakeet_slam_tpu_torch.kernels import ekf_update_3d, resample_cuda
+
+    return (ekf_update_3d.score_3d.launches, ekf_update_3d.measurement_update_3d.launches,
+            resample_cuda.gather_state.launches)
+
+
+def vision_sequence(world, frames, Z, W, device):
+    """(odom, obs_z, obs_sig, obs_valid, obs_desc) of the first `frames`
+    frames of a drive world, on `device`."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import drive_observations
+
+    obs = [drive_observations(world, t, Z, W, seed=0) for t in range(frames)]
+    T = lambda a: torch.as_tensor(np.stack(a), device=device)  # noqa: E731
+    return (T(world.odom[:frames]), T([o[0] for o in obs]),
+            torch.zeros(frames, Z, 0, device=device), T([o[2] for o in obs]),
+            T([o[1].view(np.int32) for o in obs]))
+
+
+def _twin_path():
+    """Route the filter through the plain twins (the check of the kernel path)."""
+    from parakeet_slam_tpu_torch.kernels import ekf_update_3d, resample_cuda
+
+    saved = (ekf_update_3d.measurement_update_3d, ekf_update_3d.score_3d,
+             resample_cuda.gather_state)
+    ekf_update_3d.measurement_update_3d = ekf_update_3d.measurement_update_3d_reference
+    ekf_update_3d.score_3d = ekf_update_3d.score_3d_reference
+    resample_cuda.gather_state = resample_cuda.gather_state_reference
+
+    def restore():
+        (ekf_update_3d.measurement_update_3d, ekf_update_3d.score_3d,
+         resample_cuda.gather_state) = saved
+
+    return restore
+
+
+def phase_vision(device, frames=30, config="configs/kitti_00.yaml", check_frames=3):
+    import torch
+
+    from parakeet_slam_tpu_torch.core import geometry
+    from parakeet_slam_tpu_torch.core.config import load_config
+    from parakeet_slam_tpu_torch.data import make_drive_world
+    from parakeet_slam_tpu_torch.eval import ate_rmse
+    from parakeet_slam_tpu_torch.filter import run_sequence
+    from parakeet_slam_tpu_torch.filter.fastslam2 import FastSLAM2, make_filter
+    from parakeet_slam_tpu_torch.filter.runner import draw_noise
+
+    cfg = load_config(os.path.join(HERE, config))
+    fc = cfg.filter
+    slam = make_filter(fc, cfg.frontend)
+    check(isinstance(slam, FastSLAM2) and slam.model.name == "stereo_3d", f"{config}: {slam}")
+    P, L, Z, W = fc.num_particles, fc.max_landmarks, fc.max_observations, fc.desc_words
+    world = make_drive_world(num_steps=frames)
+    data = vision_sequence(world, frames, Z, W, device)
+    state0 = slam.init_state(init_pose=world.gt_pose[0], device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts_3d()
+    t0 = time.perf_counter()
+    _, est, metrics = run_sequence(slam, state0, *data[:4], generator=gen, obs_desc=data[4])
+    est = est.cpu()
+    dt = time.perf_counter() - t0
+    launches = _counts_3d()
+    peak = torch.cuda.max_memory_allocated()
+    n_res = sum(m.resampled for m in metrics)
+    gt = torch.as_tensor(world.gt_pose[:frames])
+    dr = [gt[0]]
+    for t in range(1, frames):
+        dr.append(geometry.se3_compose(dr[-1], geometry.se3_exp(torch.as_tensor(world.odom[t]))))
+    ate = float(ate_rmse(est[:, :3], gt[:, :3]))
+    ate_dr = float(ate_rmse(torch.stack(dr)[:, :3], gt[:, :3]))
+    n_obs = int(data[3].sum())
+    print(f"vision config 3 (FastSLAM 2.0 stereo_3d P={P} L={L} Z={Z}): {frames} frames "
+          f"fps={frames / dt:.3f} peak_mem={peak / 2**30:.3f} GiB obs={n_obs} "
+          f"landmarks/particle={float(metrics[-1].num_landmarks):.1f} resamples={n_res} "
+          f"launches score_3d={launches[0]} update_3d={launches[1]} gather={launches[2]}")
+    print(f"vision config 3: ate={ate:.4f} m dead_reckoning_ate={ate_dr:.4f} m (not gated)")
+    check(bool(torch.isfinite(est).all()), "vision trajectory not finite")
+    check(launches[0] == frames and launches[1] == frames,
+          f"vision launches score_3d={launches[0]} update_3d={launches[1]}, frames {frames}")
+    check(launches[2] == n_res, f"vision gather launches {launches[2]}, resamples {n_res}")
+
+    # kernel path vs twin path over the first frames, from the same draws
+    noise, u0 = draw_noise(check_frames, P, slam.noise_dim, gen, device)
+    short = [a[:check_frames] for a in data]
+    kernel_final, kernel_est, _ = run_sequence(slam, state0, *short[:4], motion_noise=noise,
+                                               resample_u0=u0, obs_desc=short[4])
+    restore = _twin_path()
+    try:
+        twin_final, twin_est, _ = run_sequence(slam, state0, *short[:4], motion_noise=noise,
+                                               resample_u0=u0, obs_desc=short[4])
+    finally:
+        restore()
+    for k in ("lm_valid", "lm_count"):
+        a, b = getattr(kernel_final, k), getattr(twin_final, k)
+        check(torch.equal(a, b), f"vision kernel vs twin path: {k} differs in {int((a != b).sum())}")
+    pose_err = float((kernel_est - twin_est).abs().max())
+    print(f"vision kernel vs twin path, {check_frames} frames: lm_valid and lm_count equal "
+          f"({int(kernel_final.lm_valid.sum())} live lanes), est max |diff| {pose_err:.3g}")
+    return {"fps": frames / dt, "launches": launches, "ate": ate, "ate_dr": ate_dr,
+            "peak_gib": peak / 2**30}
+
+
+def phase_bench_rows(device):
+    from parakeet_slam_tpu_torch.eval import bench_kernels
+
+    return {r["kernel"]: r for r in bench_kernels.run(
+        ["ekf_update_3d", "fs1_step", "fs2_step"], device)}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "parakeet_slam_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke FAILED: run from a checkout of the repository")
@@ -273,6 +549,9 @@ def main():
     k, ekf_err = phase_kernels(device)
     launches = phase_corridor(device)
     phase_real_size(device)
+    k3, err3 = phase_kernels_3d(device)
+    vision = phase_vision(device)
+    phase_bench_rows(device)
 
     pkg = "parakeet_slam_tpu_torch"
     record = {"kernels": [
@@ -288,6 +567,18 @@ def main():
          "ms": k[("gather", REAL_SHAPE)][1], "plain_ms": k[("gather", REAL_SHAPE)][2],
          "ms_corridor": k[("gather", CORRIDOR_SHAPE)][1],
          "plain_ms_corridor": k[("gather", CORRIDOR_SHAPE)][2]},
+        {"name": "measurement_update_3d", "route": "cuda", "source": f"{pkg}/csrc/ekf_update_3d.cu",
+         "replaces": "parakeet_slam_tpu/kernels/ekf_update_3d.py:664",
+         "launches": vision["launches"][1], "max_abs_err": err3,
+         "ms": k3["kitti"][1]["update"], "plain_ms": k3["kitti"][1]["update_twin"],
+         "ms_bench_equirect": k3["equirect_3d"][1]["update"],
+         "plain_ms_bench_equirect": k3["equirect_3d"][1]["update_twin"]},
+        {"name": "score_3d", "route": "cuda", "source": f"{pkg}/csrc/ekf_update_3d.cu",
+         "replaces": "parakeet_slam_tpu/kernels/ekf_update_3d.py:920",
+         "launches": vision["launches"][0], "max_abs_err": err3,
+         "ms": k3["kitti"][1]["score"], "plain_ms": k3["kitti"][1]["score_twin"],
+         "ms_bench_equirect": k3["equirect_3d"][1]["score"],
+         "plain_ms_bench_equirect": k3["equirect_3d"][1]["score_twin"]},
     ]}
     print(card)
     print(json.dumps(record))

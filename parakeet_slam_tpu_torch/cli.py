@@ -1,8 +1,11 @@
-"""Command-line interface of the port: run / bench on the corridor.
+"""Command-line interface of the port: run on the corridor, the corridor
+benchmark, and the per-kernel benchmarks.
 
   python -m parakeet_slam_tpu_torch.cli run --config configs/corridor.yaml
   python -m parakeet_slam_tpu_torch.cli run --config configs/corridor.yaml --device cpu
   python -m parakeet_slam_tpu_torch.cli bench
+  python -m parakeet_slam_tpu_torch.cli bench --kernel fs2_step
+  python -m parakeet_slam_tpu_torch.cli bench --kernel ekf_update_3d --device cpu --shape 16 256 8
 
 `--device` defaults to cuda and fails when there is no card; only
 `--device cpu` runs on the CPU (through the kernels' plain twins). Any
@@ -138,6 +141,12 @@ def cmd_run(args):
 
 def cmd_bench(args):
     device = resolve_device(args.device)
+    if args.kernel:
+        from parakeet_slam_tpu_torch.eval import bench_kernels
+
+        names = list(bench_kernels.BENCHES) if args.kernel == "all" else [args.kernel]
+        bench_kernels.run(names, device, args.shape)
+        return
     r = measure_corridor(device, args.steps)
     print(json.dumps({
         "metric": "corridor_online_fastslam_fps_per_chip",
@@ -163,8 +172,15 @@ def main(argv=None):
     p_run.add_argument("--device", default="cuda")
     p_run.set_defaults(fn=cmd_run)
 
-    p_bench = sub.add_parser("bench", help="corridor frames/s and 5-seed ATE")
+    p_bench = sub.add_parser("bench", help="corridor frames/s and 5-seed ATE, or one kernel")
     p_bench.add_argument("--steps", type=int, default=500)
+    p_bench.add_argument(
+        "--kernel", default="",
+        choices=["", "all", "ekf_update", "ekf_update_3d", "resample", "fs1_step", "fs2_step"],
+        help="one JSON row per kernel bench instead of the corridor headline",
+    )
+    p_bench.add_argument("--shape", type=int, nargs="+", default=None, metavar="N",
+                         help="P L [Z] in place of the kernel bench's shape")
     p_bench.add_argument("--device", default="cuda")
     p_bench.set_defaults(fn=cmd_bench)
 

@@ -4,7 +4,8 @@ The whole filter state is a struct of dense tensors over fixed capacities:
 a particle axis P and a landmark-slot axis L with a validity mask. Layouts
 and dtypes are those of the JAX package, so states carry across as numpy
 arrays (`state_from_numpy` / `state_to_numpy`). Packed descriptors are
-int32 words here (torch has thin uint32 support); the 2-D path keeps W=0.
+int32 words here (torch has thin uint32 support), the same bits as the
+reference's uint32 words; the 2-D path keeps W=0.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ _FIELDS = (
 class ParticleState:
     """FastSLAM filter state: P particles x L landmark slots.
 
-      pose      [P, pose_dim]  float32 SE(2) [x, y, th]
+      pose      [P, pose_dim]  float32 SE(2) [x, y, th] or SE(3) [t(3), q(4)]
       log_w     [P]            unnormalized log importance weights
       lm_mean   [P, L, Dl]     landmark EKF means
       lm_cov    [P, L, Dl, Dl] landmark EKF covariances
@@ -81,15 +82,14 @@ def make_particle_state(
     *,
     device: torch.device | str,
 ) -> ParticleState:
-    """Allocate an empty filter state; all particles at `init_pose`."""
-    if pose_dim != 3:
-        raise NotImplementedError(
-            "SE(3) states belong to slice 2 of the port (ROADMAP Queue 1)"
-        )
+    """Allocate an empty filter state; all particles at `init_pose` (the
+    origin by default, with the identity quaternion for SE(3))."""
     P, L = num_particles, max_landmarks
     f32 = dict(dtype=torch.float32, device=device)
     if init_pose is None:
         init_pose = torch.zeros(pose_dim, **f32)
+        if pose_dim == 7:
+            init_pose[6] = 1.0
     pose = torch.as_tensor(init_pose, **f32).reshape(1, pose_dim).repeat(P, 1)
     return ParticleState(
         pose=pose,

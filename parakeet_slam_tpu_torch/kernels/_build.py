@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
-interface, `build/parakeet_slam_tpu_torch/<hash>/libkernels.so` under the
-repository root, at first use; the hash covers the sources and the flags,
-so an edited source builds anew. The library is loaded with `ctypes`.
-Nothing here runs at import time: the CPU tests import every module.
+At first use, `nvcc` compiles every `csrc/*.cu` to an object (one `nvcc`
+per source, all started together) and links them into one shared library
+with a plain C interface, `build/parakeet_slam_tpu_torch/<hash>/libkernels.so`
+under the repository root; the hash covers the sources and the flags, so an
+edited source builds anew. The library is loaded with `ctypes`. Nothing
+here runs at import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ _BUILD_ROOT = _PKG.parent / "build" / _PKG.name
 # for bit on the card.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +39,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ekf_update_2d_launch": [_P] * 12 + [_I] * 4 + [_F] * 8 + [_I] * 3 + [_P],
     "gather_rows_launch": [_P, _P, _P, _I, _P, _I, _P],
+    "score_3d_launch": [_P] * 9 + [_I] * 5 + [_P, _P],
+    "ekf_update_3d_launch": [_P] * 14 + [_I] * 9 + [_P, _P],
 }
 
 
@@ -68,14 +71,22 @@ def library() -> ctypes.CDLL:
     so = out_dir / "libkernels.so"
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libkernels.{os.getpid()}.tmp.so"
+        tag = f"{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        nvcc = _nvcc()
+        jobs = []
+        for src in srcs:
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((obj, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        outputs = [proc.communicate() for _, _, proc in jobs]  # all finish before a raise
+        for (_, cmd, proc), (out, err) in zip(jobs, outputs):
+            _raise_on_failure(cmd, proc.returncode, out + err)
+        tmp = out_dir / f"libkernels.{tag}.so"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for obj, _, _ in jobs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-            )
+        _raise_on_failure(cmd, res.returncode, res.stdout + res.stderr)
         os.replace(tmp, so)
         library.build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
@@ -89,10 +100,20 @@ def library() -> ctypes.CDLL:
 library.build_seconds = 0.0
 
 
+def _raise_on_failure(cmd, returncode, output):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{output}")
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error (launch refused etc.)."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def float_array(values) -> ctypes.Array:
+    """A host float32 array for a `const float*` parameter block."""
+    return (ctypes.c_float * len(values))(*values)
 
 
 def stream_ptr(t: torch.Tensor) -> int:

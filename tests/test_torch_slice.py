@@ -136,10 +136,20 @@ def test_bench_prints_bench_py_keys(capsys):
 
 
 def test_make_filter_refuses_unported_algorithms():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_filter(FilterConfig(algorithm="fastslam2"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_filter(FilterConfig(freeze_min_count=3))
+    """fastslam2 is ported; what the port lacks still raises: the 2-D
+    models' XLA-only options, bearing_2d, and 3-D models with a float
+    signature."""
+    from parakeet_slam_tpu_torch.filter import FastSLAM2
+
+    assert isinstance(make_filter(FilterConfig(algorithm="fastslam2")), FastSLAM2)
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        make_filter(FilterConfig(algorithm="fastslam3"))
+    for kw in (dict(freeze_min_count=3), dict(measurement_model="bearing_2d", obs_dim=1),
+               dict(measurement_model="pinhole_3d", lm_dim=3, pose_dim=7, sig_dim=2,
+                    motion_model="se3_odometry"),
+               dict(algorithm="fastslam2", fs2_association="hoisted")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make_filter(FilterConfig(**kw))
 
 
 def test_port_never_imports_jax():
@@ -148,7 +158,9 @@ def test_port_never_imports_jax():
         "import parakeet_slam_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 24, names\n"
+        "new = ('kernels.ekf_update_3d', 'filter.fastslam2', 'data.synth_vision', 'eval.bench_kernels')\n"
+        "assert all(pkg.__name__ + '.' + m in names for m in new), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'parakeet_slam_tpu')]\n"
         "assert not bad, bad\n"
         "import torch\n"
