@@ -29,7 +29,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      rtol=atol=1e-5, log_w within atol=2e-3 + rtol=1e-6 (sums over up to
      128 observations in another order); the update fed score_3d's scores
      equal to the update that scores itself;
-  7. the vision path at full width, driver config 3 (configs/kitti_00.yaml:
+  7. the vision path at full width, benchmark config 3 (configs/kitti_00.yaml:
      FastSLAM 2.0, stereo_3d, P=2048, L=10240, Z=128) for 30 frames of the
      synthetic drive world: one score_3d and one measurement_update_3d
      launch per frame, one gather per resample, a finite trajectory,
@@ -37,11 +37,34 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      reckoning (printed, not gated); the kernel path and the twin path
      give equal masks and counts over the first 3 frames from the same
      draws;
-  8. the ekf_update_3d, fs1_step and fs2_step rows of the kernel bench.
+  8. the ekf_update_3d, fs1_step and fs2_step rows of the kernel bench;
+  9. the two matcher kernels (hamming_top2, l2_top2) against their twins:
+     Hamming at the bench shape (N=1024, M=131072, W=8; all valid, and 1 in
+     5 invalid), both batched directions of the loop-closure match (F=256
+     against K=64 and 128 stored keyframes), and the edge cases (all-invalid
+     database, one valid row, exact duplicates, M not a tile multiple, N=1,
+     N>M), idx/best/second bit-equal; L2 at N=1024, M=131072, D=128 and
+     four edge cases, best and second within atol=1e-3 + rtol=1e-5, idx
+     equal wherever the twin's second - best exceeds 1e-2; median times of
+     kernel and twin; then the match_l2 front door (its one l2_top2 launch);
+  10. the online monocular system at full width, benchmark config 2
+     (configs/tum_fr1_desk.yaml: FastSLAM 2.0, pinhole_3d, P=512, L=1024,
+     Z=64, 256 FAST + BRIEF features, 640x480), `cli run`'s TUM loop over
+     120 frames of the in-memory desk world (two orbits, the second revisits
+     the first): a finite trajectory, >= 2 keyframes, hamming_top2 launched
+     twice per closure dispatch (forward and reverse) and at least once,
+     one score_3d and one measurement_update_3d launch per frame, one gather
+     per resample; frames/s (from frame 3), keyframes, dispatches, accepted
+     closures, peak device memory, and the corrected, online and
+     dead-reckoning ATE (Sim(3), not gated);
+  11. every keyframe-store match of phase 10, replayed through the twin:
+     forward and reverse tables equal.
 Exits non-zero at the first failed check, and without a result when there
 is no CUDA device or no package beside the script. The last line is
 {"ok": true, "device": {...}}, the line before it the kernels' JSON record
-and the line before that the card's name and power limit.
+(the six kernels: ekf_update_2d, gather_rows, measurement_update_3d,
+score_3d, hamming_top2, l2_top2) and the line before that the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -537,6 +560,238 @@ def phase_bench_rows(device):
         ["ekf_update_3d", "fs1_step", "fs2_step"], device)}
 
 
+# --------------------------------------------------------------------------
+# Slice 3: descriptor matching and the online monocular system
+# --------------------------------------------------------------------------
+
+MATCH_BENCH = (1024, 131072)  # N queries x M database rows (BASELINE.md:141)
+L2_BENCH = (1024, 131072, 128)
+DESK_FRAMES = 120  # two orbits of 60 frames: the second revisits the first
+# L2: float sums in another order than the twin's matmul. best/second within
+# atol=L2_ATOL + rtol=L2_RTOL; idx equal wherever the twin's second - best
+# exceeds L2_GAP (closer pairs may swap under a rounding difference).
+L2_ATOL, L2_RTOL, L2_GAP = 1e-3, 1e-5, 1e-2
+
+
+def _descriptors(rng, shape, pool=0):
+    """Random packed descriptors (int32 words); with `pool`, rows drawn from
+    that many distinct rows, so exact duplicates and ties occur."""
+    import numpy as np
+
+    if pool:
+        base = rng.integers(-2**31, 2**31, (pool, shape[-1]), dtype=np.int64)
+        return base[rng.integers(0, pool, shape[:-1])].astype(np.int32)
+    return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+
+
+def check_hamming(what, qd, db, valid, timed=False):
+    """hamming_top2 against its twin: idx, best and second bit-equal."""
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import match
+
+    got = match.hamming_top2(qd, db, valid)
+    ref = match.hamming_top2_reference(qd, db, valid)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("idx", "best", "second"), got, ref):
+        check(torch.equal(g, r.to(g.dtype)), f"hamming_top2 {what}: {name} differs in "
+              f"{int((g != r).sum())} of {g.numel()}")
+    n_tie = int((ref[1] == ref[2]).sum())
+    if not timed:
+        print(f"hamming_top2 {what}: bit-equal (ties {n_tie})")
+        return None, None
+    ms = cuda_ms(lambda: match.hamming_top2(qd, db, valid), 20)
+    plain = cuda_ms(lambda: match.hamming_top2_reference(qd, db, valid), 3)
+    print(f"hamming_top2 {what}: bit-equal (ties {n_tie}) kernel={ms:.4f} ms twin={plain:.4f} ms")
+    return ms, plain
+
+
+def check_l2(what, qd, db, valid, timed=False):
+    """l2_top2 against its twin within the stated tolerances. Returns
+    (max |diff| of best/second, kernel ms, twin ms)."""
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import match
+
+    gi, g1, g2 = match.l2_top2(qd, db, valid)
+    ri, r1, r2 = match.l2_top2_reference(qd, db, valid)
+    torch.cuda.synchronize()
+    err = max(float((g1 - r1).abs().max()), float((g2 - r2).abs().max()))
+    for name, g, r in (("best", g1, r1), ("second", g2, r2)):
+        check(torch.allclose(g, r, rtol=L2_RTOL, atol=L2_ATOL),
+              f"l2_top2 {what}: {name} max |diff| {err}")
+    clear = (r2 - r1) > L2_GAP
+    n_bad = int(((gi != ri) & clear).sum())
+    check(n_bad == 0, f"l2_top2 {what}: idx differs in {n_bad} rows with a clear gap")
+    n_swap = int((gi != ri).sum())
+    if not timed:
+        print(f"l2_top2 {what}: max_abs_err={err:.3g} idx equal where gap > {L2_GAP} "
+              f"({n_swap} near-tie swaps)")
+        return err, None, None
+    ms = cuda_ms(lambda: match.l2_top2(qd, db, valid), 10)
+    plain = cuda_ms(lambda: match.l2_top2_reference(qd, db, valid), 5)
+    print(f"l2_top2 {what}: max_abs_err={err:.3g} idx equal where gap > {L2_GAP} "
+          f"({n_swap} near-tie swaps) kernel={ms:.4f} ms twin={plain:.4f} ms")
+    return err, ms, plain
+
+
+def phase_match(device):
+    """Both matcher kernels against their twins, then the L2 front door."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import match
+
+    rng = np.random.default_rng(9)
+    T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    N, M = MATCH_BENCH
+    qd, db = T(_descriptors(rng, (N, 8))), T(_descriptors(rng, (M, 8)))
+    res = {"ham": check_hamming(f"N={N} M={M} all valid", qd, db,
+                                torch.ones(M, dtype=torch.bool, device=device), timed=True)}
+    check_hamming(f"N={N} M={M} 1 in 5 invalid", qd, db, T(rng.random(M) >= 0.2))
+    # the loop-closure shape: one keyframe against the stacked store, both ways
+    F = 256
+    for K in (64, 128):
+        q, qv = T(_descriptors(rng, (F, 8), pool=200)), T(rng.random(F) >= 0.1)
+        store = T(_descriptors(rng, (K, F, 8), pool=200))
+        sv = T((rng.random((K, F)) >= 0.1) & (np.arange(K) < K - 7)[:, None])
+        check_hamming(f"forward F={F} K={K}", q, store, sv)
+        check_hamming(f"reverse F={F} K={K}", store, q, qv)
+    # edge cases
+    for what, n, m, vfn, pool in (
+        ("all invalid", 50, 300, lambda m: np.zeros(m, bool), 0),
+        ("one valid row", 50, 300, lambda m: np.arange(m) == 137, 0),
+        ("exact duplicates", 300, 700, lambda m: np.ones(m, bool), 5),
+        ("M=1000 not a tile multiple", 130, 1000, lambda m: rng.random(m) >= 0.5, 0),
+        ("N=1", 1, 5000, lambda m: np.ones(m, bool), 0),
+        ("N>M", 600, 37, lambda m: np.ones(m, bool), 20),
+    ):
+        check_hamming(what, T(_descriptors(rng, (n, 8), pool)),
+                      T(_descriptors(rng, (m, 8), pool)), T(vfn(m)))
+    # L2: the bench shape, then small edge cases
+    N2, M2, D2 = L2_BENCH
+    dbf = rng.normal(size=(M2, D2)).astype(np.float32)
+    vf = rng.random(M2) >= 0.2
+    # the first quarter of the queries are noisy copies of valid rows
+    planted = rng.choice(np.flatnonzero(vf), N2 // 4, replace=False)
+    qf = rng.normal(size=(N2, D2)).astype(np.float32)
+    qf[: N2 // 4] = dbf[planted] + 0.05 * qf[: N2 // 4]
+    qf, dbf, vf = T(qf), T(dbf), T(vf)
+    res["l2"] = check_l2(f"N={N2} M={M2} D={D2} 1 in 5 invalid", qf, dbf, vf, timed=True)
+    err = res["l2"][0]
+    for what, n, m, d, vfn in (
+        ("all invalid", 40, 300, 32, lambda m: np.zeros(m, bool)),
+        ("one valid row", 40, 300, 32, lambda m: np.arange(m) == 11),
+        ("N=1 D=33 M=999", 1, 999, 33, lambda m: np.ones(m, bool)),
+        ("N>M D=7", 100, 9, 7, lambda m: np.ones(m, bool)),
+    ):
+        err = max(err, check_l2(what, T(rng.normal(size=(n, d)).astype(np.float32)),
+                                T(rng.normal(size=(m, d)).astype(np.float32)), T(vfn(m)))[0])
+    # the L2 kernel's own path: the match_l2 front door a user calls
+    match.l2_top2.launches = 0
+    idx, _ = match.match_l2(qf, torch.ones(N2, dtype=torch.bool, device=device), dbf, vf)
+    torch.cuda.synchronize()
+    l2_launches = match.l2_top2.launches
+    idx = idx.cpu().numpy()
+    n_found = int((idx[: N2 // 4] == planted).sum())
+    print(f"match_l2 front door N={N2} M={M2}: {int((idx >= 0).sum())} matches, "
+          f"{n_found} of {N2 // 4} planted pairs found, l2_top2 launches={l2_launches}")
+    check(l2_launches == 1, f"match_l2 launched l2_top2 {l2_launches} times")
+    check(n_found == N2 // 4 and (idx[N2 // 4:] < 0).all(), "match_l2 front door: wrong matches")
+    return res, err, l2_launches
+
+
+def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
+    """Benchmark config 2 at full width: `cli run`'s TUM loop over the
+    in-memory desk world. Captures every keyframe-store match for phase 11."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch import cli, system
+    from parakeet_slam_tpu_torch.core.config import load_config
+    from parakeet_slam_tpu_torch.data.synth_vision import make_desk_world
+    from parakeet_slam_tpu_torch.kernels import ekf_update_3d, match, resample_cuda
+
+    cfg = load_config(os.path.join(HERE, config))
+    fc, fe = cfg.filter, cfg.frontend
+    world = make_desk_world(num_steps=frames)
+    check(tuple(world.image_size) == tuple(fe.image_size), f"world {world.image_size} vs {fe}")
+    t0 = time.perf_counter()
+    images = [world.render(i) for i in range(frames)]
+    t_render = time.perf_counter() - t0
+    odom = cli._make_odometry(cfg.data, world.gt_pose, frames)
+    calls = []
+    kf_match = system._batched_kf_match
+
+    def capture(qd, qv, db, dbv, ratio):
+        fwd, rev = kf_match(qd, qv, db, dbv, ratio)
+        calls.append(tuple(t.clone() for t in (qd, qv, db, dbv, fwd, rev)) + (ratio,))
+        return fwd, rev
+
+    resampled = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts_3d()
+    match.hamming_top2.launches = 0
+    system._batched_kf_match = capture
+    try:
+        sys_ = system.SLAMSystem(cfg, device=device)
+        sys_.metrics.log = lambda frame, **rec: resampled.append(rec["resampled"])
+        est, fps, wall = cli.run_tum_sequence(sys_, images, odom)
+        sys_.flush_flags()
+        sys_.flush_metrics()
+        launches = _counts_3d() + (match.hamming_top2.launches,)
+        est_opt, ates = cli.tum_ate(sys_, est, world.gt_pose, odom, cfg)
+    finally:
+        system._batched_kf_match = kf_match
+    peak = torch.cuda.max_memory_allocated()
+    n_res = sum(resampled)
+    print(f"desk config 2 (FastSLAM 2.0 pinhole_3d P={fc.num_particles} L={fc.max_landmarks} "
+          f"Z={fc.max_observations}, {fe.max_features} features {fe.image_size[1]}x"
+          f"{fe.image_size[0]}): {frames} frames fps={fps:.3f} (steady, from frame 3) "
+          f"wall={wall:.2f}s render={t_render:.2f}s peak_mem={peak / 2**30:.3f} GiB")
+    print(f"desk config 2: keyframes={len(sys_.keyframes)} dispatches={len(calls)} "
+          f"loop_closures={len(sys_.loop_closures)} resamples={n_res} "
+          f"launches score_3d={launches[0]} update_3d={launches[1]} gather={launches[2]} "
+          f"hamming_top2={launches[3]}")
+    print(f"desk config 2: ate corrected={ates[0]:.4f} m online={ates[1]:.4f} m "
+          f"dead_reckoning={ates[2]:.4f} m (Sim(3), not gated)")
+    check(bool(np.isfinite(est).all()) and bool(np.isfinite(est_opt).all()),
+          "desk trajectory not finite")
+    check(len(sys_.keyframes) >= 2, f"desk keyframes {len(sys_.keyframes)}")
+    per = system.MATCH_LAUNCHES_PER_DISPATCH
+    check(len(calls) >= 1 and launches[3] == per * len(calls),
+          f"hamming_top2 launches {launches[3]}, dispatches {len(calls)} x {per}")
+    check(launches[0] == frames and launches[1] == frames,
+          f"desk launches score_3d={launches[0]} update_3d={launches[1]}, frames {frames}")
+    check(launches[2] == n_res, f"desk gather launches {launches[2]}, resamples {n_res}")
+    return {"fps": fps, "launches": launches, "calls": calls, "ates": ates,
+            "closures": len(sys_.loop_closures), "peak_gib": peak / 2**30}
+
+
+def phase_desk_replay(calls):
+    """Every keyframe-store match of phase 10 replayed through the twin:
+    forward and reverse tables equal."""
+    import torch
+
+    from parakeet_slam_tpu_torch import system
+    from parakeet_slam_tpu_torch.kernels import match
+
+    kernel = match.hamming_top2
+    match.hamming_top2 = match.hamming_top2_reference
+    try:
+        for i, (qd, qv, db, dbv, fwd, rev, ratio) in enumerate(calls):
+            t_fwd, t_rev = system._batched_kf_match(qd, qv, db, dbv, ratio)
+            for name, a, b in (("forward", fwd, t_fwd), ("reverse", rev, t_rev)):
+                check(torch.equal(a, b), f"replay {i} (K={db.shape[0]}): {name} table "
+                      f"differs in {int((a != b).sum())} entries")
+    finally:
+        match.hamming_top2 = kernel
+    n_match = sum(int((c[4] >= 0).sum()) + int((c[5] >= 0).sum()) for c in calls)
+    print(f"desk replay: {len(calls)} keyframe-store matches, forward and reverse tables "
+          f"equal to the twin's ({n_match} matched entries)")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "parakeet_slam_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke FAILED: run from a checkout of the repository")
@@ -552,6 +807,9 @@ def main():
     k3, err3 = phase_kernels_3d(device)
     vision = phase_vision(device)
     phase_bench_rows(device)
+    km, l2_err, l2_launches = phase_match(device)
+    desk = phase_desk(device)
+    phase_desk_replay(desk["calls"])
 
     pkg = "parakeet_slam_tpu_torch"
     record = {"kernels": [
@@ -579,6 +837,12 @@ def main():
          "ms": k3["kitti"][1]["score"], "plain_ms": k3["kitti"][1]["score_twin"],
          "ms_bench_equirect": k3["equirect_3d"][1]["score"],
          "plain_ms_bench_equirect": k3["equirect_3d"][1]["score_twin"]},
+        {"name": "hamming_top2", "route": "cuda", "source": f"{pkg}/csrc/match.cu",
+         "replaces": "parakeet_slam_tpu/kernels/match.py:269", "launches": desk["launches"][3],
+         "max_abs_err": 0.0, "ms": km["ham"][0], "plain_ms": km["ham"][1]},
+        {"name": "l2_top2", "route": "cuda", "source": f"{pkg}/csrc/match.cu",
+         "replaces": "parakeet_slam_tpu/kernels/match.py:342", "launches": l2_launches,
+         "max_abs_err": l2_err, "ms": km["l2"][1], "plain_ms": km["l2"][2]},
     ]}
     print(card)
     print(json.dumps(record))

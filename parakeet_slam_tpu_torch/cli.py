@@ -1,8 +1,13 @@
-"""Command-line interface of the port: run on the corridor, the corridor
+"""Command-line interface of the port: run on the corridor, a TUM sequence
+or the panoramic world, write a synthetic TUM dataset, the corridor
 benchmark, and the per-kernel benchmarks.
 
   python -m parakeet_slam_tpu_torch.cli run --config configs/corridor.yaml
   python -m parakeet_slam_tpu_torch.cli run --config configs/corridor.yaml --device cpu
+  python -m parakeet_slam_tpu_torch.cli synth --kind tum --out data_synth/tum
+  python -m parakeet_slam_tpu_torch.cli run --config configs/tum_fr1_desk.yaml \\
+      --set data.path=data_synth/tum
+  python -m parakeet_slam_tpu_torch.cli run --config configs/panoramic.yaml
   python -m parakeet_slam_tpu_torch.cli bench
   python -m parakeet_slam_tpu_torch.cli bench --kernel fs2_step
   python -m parakeet_slam_tpu_torch.cli bench --kernel ekf_update_3d --device cpu --shape 16 256 8
@@ -45,7 +50,7 @@ def resolve_device(name: str) -> torch.device:
 
 
 def corridor_config():
-    """Driver config 1 (configs/corridor.yaml, bench.py), built in code."""
+    """Benchmark config 1 (configs/corridor.yaml, bench.py), built in code."""
     from parakeet_slam_tpu_torch.core.config import FilterConfig
 
     return FilterConfig(
@@ -117,6 +122,10 @@ def cmd_run(args):
 
     device = resolve_device(args.device)
     cfg = load_config(args.config, _parse_overrides(args.set))
+    if cfg.data.dataset == "panoramic":
+        return _run_panoramic(cfg, args, device)
+    if cfg.data.dataset == "tum":
+        return _run_tum(cfg, args, device)
     if cfg.data.dataset != "corridor":
         raise NotImplementedError(
             f"dataset {cfg.data.dataset!r} is not ported yet (ROADMAP Queue 1)"
@@ -137,6 +146,155 @@ def cmd_run(args):
           f"fps={len(est)/dt:.1f}")
     if args.out:
         np.savetxt(args.out, est.numpy())
+
+
+def _run_panoramic(cfg, args, device):
+    """The synthetic panoramic world through the online system; prints the
+    end drift in the world frame."""
+    from parakeet_slam_tpu_torch.core import geometry
+    from parakeet_slam_tpu_torch.data.panoramic import make_panoramic_world
+    from parakeet_slam_tpu_torch.system import SLAMSystem
+    from parakeet_slam_tpu_torch.utils.metrics_log import export_trajectory
+
+    world = make_panoramic_world(
+        num_landmarks=cfg.data.num_landmarks or 300, num_steps=cfg.data.num_steps,
+        image_size=cfg.frontend.image_size, seed=cfg.data.seed,
+    )
+    sys_ = SLAMSystem(cfg, device=device)
+    est = torch.stack([sys_.process_frame(world.render(t), world.odom[t])
+                       for t in range(len(world))]).cpu()
+    sys_.flush_flags()
+    sys_.flush_metrics()
+    # the filter's gauge starts at identity: compose with gt[0] for the
+    # world-frame drift
+    end = geometry.se3_compose(torch.as_tensor(world.gt_pose[0]), est[-1]).numpy()
+    drift = float(np.linalg.norm(end[:3] - world.gt_pose[-1, :3]))
+    print(f"frames={len(est)} keyframes={len(sys_.keyframes)} "
+          f"loop_closures={len(sys_.loop_closures)} end_drift={drift:.3f} m")
+    if args.out:
+        export_trajectory(args.out, est.numpy())
+
+
+def run_tum_sequence(sys_, frames, odom, warm: int = 3):
+    """Drive an online system over `frames` (a sequence of [H, W] images,
+    or a callable i -> image) with odometry [n, 6], as `cli run` drives a
+    TUM sequence. Returns (online estimates [n, 7] on the host, steady-state
+    frames/s from frame `warm` on, wall seconds)."""
+    image = frames if callable(frames) else frames.__getitem__
+    n = len(odom)
+    warm = min(warm, max(0, n - 1))
+    sync = torch.cuda.synchronize if sys_.device.type == "cuda" else (lambda: None)
+    est = []
+    t_loop = t_warm = time.perf_counter()
+    for i in range(n):
+        est.append(sys_.process_frame(image(i), odom[i]))
+        if i + 1 == warm:
+            sync()
+            t_warm = time.perf_counter()
+    # one device-to-host copy for the whole trajectory
+    est = torch.stack(est).cpu().numpy()
+    t_end = time.perf_counter()
+    return est, (n - warm) / max(t_end - t_warm, 1e-9), t_end - t_loop
+
+
+def tum_ate(sys_, est, gt, odom, cfg):
+    """(corrected trajectory [n, 7], ATEs): the online estimates re-anchored
+    to the optimized keyframe graph (this drains the system's last window),
+    and the (corrected, online, dead-reckoning) ATE RMSE in m over the
+    frames with ground truth, Sim(3)-aligned for a monocular pinhole run;
+    ATEs is None with fewer than 3 such frames."""
+    from parakeet_slam_tpu_torch.eval import ate_rmse
+
+    n = len(est)
+    est_opt = sys_.corrected_trajectory(est)
+    ok = ~np.isnan(gt[:n, :3]).any(axis=1)
+    if ok.sum() < 3:
+        return est_opt, None
+    with_scale = cfg.frontend.camera == "pinhole"
+    dr = _dead_reckoning(gt[:n][ok][0], odom[:n])
+    ates = tuple(float(ate_rmse(t[ok, :3], gt[:n][ok, :3], with_scale=with_scale))
+                 for t in (est_opt, est, dr))
+    return est_opt, ates
+
+
+def _run_tum(cfg, args, device):
+    """A TUM RGB-D sequence (benchmark config 2) through the online system."""
+    from parakeet_slam_tpu_torch.data.tum import load_tum
+    from parakeet_slam_tpu_torch.system import SLAMSystem
+    from parakeet_slam_tpu_torch.utils.metrics_log import export_trajectory
+
+    seq = load_tum(cfg.data.path)
+    gt = seq.gt_pose  # [T, 7] (t, qxyzw), NaN rows possible
+    n = len(seq) if args.frames <= 0 else min(args.frames, len(seq))
+    odom = _make_odometry(cfg.data, gt, n)
+    sys_ = SLAMSystem(cfg, device=device)
+    est, fps, wall = run_tum_sequence(sys_, seq.image, odom)
+    sys_.flush_flags()
+    sys_.flush_metrics()
+    line = (f"frames={n} keyframes={len(sys_.keyframes)} "
+            f"loop_closures={len(sys_.loop_closures)} "
+            f"fps={fps:.2f} (steady-state; incl-build {n / wall:.2f}) wall={wall:.1f}s")
+    # Evaluation trajectory: the online estimates re-anchored to the
+    # optimized keyframe graph (loop closures fix past drift only there).
+    est_opt, ates = tum_ate(sys_, est, gt, odom, cfg)
+    if ates is not None:
+        line += (f" ate_rmse={ates[0]:.4f} m (sim3={cfg.frontend.camera == 'pinhole'};"
+                 f" online {ates[1]:.4f}; dead-reckoning {ates[2]:.4f})")
+    print(line)
+    if args.out:
+        export_trajectory(args.out, est_opt)
+
+
+def _dead_reckoning(start_pose, odom):
+    """Integrate the odometry stream the filter consumes from a start pose
+    (the control a SLAM run must beat): [n, 7] poses."""
+    from parakeet_slam_tpu_torch.core import geometry
+
+    p = torch.as_tensor(np.asarray(start_pose, np.float32))
+    out = []
+    for u in torch.as_tensor(np.asarray(odom, np.float32)):
+        p = geometry.se3_compose(p, geometry.se3_exp(u))
+        out.append(p)
+    return torch.stack(out).numpy()
+
+
+def _make_odometry(data_cfg, gt, n):
+    """Per-frame body-frame twist increments [n, 6] for image datasets.
+
+    odom_source="gt": noisy ground-truth increments (TUM ships no odometry);
+    NaN gt rows give zero increments. odom_source="none": zeros. The noise
+    is the reference's numpy stream."""
+    from parakeet_slam_tpu_torch.core import geometry
+
+    odom = np.zeros((n, 6), np.float32)
+    if data_cfg.odom_source != "gt" or gt is None:
+        return odom
+    rng = np.random.default_rng(data_cfg.seed)
+    ok = ~np.isnan(gt[:n, :3]).any(axis=1)
+    rel = geometry.se3_log(geometry.se3_between(
+        torch.as_tensor(gt[: n - 1]), torch.as_tensor(gt[1:n]))).numpy()
+    good = ok[:-1] & ok[1:]
+    sig_t, sig_r = data_cfg.odom_noise
+    noise = np.concatenate(
+        [rng.normal(0, sig_t, (n - 1, 3)), rng.normal(0, sig_r, (n - 1, 3))], axis=1,
+    ).astype(np.float32)
+    odom[1:][good] = (rel + noise)[good]
+    return odom
+
+
+def cmd_synth(args):
+    """Write a synthetic dataset in the TUM on-disk format (no dataset
+    download is needed; see data/synth_vision.py)."""
+    from parakeet_slam_tpu_torch.data import synth_vision as sv
+
+    if args.kind != "tum":
+        raise NotImplementedError(f"synth --kind {args.kind} is not ported yet (ROADMAP Queue 1)")
+    t0 = time.time()
+    world = sv.make_desk_world(num_landmarks=args.landmarks or 1000,
+                               num_steps=args.steps or 600, seed=args.seed)
+    sv.write_tum_format(world, args.out)
+    print(f"wrote {args.kind} dataset: {len(world)} frames, {len(world.landmarks)} landmarks "
+          f"-> {args.out} ({time.time() - t0:.1f}s)")
 
 
 def cmd_bench(args):
@@ -168,15 +326,26 @@ def main(argv=None):
         "--set", nargs="+", action="extend", default=[],
         help="dotted overrides k=v (repeatable)",
     )
-    p_run.add_argument("--out", default="", help="trajectory output (x y theta rows)")
+    p_run.add_argument("--out", default="",
+                       help="trajectory output (corridor: x y theta rows; vision: TUM format)")
+    p_run.add_argument("--frames", type=int, default=0, help="first N frames of a TUM sequence")
     p_run.add_argument("--device", default="cuda")
     p_run.set_defaults(fn=cmd_run)
+
+    p_synth = sub.add_parser("synth", help="write a synthetic TUM-format dataset")
+    p_synth.add_argument("--kind", required=True, choices=("tum", "kitti", "euroc"))
+    p_synth.add_argument("--out", required=True)
+    p_synth.add_argument("--steps", type=int, default=0)
+    p_synth.add_argument("--landmarks", type=int, default=0)
+    p_synth.add_argument("--seed", type=int, default=20)
+    p_synth.set_defaults(fn=cmd_synth)
 
     p_bench = sub.add_parser("bench", help="corridor frames/s and 5-seed ATE, or one kernel")
     p_bench.add_argument("--steps", type=int, default=500)
     p_bench.add_argument(
         "--kernel", default="",
-        choices=["", "all", "ekf_update", "ekf_update_3d", "resample", "fs1_step", "fs2_step"],
+        choices=["", "all", "ekf_update", "ekf_update_3d", "resample", "fs1_step", "fs2_step",
+                 "match"],
         help="one JSON row per kernel bench instead of the corridor headline",
     )
     p_bench.add_argument("--shape", type=int, nargs="+", default=None, metavar="N",

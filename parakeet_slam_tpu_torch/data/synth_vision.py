@@ -1,18 +1,19 @@
-"""Synthetic vision worlds, the pose and odometry half (port of
-`make_drive_world` and `_poses_from_track` of
-`parakeet_slam_tpu.data.synth_vision`).
+"""Synthetic vision worlds (port of `parakeet_slam_tpu.data.synth_vision`):
+a TUM fr1/desk-class monocular world (benchmark config 2) and a KITTI
+00-class stereo world (benchmark config 3), rendered as Gaussian-blob images
+through a real camera, and the TUM on-disk writer.
 
-A KITTI 00-class stereo world: a vehicle drives a closed rounded-square
-street circuit with building-facade landmarks on both sides. The numpy
-random stream is the reference's, so the landmarks, poses and odometry
-equal the JAX package's (the geometry runs in float32 torch here, as in
-jnp there). Rendering and the dataset-format writers belong to the
-frontend slice and are not ported.
+The numpy random streams are the reference's, so the landmarks, poses,
+odometry and textures equal the JAX package's (the geometry runs in
+float32 torch here, as in jnp there). Rendering is a vectorised local-patch
+splat (numpy `add.at` over [N_blobs, S, S] windows); each landmark carries
+a stable 3-blob texture so BRIEF descriptors repeat across frames.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -21,6 +22,40 @@ from parakeet_slam_tpu_torch.core import geometry
 
 # body (x-forward, z-up, yaw) -> optical (z-forward, y-down) quaternion
 _Q_BC = np.array([-0.5, 0.5, -0.5, 0.5], np.float32)
+
+_PATCH_R = 12  # splat window radius (3 sigma of the largest blob + satellites)
+
+
+def _splat(img, u, v, amp, sigma, wrap_x):
+    """Accumulate Gaussian blobs at float centres (u, v) into img in place;
+    only a (2R+1)^2 window per blob is touched."""
+    H, W = img.shape
+    if len(u) == 0:
+        return
+    R = _PATCH_R
+    off = np.arange(-R, R + 1)
+    ui = np.round(u).astype(np.int64)
+    vi = np.round(v).astype(np.int64)
+    gx = ui[:, None] + off[None, :]                       # [N, S]
+    gy = vi[:, None] + off[None, :]                       # [N, S]
+    dx = gx - u[:, None]
+    dy = gy - v[:, None]
+    val = amp[:, None, None] * np.exp(
+        -(dx[:, None, :] ** 2 + dy[:, :, None] ** 2) / (2.0 * sigma[:, None, None] ** 2)
+    )                                                     # [N, S, S]
+    ok_y = (gy >= 0) & (gy < H)
+    if wrap_x:
+        gx = gx % W
+        ok_x = np.ones_like(gx, bool)
+    else:
+        ok_x = (gx >= 0) & (gx < W)
+    mask = ok_y[:, :, None] & ok_x[:, None, :]
+    np.add.at(
+        img,
+        (np.clip(gy, 0, H - 1)[:, :, None].repeat(2 * R + 1, axis=2),
+         np.clip(gx, 0, W - 1)[:, None, :].repeat(2 * R + 1, axis=1)),
+        np.where(mask, val, 0.0),
+    )
 
 
 @dataclass
@@ -36,8 +71,69 @@ class VisionWorld:
     max_render_range: float
     seed: int
 
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed + 99)
+        n = len(self.landmarks)
+        self._sizes = rng.uniform(1.6, 3.0, n).astype(np.float32)
+        self._sat = rng.uniform(-6, 6, (n, 2, 2)).astype(np.float32)
+        self._sat_amp = rng.uniform(0.35, 0.9, (n, 2)).astype(np.float32)
+
     def __len__(self):
         return self.gt_pose.shape[0]
+
+    def _render_pose(self, pose: np.ndarray) -> np.ndarray:
+        H, W = self.image_size
+        fx, fy, cx, cy = self.intrinsics
+        t, q = pose[:3], torch.as_tensor(pose[3:])
+        p_cam = geometry.quat_rotate(
+            geometry.quat_conjugate(q)[None], torch.as_tensor(self.landmarks - t)
+        ).numpy()
+        z = p_cam[:, 2]
+        vis = (z > 0.25) & (z < self.max_render_range)
+        zs = np.where(vis, z, 1.0)
+        u = fx * p_cam[:, 0] / zs + cx
+        v = fy * p_cam[:, 1] / zs + cy
+        m = _PATCH_R
+        vis &= (u >= -m) & (u < W + m) & (v >= -m) & (v < H + m)
+        j = np.where(vis)[0]
+        img = np.zeros((H, W), np.float32)
+        # centre blob + two satellite blobs per visible landmark
+        us = np.concatenate([u[j], u[j] + self._sat[j, 0, 0], u[j] + self._sat[j, 1, 0]])
+        vs = np.concatenate([v[j], v[j] + self._sat[j, 0, 1], v[j] + self._sat[j, 1, 1]])
+        amps = np.concatenate(
+            [np.ones(len(j), np.float32), self._sat_amp[j, 0], self._sat_amp[j, 1]]
+        )
+        sig = np.concatenate([self._sizes[j]] * 3)
+        _splat(img, us, vs, amps, sig, wrap_x=False)
+        return np.clip(img, 0.0, 1.0)
+
+    def render(self, i: int) -> np.ndarray:
+        """Grayscale [H, W] float32 frame i in [0, 1]."""
+        return self._render_pose(self.gt_pose[i])
+
+    def render_stereo(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        assert self.baseline > 0, "monocular world"
+        pose = self.gt_pose[i]
+        right_pose = pose.copy()
+        right_pose[:3] = geometry.se3_apply(
+            torch.as_tensor(pose), torch.tensor([self.baseline, 0.0, 0.0])
+        ).numpy()
+        return self._render_pose(pose), self._render_pose(right_pose)
+
+
+def _odometry(poses, rng, odom_noise):
+    """Noisy body-frame twist increments [T, 6] of a pose track (row 0 is
+    zero), drawn in the reference's order."""
+    T = len(poses)
+    poses_t = torch.as_tensor(poses)
+    rel = geometry.se3_log(geometry.se3_between(poses_t[:-1], poses_t[1:])).numpy()
+    odom = np.zeros((T, 6), np.float32)
+    for i in range(1, T):
+        noise = np.concatenate(
+            [rng.normal(0, odom_noise[0], 3), rng.normal(0, odom_noise[1], 3)]
+        )
+        odom[i] = rel[i - 1] + noise
+    return odom
 
 
 def _poses_from_track(xy, yaw, height, rng, odom_noise):
@@ -47,15 +143,57 @@ def _poses_from_track(xy, yaw, height, rng, odom_noise):
     p = geometry.se2_to_se3(se2)
     q = geometry.quat_multiply(p[:, 3:], torch.as_tensor(_Q_BC))
     t = torch.cat([p[:, :2], torch.as_tensor(np.asarray(height, np.float32))[:, None]], 1)
-    poses_t = torch.cat([t, q], 1)
-    rel = geometry.se3_log(geometry.se3_between(poses_t[:-1], poses_t[1:])).numpy()
-    odom = np.zeros((T, 6), np.float32)
-    for i in range(1, T):  # the reference's draw order
-        noise = np.concatenate(
-            [rng.normal(0, odom_noise[0], 3), rng.normal(0, odom_noise[1], 3)]
-        )
-        odom[i] = rel[i - 1] + noise
-    return poses_t.numpy(), odom
+    poses = torch.cat([t, q], 1).numpy()
+    return poses, _odometry(poses, rng, odom_noise)
+
+
+def make_desk_world(
+    num_landmarks: int = 1000,
+    num_steps: int = 600,
+    image_size: tuple[int, int] = (480, 640),
+    intrinsics: tuple[float, ...] = (517.3, 516.5, 318.6, 255.3),
+    orbit_radius: float = 1.8,
+    odom_noise: tuple[float, float] = (0.004, 0.002),
+    seed: int = 20,
+) -> VisionWorld:
+    """TUM fr1/desk-class monocular world (benchmark config 2): a handheld-like
+    camera orbits a cluttered desk twice, so the second orbit revisits the
+    first (loop closures); 640x480 at fr1 intrinsics, ~1k landmarks."""
+    rng = np.random.default_rng(seed)
+    n_desk = int(num_landmarks * 0.6)
+    n_room = num_landmarks - n_desk
+    desk = np.stack(
+        [rng.uniform(-0.7, 0.7, n_desk), rng.uniform(-0.5, 0.5, n_desk),
+         rng.uniform(0.0, 0.35, n_desk)], axis=1,
+    )
+    # room shell: points on walls 2.5-4 m out, at desk-to-ceiling heights
+    az = rng.uniform(0, 2 * np.pi, n_room)
+    r = rng.uniform(2.5, 4.0, n_room)
+    room = np.stack([r * np.cos(az), r * np.sin(az), rng.uniform(-0.7, 1.4, n_room)], axis=1)
+    landmarks = np.concatenate([desk, room]).astype(np.float32)
+
+    th = np.linspace(0, 4 * np.pi, num_steps, endpoint=False)  # two orbits
+    # handheld wobble on radius and height
+    wob_r = 0.12 * np.sin(3.1 * th) + 0.05 * np.sin(7.3 * th)
+    wob_h = 0.08 * np.sin(2.3 * th + 1.0)
+    rad = orbit_radius + wob_r
+    xy = np.stack([rad * np.cos(th), rad * np.sin(th)], axis=1)
+    yaw = th + np.pi  # face the desk centre
+    height = 0.85 + wob_h
+    poses, _ = _poses_from_track(xy, yaw, height, rng, odom_noise)
+    # pitch the camera down toward the desk surface (about optical x)
+    pitch = np.deg2rad(22.0)
+    q_pitch = np.array([np.sin(pitch / 2) * -1.0, 0.0, 0.0, np.cos(pitch / 2)], np.float32)
+    poses[:, 3:] = geometry.quat_multiply(
+        torch.as_tensor(poses[:, 3:]), torch.as_tensor(q_pitch)
+    ).numpy()
+    # the odometry is drawn again after the pitch (the increments change)
+    odom = _odometry(poses, rng, odom_noise)
+    return VisionWorld(
+        landmarks=landmarks, gt_pose=poses, odom=odom, image_size=image_size,
+        intrinsics=tuple(float(x) for x in intrinsics[:4]), baseline=0.0,
+        max_render_range=8.0, seed=seed,
+    )
 
 
 def make_drive_world(
@@ -69,7 +207,7 @@ def make_drive_world(
     odom_noise: tuple[float, float] = (0.02, 0.002),
     seed: int = 21,
 ) -> VisionWorld:
-    """KITTI 00-class stereo world (driver config 3): a closed rounded-square
+    """KITTI 00-class stereo world (benchmark config 3): a closed rounded-square
     street circuit (perimeter ~ 8*half) with facade landmarks on both sides;
     the final frames revisit the start."""
     rng = np.random.default_rng(seed)
@@ -115,3 +253,22 @@ def make_drive_world(
         intrinsics=tuple(float(x) for x in intrinsics[:4]), baseline=baseline,
         max_render_range=70.0, seed=seed,
     )
+
+
+def write_tum_format(world: VisionWorld, out_dir: str, fps: float = 30.0):
+    """Write rgb/*.png + rgb.txt + groundtruth.txt (the TUM RGB-D layout
+    that `data/tum.py` reads)."""
+    import cv2
+
+    out = Path(out_dir)
+    (out / "rgb").mkdir(parents=True, exist_ok=True)
+    rgb_lines = ["# color images", "# timestamp filename"]
+    gt_lines = ["# ground truth trajectory", "# timestamp tx ty tz qx qy qz qw"]
+    for i in range(len(world)):
+        ts = i / fps
+        name = f"rgb/{ts:.6f}.png"
+        cv2.imwrite(str(out / name), (world.render(i) * 255).astype(np.uint8))
+        rgb_lines.append(f"{ts:.6f} {name}")
+        gt_lines.append(f"{ts:.6f} " + " ".join(f"{x:.6f}" for x in world.gt_pose[i]))
+    (out / "rgb.txt").write_text("\n".join(rgb_lines) + "\n")
+    (out / "groundtruth.txt").write_text("\n".join(gt_lines) + "\n")

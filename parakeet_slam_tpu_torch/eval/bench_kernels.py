@@ -1,6 +1,6 @@
 """Per-kernel benchmarks (port of `parakeet_slam_tpu.eval.bench_kernels`):
-the rows ekf_update, ekf_update_3d, resample, fs1_step and fs2_step at the
-reference's shapes, one JSON row each.
+the rows ekf_update, ekf_update_3d, resample, fs1_step, fs2_step and match
+at the reference's shapes, one JSON row each.
 
 On the card each call is timed with CUDA events (median of `reps` after a
 warm-up), with the state restored untimed before every call, because the
@@ -171,26 +171,45 @@ def bench_resample(device, P=2048, L=10240, reps=5):
     return ms, P * L * 7 * 4 * 2, 0
 
 
+def bench_match(device, N=1024, M=131072, W=8, reps=10):
+    """Hamming top-2 of N packed 256-bit queries over an all-valid database
+    of M rows. Bytes: the packed database and queries read once, three
+    int32 results written; operations by the reference's accounting (its
+    bit-dot runs 2 * 32W per pair)."""
+    from parakeet_slam_tpu_torch.kernels import match
+
+    rng = np.random.default_rng(0)
+    qd = torch.as_tensor(rng.integers(-2**31, 2**31, (N, W), dtype=np.int64).astype(np.int32),
+                         device=device)
+    db = torch.as_tensor(rng.integers(-2**31, 2**31, (M, W), dtype=np.int64).astype(np.int32),
+                         device=device)
+    valid = torch.ones(M, dtype=torch.bool, device=device)
+    ms = time_call(lambda: match.hamming_top2(qd, db, valid), device, reps)
+    return ms, (M + N) * W * 4 + M + 3 * N * 4, N * M * 2 * W * 32
+
+
 BENCHES = {
     "ekf_update": bench_ekf,
     "ekf_update_3d": bench_ekf3d,
     "resample": bench_resample,
     "fs1_step": lambda device, **kw: bench_fs_step(device, algorithm="fastslam1", **kw),
     "fs2_step": lambda device, **kw: bench_fs_step(device, algorithm="fastslam2", **kw),
+    "match": bench_match,
 }
 
 
 def run(names, device, shape=None) -> list[dict]:
     """Print and return one JSON row per bench. `shape` overrides the
-    (P, L, Z) of the benches that take them (resample takes P and L)."""
+    (P, L, Z) of the benches that take them (resample takes P and L, match
+    N and M)."""
     peak = _peak(device)
     rows = []
     for name in names:
         kw = {}
         if shape:
-            kw = dict(zip(("P", "L", "Z"), shape))
+            kw = dict(zip(("N", "M") if name == "match" else ("P", "L", "Z"), shape))
             if name == "resample":
-                kw.pop("Z")
+                kw.pop("Z", None)
         ms, bytes_moved, flops = BENCHES[name](device, **kw)
         gbs = bytes_moved / ms / 1e6
         row = {

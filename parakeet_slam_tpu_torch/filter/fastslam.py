@@ -313,3 +313,8 @@ class FastSLAM:
         qm = torch.sum((w * sign)[:, None] * q, dim=0)
         qm = qm / torch.clamp(torch.linalg.vector_norm(qm), min=1e-9)
         return torch.cat([t, qm])
+
+    def best_particle_map(self, state: ParticleState):
+        """(means [L, Dl], valid [L]) of the highest-weight particle."""
+        best = torch.argmax(state.log_w)
+        return state.lm_mean[best], state.lm_valid[best]

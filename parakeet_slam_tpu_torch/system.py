@@ -1,0 +1,727 @@
+"""Online monocular visual SLAM: frontend -> particle filter -> keyframe
+backend (port of the single-device monocular part of
+`parakeet_slam_tpu.system`).
+
+Per frame (`process_frame`):
+  1. detect + describe on the grayscale image (frontend),
+  2. assemble a fixed-capacity Observation (pixel measurement + packed
+     BRIEF descriptor per keypoint),
+  3. one FastSLAM step (motion or proposal + fused measurement update),
+  4. the keyframe-motion test against a device-side reference, and the
+     flagged frame's own best-particle map snapshot;
+every `kf_flag_lag` frames the host reads the window's flags once,
+materializes the flagged keyframes (pose-graph node + odometry edge) and
+dispatches each keyframe's loop-closure match against the whole stacked
+keyframe store: one batched `kernels.match.hamming_top2` launch forward and
+one in reverse. The match tables are read one window later, mutually
+cross-checked, verified by a batched Horn consensus and a reprojection
+refine, and accepted closures become pose-graph edges; the pose graph is
+then optimized and its correction applied to every particle.
+
+The state lives on one device (`device=`). The kernel wrappers pick the
+route by the tensors' device alone: CUDA tensors launch the hand-written
+kernels, CPU tensors run their twins. Random draws come from a
+`torch.Generator` seeded by `cfg.filter.seed`, or are injected per frame
+(`motion_noise`, `resample_u0`) so that a test can replay the reference's
+draws. Keyframe descriptors are int32 words carrying the reference's
+uint32 bits.
+
+Not ported (each raises NotImplementedError): stereo frames
+(`process_stereo_frame`, which needs `frontend/stereo.py`), the image
+pyramid, checkpoints, bundle adjustment (`build_ba_problem`, `run_ba`) and
+the sharded filter.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from parakeet_slam_tpu_torch.backend import graph as graph_mod
+from parakeet_slam_tpu_torch.backend import posegraph as pg_mod
+from parakeet_slam_tpu_torch.core import geometry
+from parakeet_slam_tpu_torch.core.config import SLAMConfig
+from parakeet_slam_tpu_torch.core.state import Observation
+from parakeet_slam_tpu_torch.filter import make_filter
+from parakeet_slam_tpu_torch.filter.runner import draw_noise
+from parakeet_slam_tpu_torch.frontend import camera as camera_mod
+from parakeet_slam_tpu_torch.frontend.describe import describe
+from parakeet_slam_tpu_torch.frontend.detect import detect, top_k_stable
+from parakeet_slam_tpu_torch.kernels import match as match_mod
+from parakeet_slam_tpu_torch.utils.metrics_log import MetricsLogger
+
+# hamming_top2 launches per closure dispatch: the forward and the reverse
+# table are one batched launch each.
+MATCH_LAUNCHES_PER_DISPATCH = 2
+
+
+def _batched_kf_match(qd, qv, db, dbv, ratio: float):
+    """Forward + reverse Lowe-ratio matches of one query descriptor set
+    against a stacked keyframe store.
+
+    qd [F, W] int32, qv [F] bool, db [K, F, W], dbv [K, F]. Returns (fwd
+    [K, F], rev [K, F]) int32 match indices (-1 = none), per keyframe equal
+    to matching each keyframe on its own: forward shares the queries across
+    the batch, reverse shares the database."""
+    fwd, _ = match_mod.match(qd, qv, db, dbv, ratio=ratio)
+    rev, _ = match_mod.match(db, dbv, qd, qv, ratio=ratio)
+    return fwd, rev
+
+
+def _global_descriptor(desc: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Bit-frequency signature of a packed-descriptor set: the fraction of
+    valid descriptors with each of the W*32 bits set, centred at 0.5 and
+    L2-normalized."""
+    F, W = desc.shape
+    if valid.sum() == 0:
+        return np.zeros((W * 32,), np.float32)
+    bits = np.unpackbits(desc[valid].view(np.uint8), bitorder="little").reshape(-1, W * 32)
+    f = bits.mean(axis=0).astype(np.float32) - 0.5
+    n = float(np.linalg.norm(f))
+    return f / n if n > 1e-9 else f
+
+
+@dataclass
+class Keyframe:
+    index: int
+    pose: np.ndarray          # [7] current best pose (updated by the optimizer)
+    points_kf: np.ndarray     # [F, 3] landmark positions in the keyframe frame
+    desc: np.ndarray          # [F, W] packed descriptors (int32 words)
+    valid: np.ndarray         # [F]
+    frame: int = 0            # source frame index (loop-closure recency gate)
+    # Emission-frame anchor segments: (start_frame, pose [7]). Online
+    # estimates emitted at frame >= start_frame (until the next entry) are
+    # relative to that emission pose; corrected_trajectory() maps row t as
+    # pose . anchor(t)^-1 . est_t.
+    anchors: list = field(default_factory=list)
+    # place-recognition signature (_global_descriptor)
+    gdesc: np.ndarray | None = None
+
+    @property
+    def anchor(self) -> np.ndarray:
+        """Latest emission anchor (the current filter-estimate frame)."""
+        return self.anchors[-1][1]
+
+
+def _identity_pose(device) -> torch.Tensor:
+    p = torch.zeros(7, device=device)
+    p[6] = 1.0
+    return p
+
+
+def _huber(n, valid, delta):
+    """(cost, IRLS weights) of residual norms n [..., R] under a Huber
+    kernel of width delta, masked by valid."""
+    w = torch.where(valid, torch.clamp(delta / torch.clamp(n, min=1e-6), max=1.0),
+                    torch.zeros_like(n))
+    c = torch.where(n <= delta, 0.5 * n * n, delta * (n - 0.5 * delta))
+    return torch.sum(c * valid, dim=-1), w
+
+
+class SLAMSystem:
+    """The online system on one device. `cfg` is a `SLAMConfig`."""
+
+    def __init__(self, cfg: SLAMConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        fe = cfg.frontend
+        be = cfg.backend
+        d = cfg.dist
+        if d.particle_axis * d.map_axis > 1 and self.device.type == "cuda" and (
+                d.particle_axis * d.map_axis <= torch.cuda.device_count()):
+            raise NotImplementedError(
+                "the sharded filter (dist.particle_axis/map_axis > 1 on enough cards) is "
+                "not ported (ROADMAP Queue 1); on fewer cards the reference runs on one "
+                "device, as this port does")
+        if cfg.checkpoint_every > 0 and cfg.checkpoint_dir:
+            raise NotImplementedError("checkpoints are not ported (ROADMAP Queue 1)")
+        self.slam = make_filter(cfg.filter, fe)
+        self.camera = camera_mod.from_config(fe)
+        self.wrap_x = fe.camera == "equirect"
+        self.keyframes: list[Keyframe] = []
+        self.graph = graph_mod.make_pose_graph(be.max_keyframes, 4 * be.max_keyframes,
+                                               device=self.device)
+        self.state = self.slam.init_state(device=self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.filter.seed)
+        self.frame_idx = 0
+        self.metrics = MetricsLogger(cfg.metrics_path or None)
+        self.loop_closures: list[tuple[int, int]] = []
+        # Device-side keyframe-motion reference: a flagged frame's estimate
+        # becomes the reference for the next frame's test inside the step,
+        # so the keyframe cadence is a function of the frame sequence alone.
+        self._last_kf_dev = _identity_pose(self.device)
+        self._has_kf = False
+        self._metrics_pending: list[tuple] = []
+        # Keyframe flags are read in windows of kf_flag_lag frames, at
+        # absolute frame-index boundaries (every frame until the first
+        # keyframe exists); each flagged frame carries its own snapshot.
+        self.kf_flag_lag = 4
+        self._flag_pending: list[tuple] = []
+        # Device-resident stacked keyframe descriptor store [capK, F, W] /
+        # [capK, F], grown by doubling.
+        self._kf_desc_dev: torch.Tensor | None = None
+        self._kf_valid_dev: torch.Tensor | None = None
+        # Dispatched-but-unresolved closure matches (kf_index, n_old,
+        # fwd [K, F], rev [K, F] device tensors), drained at the next flush.
+        self._closure_pending: list[tuple] = []
+
+    # -- frontend ---------------------------------------------------------
+
+    def _frontend(self, img: torch.Tensor):
+        fe = self.cfg.frontend
+        if fe.pyramid_levels > 1:
+            raise NotImplementedError("frontend.pyramid_levels > 1 (frontend/pyramid.py) is "
+                                      "not ported (ROADMAP Queue 1)")
+        xy, _, valid = detect(
+            img, max_features=fe.max_features, detector=fe.detector,
+            threshold=fe.fast_threshold, nms_radius=fe.nms_radius, wrap_x=self.wrap_x,
+        )
+        return xy, describe(img, xy, valid, wrap_x=self.wrap_x), valid
+
+    def _to_observation(self, z, desc, valid) -> Observation:
+        """Keypoint measurements -> fixed-capacity filter Observation."""
+        Z = self.cfg.filter.max_observations
+        z, desc, valid = z[:Z], desc[:Z], valid[:Z]
+        pad = Z - z.shape[0]
+        if pad > 0:
+            z = torch.nn.functional.pad(z, (0, 0, 0, pad))
+            desc = torch.nn.functional.pad(desc, (0, 0, 0, pad))
+            valid = torch.nn.functional.pad(valid, (0, pad))
+        return Observation(z=z, sig=torch.zeros(Z, 0, device=z.device), desc=desc, valid=valid)
+
+    # -- keyframe / loop closure -----------------------------------------
+
+    def _kf_snapshot_impl(self, state, est_pose):
+        """Best-particle map snapshot in the keyframe frame: F lanes ranked
+        valid in-FOV first (most-observed first), then valid out-of-view,
+        with non-finite or far-away lanes excluded. The ranking keeps the
+        reference's tie order (lower lane first)."""
+        means, valid = self.slam.best_particle_map(state)
+        best = torch.argmax(state.log_w)
+        desc = state.lm_desc[best]
+        count = state.lm_count[best]
+        F = min(self.cfg.frontend.max_features, means.shape[0])
+        in_fov = self.slam.model.in_fov(est_pose, means)
+        dist = torch.linalg.vector_norm(means - est_pose[:3], dim=-1)
+        sane = torch.isfinite(dist) & (dist < 8.0 * self.cfg.filter.max_range)
+        score = torch.where(
+            valid & sane,
+            torch.where(in_fov, 1e6, 0.0) + count.to(torch.float32),
+            torch.full_like(dist, -1.0),
+        )
+        _, sel = top_k_stable(score, F)
+        pts_kf = geometry.se3_apply_inverse(est_pose, means[sel])
+        return pts_kf, desc[sel], valid[sel] & sane[sel]
+
+    def _make_keyframe(self, est_pose, snap=None, frame=None, anchor_pose=None):
+        """Materialize a keyframe from a map snapshot (the flagged frame's
+        in-step snapshot when given, else the current state's). `anchor_pose`,
+        when given, is the raw emission-frame estimate (it differs from
+        est_pose only when a correction was applied earlier in the same
+        flush window)."""
+        est_pose = torch.as_tensor(est_pose, dtype=torch.float32, device=self.device)
+        if snap is None:
+            snap = self._kf_snapshot_impl(self.state, est_pose)
+        pose_np, pts_np, desc_np, valid_np = (t.cpu().numpy() for t in (est_pose, *snap))
+        fr = self.frame_idx if frame is None else frame
+        anchor_np = (pose_np.copy() if anchor_pose is None
+                     else torch.as_tensor(anchor_pose).cpu().numpy().astype(np.float32))
+        kf = Keyframe(
+            index=len(self.keyframes), pose=pose_np, points_kf=pts_np, desc=desc_np,
+            valid=valid_np, frame=fr, anchors=[(fr, anchor_np)],
+            gdesc=_global_descriptor(desc_np, valid_np),
+        )
+        self.keyframes.append(kf)
+        self._kf_store_append(kf)
+        self.graph = graph_mod.add_node(self.graph, est_pose)
+        if kf.index > 0:
+            prev = self.keyframes[kf.index - 1]
+            rel = geometry.se3_between(torch.as_tensor(prev.pose, device=self.device), est_pose)
+            # Odometry-edge information from the odometry noise accumulated
+            # over the edge's frame span plus an estimate-jitter floor.
+            df = max(kf.frame - prev.frame, 1)
+            it0, ir0 = self.cfg.backend.odom_edge_info
+            st, sr = self.cfg.data.odom_noise
+            it = 1.0 / (df * float(st) ** 2 + 1.0 / it0)
+            ir = 1.0 / (df * float(sr) ** 2 + 1.0 / ir0)
+            self.graph = graph_mod.add_edge(self.graph, kf.index - 1, kf.index, rel,
+                                            info=[it, it, it, ir, ir, ir])
+        return kf
+
+    def _kf_store_append(self, kf: Keyframe):
+        """Write a keyframe's descriptors into the stacked device store,
+        doubling its capacity (from 64) as needed."""
+        F, W = kf.desc.shape
+        cap = 0 if self._kf_desc_dev is None else self._kf_desc_dev.shape[0]
+        if kf.index + 1 > cap:
+            new_cap = 64 if cap == 0 else cap * 2
+            while new_cap < kf.index + 1:
+                new_cap *= 2
+            desc = torch.zeros(new_cap, F, W, dtype=torch.int32, device=self.device)
+            val = torch.zeros(new_cap, F, dtype=torch.bool, device=self.device)
+            if cap:
+                desc[:cap] = self._kf_desc_dev
+                val[:cap] = self._kf_valid_dev
+            self._kf_desc_dev, self._kf_valid_dev = desc, val
+        self._kf_desc_dev[kf.index] = torch.as_tensor(kf.desc.view(np.int32), device=self.device)
+        self._kf_valid_dev[kf.index] = torch.as_tensor(kf.valid, device=self.device)
+
+    def _rebuild_kf_store(self):
+        """Upload the whole keyframe list into a fresh store at once."""
+        self._kf_desc_dev = self._kf_valid_dev = None
+        if not self.keyframes:
+            return
+        cap = 64
+        while cap < len(self.keyframes):
+            cap *= 2
+        F, W = self.keyframes[0].desc.shape
+        desc = np.zeros((cap, F, W), np.int32)
+        val = np.zeros((cap, F), bool)
+        for kf in self.keyframes:
+            desc[kf.index] = kf.desc.view(np.int32)
+            val[kf.index] = kf.valid
+        self._kf_desc_dev = torch.as_tensor(desc, device=self.device)
+        self._kf_valid_dev = torch.as_tensor(val, device=self.device)
+
+    def _try_loop_closure(self, kf: Keyframe, min_matches: int = 12):
+        """Dispatch this keyframe's closure match and resolve it at once.
+        Returns True when an accepted closure wants an inline optimize."""
+        self._dispatch_loop_closure(kf)
+        return self._resolve_closures(min_matches)
+
+    def _dispatch_loop_closure(self, kf: Keyframe):
+        """Launch the batched match of this keyframe against every eligible
+        older keyframe without reading the result: the [K, F] tables stay
+        on the device until the next flush drains them."""
+        gap = self.cfg.backend.loop_min_frame_gap
+        n_old = sum(1 for k in self.keyframes[: kf.index] if k.frame <= kf.frame - gap)
+        if n_old == 0:
+            return
+        eligible = torch.arange(self._kf_desc_dev.shape[0], device=self.device) < n_old
+        fwd, rev = _batched_kf_match(
+            torch.as_tensor(kf.desc.view(np.int32), device=self.device),
+            torch.as_tensor(kf.valid, device=self.device),
+            self._kf_desc_dev, self._kf_valid_dev & eligible[:, None],
+            ratio=self.cfg.frontend.match_ratio,
+        )
+        self._closure_pending.append((kf.index, n_old, fwd, rev))
+
+    def _resolve_closures(self, min_matches: int = 12) -> bool:
+        """Drain the dispatched closure matches (one device-to-host copy),
+        cross-check the correspondences, verify the candidates in one
+        batched Horn consensus + refine, and add the accepted edges.
+        Returns True when an accepted closure passes the innovation gate."""
+        pend, self._closure_pending = self._closure_pending, []
+        if not pend:
+            return False
+        tables = [t for _, _, f, r in pend for t in (f, r)]
+        host = torch.cat([t.flatten() for t in tables]).cpu().numpy()
+        ends = np.cumsum([t.numel() for t in tables])
+        host = [h.reshape(t.shape) for h, t in zip(np.split(host, ends[:-1]), tables)]
+        fetched = list(zip(host[0::2], host[1::2]))
+        # -- phase 1 (host): candidate selection + correspondence tables --
+        cand_rows = []  # (kf_index, old_index, pa, pb, valid)
+        for (kidx, n_old, _, _), (fwd, rev) in zip(pend, fetched):
+            kf = self.keyframes[kidx]
+            F = fwd.shape[1]
+            rows = np.arange(F)[None, :]
+            mutual = (fwd >= 0) & (np.take_along_axis(rev, np.clip(fwd, 0, F - 1), axis=1) == rows)
+            counts = mutual.sum(axis=1)
+            counts[n_old:] = 0
+            # up to 2 distinct closure targets per keyframe
+            cands = [(int(k), min_matches) for k in np.argsort(counts)[::-1][:2]]
+            # global place-recognition tier: high-similarity places at a
+            # relaxed mutual-count threshold (verification stays strict)
+            if kf.gdesc is not None:
+                sims = np.asarray([
+                    float(kf.gdesc @ self.keyframes[i].gdesc)
+                    if self.keyframes[i].gdesc is not None else -1.0
+                    for i in range(n_old)
+                ])
+                seen = {c[0] for c in cands}
+                for i in np.argsort(sims)[::-1][:2]:
+                    i = int(i)
+                    if sims[i] > 0.5 and i not in seen and counts[i] >= max(6, min_matches // 2):
+                        cands.append((i, max(6, min_matches // 2)))
+            for k_best, thr in cands:
+                if counts[k_best] < thr:
+                    continue
+                old = self.keyframes[k_best]
+                pa = np.zeros((F, 3), np.float32)
+                pb = np.zeros((F, 3), np.float32)
+                sel = np.where(mutual[k_best])[0]
+                pa[: len(sel)] = kf.points_kf[sel]                # kf frame
+                pb[: len(sel)] = old.points_kf[fwd[k_best, sel]]  # old frame
+                cand_rows.append((kidx, k_best, pa, pb, np.arange(F) < len(sel)))
+        if not cand_rows:
+            return False
+        # -- phase 2 (device, one batch): Horn consensus + reprojection
+        # refine of every candidate; T: p_old ~ T(p_kf) => Z_{old,kf}.
+        Nc = 1
+        while Nc < len(cand_rows):
+            Nc *= 2
+        F = cand_rows[0][2].shape[0]
+        pa_b = np.zeros((Nc, F, 3), np.float32)
+        pb_b = np.zeros((Nc, F, 3), np.float32)
+        v_b = np.zeros((Nc, F), bool)
+        for i, (_, _, pa, pb, v) in enumerate(cand_rows):
+            pa_b[i], pb_b[i], v_b[i] = pa, pb, v
+        rels, n_ins = self._verify_candidates(
+            *(torch.as_tensor(a, device=self.device) for a in (pa_b, pb_b, v_b)))
+        rels, n_ins = rels.cpu(), n_ins.cpu().numpy()
+        # -- phase 3 (host): accept edges, innovation-gate the optimize --
+        need_opt = False
+        for (kidx, oldidx, _, _, _), rel, n_in in zip(cand_rows, rels, n_ins):
+            if int(n_in) < max(min_matches, 4):
+                continue
+            kf = self.keyframes[kidx]
+            old = self.keyframes[oldidx]
+            it, ir = self.cfg.backend.loop_edge_info
+            self.graph = graph_mod.add_edge(self.graph, old.index, kf.index, rel,
+                                            info=[it, it, it, ir, ir, ir])
+            self.loop_closures.append((old.index, kf.index))
+            # Innovation gate: the edge is kept either way; the inline
+            # optimize + correct runs only when it disagrees with the graph.
+            gate = self.cfg.backend.loop_min_innovation
+            if gate > 0.0:
+                pred = geometry.se3_between(torch.as_tensor(old.pose), torch.as_tensor(kf.pose))
+                xi = geometry.se3_log(geometry.se3_between(rel, pred)).numpy()
+                if float(np.linalg.norm(xi[:3]) + 3.0 * np.linalg.norm(xi[3:])) < gate:
+                    continue
+            need_opt = True
+        return need_opt
+
+    def _verify_candidates(self, pa, pb, valid):
+        """Batched closure verification [Nc, F, ...]: Horn consensus, then the
+        reprojection refine. Returns (rel [Nc, 7], inliers [Nc])."""
+        rel, n_in = self._horn_consensus_impl(pa, pb, valid)
+        refine = (self._refine_rel_depth_impl if self.cfg.backend.loop_refine_depth_sigma > 0.0
+                  else self._refine_rel_impl)
+        return refine(rel, pa, pb, valid), n_in
+
+    def _refine_rel_impl(self, rel0, pa, pb, valid):
+        """Reprojection-refine closure edges rel0 [..., 7] (Z_{old,kf}: maps
+        kf-frame points pa [..., F, 3] into the old keyframe's frame, where
+        their matches are pb): 8 Gauss-Newton steps on the SE(3) tangent of
+        rel minimizing the symmetric pixel reprojection error under a 3 px
+        Huber kernel, each step kept only where it lowers the cost; falls
+        back to rel0 where the refined cost is not better. Batched over the
+        leading dims; the Jacobian is `torch.func.jacfwd` of the residuals
+        with respect to one perturbation shared by every batch entry (each
+        entry's residuals depend on its own rel only)."""
+        cam = self.camera
+        delta = 3.0
+        vm = torch.cat([valid, valid], dim=-1)
+        uv_a, uv_b = cam.project(pa), cam.project(pb)
+
+        def residual(rel):
+            pao = geometry.se3_apply(rel[..., None, :], pa)
+            pbk = geometry.se3_apply_inverse(rel[..., None, :], pb)
+            return torch.cat([cam.project(pao) - uv_b, cam.project(pbk) - uv_a], dim=-2)
+
+        def cost_w(rel):
+            return _huber(torch.linalg.vector_norm(residual(rel), dim=-1), vm, delta)
+
+        def perturbed(xi, rel):  # see backend/posegraph.py on the leading axis
+            return geometry.se3_compose(rel, geometry.se3_exp(xi[None])[0])
+
+        eye = torch.eye(6, device=pa.device)
+        zero = torch.zeros(6, device=pa.device)
+        rel = rel0
+        for _ in range(8):
+            r0 = residual(rel)                                   # [..., 2F, Dz]
+            _, w = cost_w(rel)
+            J = torch.func.jacfwd(lambda x: residual(perturbed(x, rel)))(zero)
+            J = J.flatten(-3, -2)                                # [..., 2F*Dz, 6]
+            wf = w.repeat_interleave(r0.shape[-1], dim=-1)
+            A = J.transpose(-1, -2) @ (wf[..., None] * J) + 1e-4 * eye
+            b = (J.transpose(-1, -2) @ (wf * r0.flatten(-2))[..., None])[..., 0]
+            xi = -torch.linalg.solve(A, b)
+            xi = torch.where(torch.isfinite(xi), xi, torch.zeros_like(xi))
+            cand = geometry.se3_compose(rel, geometry.se3_exp(xi))
+            c_old, _ = cost_w(rel)
+            c_new, _ = cost_w(cand)
+            rel = torch.where((torch.isfinite(c_new) & (c_new < c_old))[..., None], cand, rel)
+        c0, _ = cost_w(rel0)
+        c1, _ = cost_w(rel)
+        return torch.where((torch.isfinite(c1) & (c1 <= c0))[..., None], rel, rel0)
+
+    def _refine_rel_depth_impl(self, rel0, pa, pb, valid):
+        """Depth-relaxed closure refinement (backend.loop_refine_depth_sigma
+        > 0): like `_refine_rel_impl`, with the kf-side point depths free
+        under a relative Gaussian prior (sigma = that fraction of the Horn
+        depth). Depths are 1x1 Schur blocks, so each of the 10 Gauss-Newton
+        steps is one 6x6 solve per batch entry."""
+        cam = self.camera
+        delta = 3.0
+        eps = 1e-6
+        rs = float(self.cfg.backend.loop_refine_depth_sigma)
+        d0 = torch.linalg.vector_norm(pa, dim=-1)
+        ray = pa / torch.clamp(d0, min=eps)[..., None]
+        uv_b, uv_a = cam.project(pb), cam.project(pa)
+        vm = valid & (d0 > eps)
+        wp = 1.0 / torch.clamp((rs * d0) ** 2, min=eps)          # prior information
+
+        def res12(rel, d):
+            pao = geometry.se3_apply(rel[..., None, :], d[..., None] * ray)
+            pbk = geometry.se3_apply_inverse(rel[..., None, :], pb)
+            return cam.project(pao) - uv_b, cam.project(pbk) - uv_a
+
+        def hw(r):
+            return _huber(torch.linalg.vector_norm(r, dim=-1), vm, delta)
+
+        def cost(rel, d):
+            r1, r2 = res12(rel, d)
+            prior = torch.sum(torch.where(vm, wp * (d - d0) ** 2, torch.zeros_like(d)), dim=-1)
+            return hw(r1)[0] + hw(r2)[0] + 0.5 * prior
+
+        def perturbed(xi, rel):  # see backend/posegraph.py on the leading axis
+            return geometry.se3_compose(rel, geometry.se3_exp(xi[None])[0])
+
+        eye = torch.eye(6, device=pa.device)
+        zero = torch.zeros(6, device=pa.device)
+        rel, d = rel0, d0
+        for _ in range(10):
+            r1, r2 = res12(rel, d)
+            _, w1 = hw(r1)
+            _, w2 = hw(r2)
+            A1, A2 = torch.func.jacfwd(lambda x: res12(perturbed(x, rel), d))(zero)  # [.., F, Dz, 6]
+            # r1 of point f depends on d_f alone: the diagonal of dr1/dd is
+            # one forward-mode product with a tangent of ones
+            _, (B1, _) = torch.func.jvp(lambda dd: res12(rel, dd), (d,), (torch.ones_like(d),))
+            wA1 = A1 * w1[..., None, None]
+            wA2 = A2 * w2[..., None, None]
+            Hxx = (torch.einsum("...fdi,...fdj->...ij", A1, wA1)
+                   + torch.einsum("...fdi,...fdj->...ij", A2, wA2))
+            Hdd = torch.sum(B1 * B1 * w1[..., None], dim=-1) + wp + 1e-8
+            Hxd = torch.einsum("...fdi,...fd->...fi", wA1, B1)
+            gx = (torch.einsum("...fdi,...fd->...i", wA1, r1)
+                  + torch.einsum("...fdi,...fd->...i", wA2, r2))
+            gd = torch.sum(B1 * r1 * w1[..., None], dim=-1) + wp * (d - d0)
+            S = (Hxx - torch.einsum("...fi,...fj->...ij", Hxd / Hdd[..., None], Hxd)
+                 + 1e-4 * eye)
+            rhs = gx - torch.sum(Hxd * (gd / Hdd)[..., None], dim=-2)
+            dxi = -torch.linalg.solve(S, rhs)
+            dxi = torch.where(torch.isfinite(dxi), dxi, torch.zeros_like(dxi))
+            dd = -(gd + (Hxd @ dxi[..., None])[..., 0]) / Hdd
+            dd = torch.where(torch.isfinite(dd) & vm, dd, torch.zeros_like(dd))
+            cand_rel = geometry.se3_compose(rel, geometry.se3_exp(dxi))
+            cand_d = torch.clamp(d + dd, 0.05, 1e4)
+            c_new = cost(cand_rel, cand_d)
+            good = torch.isfinite(c_new) & (c_new < cost(rel, d))
+            rel = torch.where(good[..., None], cand_rel, rel)
+            d = torch.where(good[..., None], cand_d, d)
+        c1 = cost(rel, d)
+        better = torch.isfinite(c1) & (c1 <= cost(rel0, d0))
+        return torch.where(better[..., None], rel, rel0)
+
+    def _horn_consensus_impl(self, pa, pb, valid):
+        """Three rounds of Horn 3D-3D fit + inlier re-selection, batched over
+        the leading dims. The re-selection is ANDed with the padding mask
+        (zero rows would otherwise fit inside the radius). Returns (rel,
+        number of inliers of the last round)."""
+        radius = self.cfg.backend.loop_inlier_radius
+        cur, rel = valid, None
+        for _ in range(3):
+            rel = graph_mod.estimate_relative_pose_3d3d(pb, pa, cur)
+            fit = geometry.se3_apply(rel[..., None, :], pa)
+            cur = (torch.linalg.vector_norm(fit - pb, dim=-1) < radius) & valid
+        return rel, torch.sum(cur.to(torch.int32), dim=-1)
+
+    def _optimize_graph(self):
+        """Optimize the pose graph at its live size (a power-of-two view)."""
+        view, _, _ = graph_mod.shrink_to_active(self.graph)
+        view, _ = pg_mod.optimize_pose_graph(view, iters=self.cfg.backend.gn_iters)
+        poses = self.graph.poses.clone()
+        poses[: view.poses.shape[0]] = view.poses
+        return self.graph.replace(poses=poses)
+
+    def _optimize_and_correct(self):
+        """Optimize the pose graph and left-apply the resulting correction of
+        the latest keyframe to the filter state. Returns the correction [7]
+        (numpy) for the pending frames of the flush window."""
+        self.graph = self._optimize_graph()
+        k = len(self.keyframes) - 1
+        opt_pose = self.graph.poses[k]
+        est_pose = torch.as_tensor(self.keyframes[k].pose, device=self.device)
+        corr = geometry.se3_compose(opt_pose, geometry.se3_inverse(est_pose))
+        self.state = self.state.replace(
+            pose=geometry.se3_compose(corr, self.state.pose),
+            lm_mean=geometry.se3_apply(corr, self.state.lm_mean),
+        )
+        # the keyframe-motion reference lives in the filter-estimate frame
+        self._last_kf_dev = geometry.se3_compose(corr, self._last_kf_dev)
+        poses_np = self.graph.poses[: len(self.keyframes)].cpu().numpy()
+        corr_np = corr.cpu().numpy()
+        for i, kf in enumerate(self.keyframes):
+            kf.pose = poses_np[i]
+        # Estimates emitted after this correction are relative to the
+        # shifted filter frame: a new anchor segment on the latest keyframe
+        # from the next frame on.
+        last = self.keyframes[-1]
+        shifted = geometry.se3_compose(torch.as_tensor(corr_np),
+                                       torch.as_tensor(last.anchor)).numpy()
+        start = self.frame_idx + 1
+        if last.anchors[-1][0] >= start:
+            last.anchors[-1] = (last.anchors[-1][0], shifted)
+        else:
+            last.anchors.append((start, shifted))
+        return corr_np
+
+    # -- per-frame step ---------------------------------------------------
+
+    def _kf_test(self, est, last_kf, has_kf: bool):
+        xi = geometry.se3_log(geometry.se3_between(last_kf, est))
+        be = self.cfg.backend
+        moved = ((torch.linalg.vector_norm(xi[:3]) > be.keyframe_translation)
+                 | (torch.linalg.vector_norm(xi[3:]) > be.keyframe_rotation))
+        return moved | (not has_kf)
+
+    def _draws(self, motion_noise, resample_u0):
+        """This frame's (noise [P, noise_dim], u0): injected, or drawn."""
+        if motion_noise is not None and resample_u0 is not None:
+            return (torch.as_tensor(motion_noise, dtype=torch.float32, device=self.device),
+                    torch.as_tensor(resample_u0, dtype=torch.float32, device=self.device))
+        noise, u0 = draw_noise(1, self.slam.cfg.num_particles, self.slam.noise_dim,
+                               self.generator, self.device)
+        return (noise[0] if motion_noise is None else motion_noise,
+                u0[0] if resample_u0 is None else resample_u0)
+
+    def _step(self, obs, odom_u, motion_noise, resample_u0):
+        """Filter step, estimate, keyframe flag with the reference latch, and
+        the frame's own map snapshot."""
+        noise, u0 = self._draws(motion_noise, resample_u0)
+        u = torch.as_tensor(np.asarray(odom_u, np.float32), device=self.device)
+        self.state, metrics = self.slam.step(self.state, u, obs, noise, u0)
+        est = self.slam.estimate_pose(self.state)
+        flag = self._kf_test(est, self._last_kf_dev, self._has_kf)
+        self._last_kf_dev = torch.where(flag, est, self._last_kf_dev)
+        snap = self._kf_snapshot_impl(self.state, est)
+        return self._post_step(est, flag, snap, metrics)
+
+    # -- main entry -------------------------------------------------------
+
+    def process_frame(self, img, odom_u, motion_noise=None, resample_u0=None):
+        """One camera frame [H, W] in [0, 1] + odometry increment [6].
+        Returns the pose estimate [7] as a device tensor. `motion_noise`
+        [P, noise_dim] and `resample_u0` replace this frame's draws."""
+        img = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+        xy, desc, valid = self._frontend(img)
+        return self._step(self._to_observation(xy, desc, valid), odom_u, motion_noise,
+                          resample_u0)
+
+    def process_obs(self, obs: Observation, odom_u, motion_noise=None, resample_u0=None):
+        """Bypass the image frontend with a ready Observation."""
+        return self._step(obs, odom_u, motion_noise, resample_u0)
+
+    def process_stereo_frame(self, img_left, img_right, odom_u):
+        raise NotImplementedError("stereo frames need frontend/stereo.py, which is not "
+                                  "ported (ROADMAP Queue 1)")
+
+    def _post_step(self, est, kf_flag, snap, metrics):
+        self.frame_idx += 1
+        self._metrics_pending.append((
+            self.frame_idx,
+            (metrics.ess, metrics.num_landmarks, metrics.match_frac, metrics.resampled),
+            len(self.keyframes),
+        ))
+        if len(self._metrics_pending) >= 256:
+            self.flush_metrics()
+        self._flag_pending.append((self.frame_idx, est, kf_flag, snap))
+        # absolute-phase flushes: a function of the frame index alone
+        if not self._has_kf or self.frame_idx % self.kf_flag_lag == 0:
+            self.flush_flags()
+        return est
+
+    def flush_flags(self):
+        """Read the pending keyframe flags (one device-to-host copy) and
+        materialize a keyframe for every flagged frame from its own
+        snapshot. The closure matches dispatched in the previous window are
+        resolved first; a resulting correction is composed into this
+        window's pending estimates."""
+        pend, self._flag_pending = self._flag_pending, []
+        flags = torch.stack([f for _, _, f, _ in pend]).tolist() if pend else []
+        pend_corr = None
+        if self._resolve_closures():
+            pend_corr = self._optimize_and_correct()
+        if not any(flags):
+            return
+        for (fi, est, _, snap), f in zip(pend, flags):
+            if not f:
+                continue
+            est_raw = est
+            if pend_corr is not None:
+                est = geometry.se3_compose(torch.as_tensor(pend_corr, device=est.device), est)
+            kf = self._make_keyframe(est, snap, frame=fi, anchor_pose=est_raw)
+            if pend_corr is not None:
+                # rows already emitted are relative to the raw estimate; rows
+                # after the flush live in the corrected frame
+                kf.anchors.append((self.frame_idx + 1, est.cpu().numpy().astype(np.float32)))
+            self._has_kf = True
+            self._dispatch_loop_closure(kf)
+
+    def flush_metrics(self):
+        """Drain the device-side metrics buffer into the JSONL logger (one
+        batched copy)."""
+        pend, self._metrics_pending = self._metrics_pending, []
+        if not pend:
+            return
+        vals = torch.stack([torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                                         device=self.device) for v in p[1]])
+                            for p in pend]).cpu().numpy()
+        for (fi, _, nkf), (ess, lms, mf, rs) in zip(pend, vals):
+            self.metrics.log(fi, ess=float(ess), landmarks=float(lms), match_frac=float(mf),
+                             resampled=bool(rs), keyframes=nkf)
+
+    # -- not ported -------------------------------------------------------
+
+    def save_checkpoint(self, path_prefix: str):
+        raise NotImplementedError("checkpoints are not ported (ROADMAP Queue 1)")
+
+    def load_checkpoint(self, path_prefix: str):
+        raise NotImplementedError("checkpoints are not ported (ROADMAP Queue 1)")
+
+    def build_ba_problem(self, dedup_max_hamming: int = 40):
+        raise NotImplementedError("bundle adjustment is not ported (ROADMAP Queue 1, slice 5)")
+
+    def run_ba(self, iters=None, distributed=None):
+        raise NotImplementedError("bundle adjustment is not ported (ROADMAP Queue 1, slice 5)")
+
+    # -- offline refinement ----------------------------------------------
+
+    def corrected_trajectory(self, est, final_optimize: bool = True):
+        """Map the online per-frame estimates [T, 7] (frame t = row t-1) onto
+        the optimized keyframe graph: each frame t in keyframe i's segment
+        becomes pose_i . anchor_i^-1 . est_t, with pose_i the keyframe's
+        optimized pose and anchor_i the emission pose its segment is
+        relative to. Rows before the first keyframe keep their estimate."""
+        if isinstance(est, (list, tuple)):
+            est = torch.stack([torch.as_tensor(e) for e in est])
+        est = torch.as_tensor(est).cpu().numpy() if torch.is_tensor(est) else np.asarray(est)
+        if not self.keyframes:
+            return est
+        self.flush_flags()
+        # drain closure matches dispatched by the final window
+        if self._resolve_closures() and not final_optimize:
+            self._optimize_and_correct()
+        if final_optimize and self.loop_closures:
+            self.graph = self._optimize_graph()
+            poses_np = self.graph.poses[: len(self.keyframes)].cpu().numpy()
+            for i, kf in enumerate(self.keyframes):
+                kf.pose = poses_np[i]
+        kf_frames = np.asarray([kf.frame for kf in self.keyframes])
+        poses = torch.as_tensor(np.stack([kf.pose for kf in self.keyframes]))
+        a_kf = np.asarray([kf.index for kf in self.keyframes for _ in kf.anchors], np.int64)
+        a_start = np.asarray([s for kf in self.keyframes for s, _ in kf.anchors], np.int64)
+        a_val = torch.as_tensor(np.stack([a for kf in self.keyframes for _, a in kf.anchors]))
+        corr = geometry.se3_compose(poses[torch.as_tensor(a_kf)], geometry.se3_inverse(a_val))
+        frames = np.arange(1, len(est) + 1, dtype=np.int64)
+        seg = np.searchsorted(kf_frames, frames, "right") - 1
+        keys = a_kf * (np.int64(1) << 32) + a_start
+        rowkey = seg.astype(np.int64) * (np.int64(1) << 32) + frames
+        j = np.searchsorted(keys, rowkey, "right") - 1
+        out = geometry.se3_compose(corr[torch.as_tensor(np.clip(j, 0, None))],
+                                   torch.as_tensor(est, dtype=torch.float32)).numpy()
+        return np.where((seg >= 0)[:, None], out, est)
