@@ -5,7 +5,8 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
   1. environment: torch/CUDA versions, card name and power limit, TF32 flags;
-  2. build both hand-written kernels from `parakeet_slam_tpu_torch/csrc`;
+  2. build the hand-written kernels from `parakeet_slam_tpu_torch/csrc` (five
+     sources);
   3. each kernel against its plain PyTorch twin on the card, at the corridor
      shape (P=64, L=192, Z=16, S=3) and the real-size shape (P=2048,
      L=10240, Z=32, S=3): masks, counts, target lanes and n_match equal,
@@ -58,13 +59,43 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      closures, peak device memory, and the corrected, online and
      dead-reckoning ATE (Sim(3), not gated);
   11. every keyframe-store match of phase 10, replayed through the twin:
-     forward and reverse tables equal.
+     forward and reverse tables equal;
+  12. the landmark-block inverse-apply kernel (apply_cinv) against its twin:
+     the bench shape N=262144, a bucket-sized N=46080, N=1, N=1000, a
+     non-contiguous C with a broadcast u, and blocks with |det| < eps, a
+     negative det and a 1e12 damping diagonal; within rtol=1e-6 (bit-equal
+     is expected and reported); times of kernel, twin and
+     `torch.linalg.solve_ex` (the solve without its host-side error check)
+     with the launches queued behind a sleep kernel and the operands rotated
+     past the L2 cache;
+  13. bundle adjustment at full width: the bench's problem (64 cameras,
+     50,000 points, 128,000 observations) solved by `ba.optimize_ba` with
+     the backend settings of configs/euroc_mh.yaml (20 LM iterations, 100
+     PCG iterations, bucketed, pcg): finite costs, the final cost below the
+     initial one, apply_cinv launched gn_iters x buckets x (pcg_iters + 3)
+     times, seconds per LM iteration, peak device memory; the first 2
+     iterations again through the twin (costs within rtol=1e-5); a profile
+     of 2 iterations (launches, device busy time, idle share); the schur
+     and ba_iteration rows of the kernel bench;
+  14. `run_ba(iters=20)` on phase 10's system (40 keyframes, the pose
+     graph's edges fused; LM rejects about its first ten iterations from
+     the config's damping of 1e-4, as the reference does): hamming_top2
+     launched once per keyframe by the point dedup, and the dedup run again
+     through the twin on the same snapshots gives equal point ids, store,
+     count and dropped count; apply_cinv launched, finite keyframe poses,
+     final cost <= first cost; points, observations, dropped points,
+     seconds, and the corrected ATE before and after (printed, not gated).
+Every kernel's record carries its bound: the larger of the bytes it must
+move (inputs read once, outputs written once) over 3.35 TB/s and its
+operations over the card's peak for their type (67 TFLOP/s float32, 1,979
+TOP/s int8), counted from the inputs of this run and from the arithmetic of
+the plain twins (OPS_2D, OPS_3D, CINV_OPS).
 Exits non-zero at the first failed check, and without a result when there
 is no CUDA device or no package beside the script. The last line is
 {"ok": true, "device": {...}}, the line before it the kernels' JSON record
-(the six kernels: ekf_update_2d, gather_rows, measurement_update_3d,
-score_3d, hamming_top2, l2_top2) and the line before that the card's name
-and power limit.
+(the seven kernels: ekf_update_2d, gather_rows, measurement_update_3d,
+score_3d, hamming_top2, l2_top2, apply_cinv) and the line before that the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -92,6 +123,102 @@ def cuda_ms(fn, reps, prepare=None):
     from parakeet_slam_tpu_torch.eval.profiling import timed
 
     return timed(fn, reps=reps, prepare=prepare)[0]
+
+
+# Published peaks of one H100 SXM at its full power limit: device memory
+# bytes/s, float32 operations/s outside the tensor cores, int8 tensor-core
+# operations/s.
+PEAK_BYTES, PEAK_F32, PEAK_INT8 = 3.35e12, 67e12, 1979e12
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, ops, peak_ops=PEAK_F32):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move n_bytes and do ops operations, and which of the two binds."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Operations of the update functions, counted from the arithmetic of their
+# plain twins (which the kernels follow operation for operation). One
+# operation is one add, subtract, multiply, divide, negate, compare, select,
+# xor, popcount, or one sqrt/log/trig call; work that a function needs once
+# per lane is counted once per lane, however often a kernel redoes it.
+#   pair:   one observation scored against one valid lane: residual,
+#           Mahalanobis form, log-likelihood, finite test and running argmax,
+#           without the signature or descriptor term (`appearance_ops`);
+#   lane:   a valid lane's scoring geometry (projection, Jacobian, innovation
+#           covariance, its inverse and log-determinant);
+#   update: the EKF update of one matched lane; init: one new landmark;
+#   cull:   the field-of-view test and count of one valid, unmatched lane;
+#   obs:    the association decision and weight term of one valid observation.
+OPS_2D = {"pair": 22, "lane": 57, "update": 131, "init": 55, "cull": 18, "obs": 12}
+OPS_3D = {
+    "pinhole_3d": {"pair": 19, "lane": 118, "update": 279, "init": 102, "cull": 38, "obs": 12},
+    "stereo_3d": {"pair": 31, "lane": 201, "update": 429, "init": 216, "cull": 38, "obs": 12},
+    "equirect_3d": {"pair": 23, "lane": 149, "update": 314, "init": 102, "cull": 27, "obs": 12},
+}
+
+
+def appearance_ops(width):
+    """Operations per pair of the appearance term: `width` signature
+    differences squared and summed, or `width` descriptor words xor-ed,
+    popcounted and summed; then the scaling and the subtraction."""
+    return 3 * width + 3 if width else 0
+
+
+def update_ops(counts, width, lm_valid, target, n_obs, n_valid_obs):
+    """(operations of the score pass, operations of the whole frame update)
+    for this frame: `lm_valid` [P, L] before the frame, `target` [P, Z] the
+    lanes the twin wrote, `n_obs` observations scored against every valid
+    lane by the score function and `n_valid_obs` of them by the update."""
+    import torch
+
+    lanes = int(lm_valid.sum())
+    pair = counts["pair"] + appearance_ops(width)
+    hit = target >= 0
+    updated = torch.gather(lm_valid.bool(), 1, target.clamp(min=0).long()) & hit
+    n_update = int(updated.sum())
+    n_init = int(hit.sum()) - n_update
+    sweep = counts["lane"] * lanes
+    rest = (counts["obs"] * n_valid_obs * lm_valid.shape[0] + counts["update"] * n_update
+            + counts["init"] * n_init + counts["cull"] * (lanes - n_update))
+    return pair * n_obs * lanes + sweep, pair * n_valid_obs * lanes + sweep + rest
+
+
+def queued_ms(call, reps=20, batches=5):
+    """Median milliseconds per call of `call(i)` over `batches` runs of
+    `reps` back-to-back calls, each run queued behind a sleep kernel, so
+    that the time is the device's and not the host's time to enqueue the
+    launches. A run counts only if the sleep was still running when the last
+    call had been enqueued; otherwise the sleep is doubled (from ~10 ms) and
+    the run repeated. `call` must not wait for the device."""
+    import statistics
+
+    import torch
+
+    call(0)
+    times, cycles = [], 20_000_000
+    while len(times) < batches:
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(reps):
+            call(i)
+        queued = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if queued:
+            times.append(start.elapsed_time(end) / reps)
+        else:
+            cycles *= 2
+            check(cycles <= 1_280_000_000, "queued_ms: the host cannot enqueue the calls "
+                  "behind a 0.7 s sleep (does the call wait for the device?)")
+    return statistics.median(times)
 
 
 def phase_environment():
@@ -181,7 +308,13 @@ def check_update_kernel(shape, device, fill="holes", timed=True, **flags):
     if not timed:
         print(f"ekf_update_2d P={P} L={L} Z={Z} S={S} fill={fill} {flags}: targets={n_upd} "
               f"collisions={n_coll} max_abs_err={err:.3g} agrees")
-        return err, None, None
+        return err, None, None, None
+    # bound: the state and the frame read once, the results written once; the
+    # operations this frame needs (OPS_2D: 34 per pair of a valid observation
+    # and a valid lane at S=3, 57 per lane, the updates, inits and the cull)
+    n_valid_obs = int(T["valid"].sum())
+    _, ops = update_ops(OPS_2D, S, T["lm_valid"], ref[7], n_valid_obs, n_valid_obs)
+    bnd = bound(nbytes(*state, *obs) + nbytes(*got), ops)
 
     def reset():
         for w, s in zip(work, state):
@@ -191,8 +324,9 @@ def check_update_kernel(shape, device, fill="holes", timed=True, **flags):
     ms = cuda_ms(lambda: ekf_update.measurement_update_2d(*work, *obs, **kw), reps, reset)
     plain = cuda_ms(lambda: ekf_update.measurement_update_2d_reference(*state, *obs, **kw), reps)
     print(f"ekf_update_2d P={P} L={L} Z={Z} S={S}: targets={n_upd} collisions={n_coll} "
-          f"max_abs_err={err:.3g} kernel={ms:.4f} ms twin={plain:.4f} ms")
-    return err, ms, plain
+          f"max_abs_err={err:.3g} kernel={ms:.4f} ms twin={plain:.4f} ms "
+          f"bound={bnd[0]:.4f} ms ({bnd[1]})")
+    return err, ms, plain, bnd
 
 
 def check_gather_kernel(shape, device):
@@ -230,7 +364,9 @@ def check_gather_kernel(shape, device):
         print(f"gather_rows P={P} L={L} S={S} {name} ({len(set(ix.tolist()))} distinct rows): "
               f"{n_bytes / 1e9:.4f} GB per copy, kernel={ms:.4f} ms "
               f"({2 * n_bytes / ms / 1e9:.3f} TB/s) twin={plain:.4f} ms")
-    return err, ms, plain
+    # bound: every leaf read once and written once, plus the indices. The
+    # twin is `index_select` per leaf: the library call for this function.
+    return err, ms, plain, bound(2 * n_bytes + nbytes(idx), 0)
 
 
 def phase_kernels(device):
@@ -415,7 +551,15 @@ def check_update_3d(model, shape, device, fill="holes", timed=True, ext=False, *
         for w, s in zip(work, state):
             w.copy_(s)
 
+    # bounds: operands read once, results written once; the operations this
+    # frame needs (OPS_3D: 58 per pair for stereo with 8 descriptor words, 46
+    # pinhole, 50 equirect, plus the per-lane geometry). score_3d scores all Z
+    # observations, the update the valid ones and then applies and culls.
+    score_ops, update_ops_ = update_ops(OPS_3D[model], kw["desc_words"], T["lm_valid"], ref[7],
+                                        shape[2], int(T["valid"].sum()))
     t = {
+        "update_bound": bound(nbytes(*state, *obs) + nbytes(*got), update_ops_),
+        "score_bound": bound(nbytes(*score_args) + nbytes(ll, ix), score_ops),
         "update": cuda_ms(lambda: E.measurement_update_3d(*work, *obs, **kw), reps_k, reset),
         "update_twin": cuda_ms(lambda: E.measurement_update_3d_reference(*state, *obs, **kw), reps_t),
         "score": cuda_ms(lambda: E.score_3d(*score_args, **sk), reps_k),
@@ -423,7 +567,9 @@ def check_update_3d(model, shape, device, fill="holes", timed=True, ext=False, *
     }
     print(f"ekf_update_3d {what}: targets={n_upd} max_abs_err={err:.3g} "
           f"update kernel={t['update']:.4f} ms twin={t['update_twin']:.4f} ms | "
-          f"score_3d kernel={t['score']:.4f} ms twin={t['score_twin']:.4f} ms")
+          f"score_3d kernel={t['score']:.4f} ms twin={t['score_twin']:.4f} ms | bounds "
+          f"update={t['update_bound'][0]:.4f} ms ({t['update_bound'][1]}) "
+          f"score={t['score_bound'][0]:.4f} ms ({t['score_bound'][1]})")
     return err, t
 
 
@@ -599,11 +745,17 @@ def check_hamming(what, qd, db, valid, timed=False):
     n_tie = int((ref[1] == ref[2]).sum())
     if not timed:
         print(f"hamming_top2 {what}: bit-equal (ties {n_tie})")
-        return None, None
+        return None, None, None
     ms = cuda_ms(lambda: match.hamming_top2(qd, db, valid), 20)
     plain = cuda_ms(lambda: match.hamming_top2_reference(qd, db, valid), 3)
-    print(f"hamming_top2 {what}: bit-equal (ties {n_tie}) kernel={ms:.4f} ms twin={plain:.4f} ms")
-    return ms, plain
+    # bound: operands read once, three results written; per pair of a query
+    # and a valid row the reference's bit-dot count (2 operations a bit) at
+    # the int8 tensor-core rate, the fastest unit that can do it
+    pairs = qd.shape[-2] * int(valid.sum())
+    bnd = bound(nbytes(qd, db, valid, *got), pairs * 2 * 32 * qd.shape[-1], PEAK_INT8)
+    print(f"hamming_top2 {what}: bit-equal (ties {n_tie}) kernel={ms:.4f} ms twin={plain:.4f} ms "
+          f"bound={bnd[0]:.4f} ms ({bnd[1]})")
+    return ms, plain, bnd
 
 
 def check_l2(what, qd, db, valid, timed=False):
@@ -627,12 +779,18 @@ def check_l2(what, qd, db, valid, timed=False):
     if not timed:
         print(f"l2_top2 {what}: max_abs_err={err:.3g} idx equal where gap > {L2_GAP} "
               f"({n_swap} near-tie swaps)")
-        return err, None, None
+        return err, None, None, None
     ms = cuda_ms(lambda: match.l2_top2(qd, db, valid), 10)
     plain = cuda_ms(lambda: match.l2_top2_reference(qd, db, valid), 5)
+    # bound: operands read once, results written; a multiply and an add per
+    # dimension and pair of a query and a valid row, in float32 (TF32 would
+    # move the argmins). The twin is the matmul form: the library yardstick.
+    bnd = bound(nbytes(qd, db, valid, gi, g1, g2),
+                2 * qd.shape[0] * int(valid.sum()) * qd.shape[1])
     print(f"l2_top2 {what}: max_abs_err={err:.3g} idx equal where gap > {L2_GAP} "
-          f"({n_swap} near-tie swaps) kernel={ms:.4f} ms twin={plain:.4f} ms")
-    return err, ms, plain
+          f"({n_swap} near-tie swaps) kernel={ms:.4f} ms twin={plain:.4f} ms "
+          f"bound={bnd[0]:.4f} ms ({bnd[1]})")
+    return err, ms, plain, bnd
 
 
 def phase_match(device):
@@ -766,7 +924,8 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
           f"desk launches score_3d={launches[0]} update_3d={launches[1]}, frames {frames}")
     check(launches[2] == n_res, f"desk gather launches {launches[2]}, resamples {n_res}")
     return {"fps": fps, "launches": launches, "calls": calls, "ates": ates,
-            "closures": len(sys_.loop_closures), "peak_gib": peak / 2**30}
+            "closures": len(sys_.loop_closures), "peak_gib": peak / 2**30,
+            "system": sys_, "est": est, "gt": world.gt_pose, "cfg": cfg}
 
 
 def phase_desk_replay(calls):
@@ -792,12 +951,296 @@ def phase_desk_replay(calls):
           f"equal to the twin's ({n_match} matched entries)")
 
 
+# --------------------------------------------------------------------------
+# Slice 4: bundle adjustment
+# --------------------------------------------------------------------------
+
+CINV_BENCH = 262144   # the kernel bench's N (BASELINE.md:142)
+CINV_BUCKET = 46080   # a bucket of the full-width problem: 90 x 512 rows
+CINV_RTOL = 1e-6      # bit-equal is expected (-fmad=false, IEEE division)
+CINV_OPS = 46         # operations per block, counted from csrc/schur.cu
+BA_TWIN_ITERS = 2
+BA_TWIN_RTOL = 1e-5
+# run_ba on the config 2 system: twice the config's gn_iters, because LM
+# from the config's lm_damping_init = 1e-4 rejects about its first ten
+# iterations on this problem while the damping climbs (the reference does
+# the same on the same problem).
+BA_SYSTEM_ITERS = 20
+
+
+def check_cinv(what, C, u):
+    """apply_cinv against its twin; returns the largest |difference|."""
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import schur
+
+    got = schur.apply_cinv(C, u)
+    ref = schur.apply_cinv_reference(C, u)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape and got.is_contiguous(), f"apply_cinv {what}: shape {got.shape}")
+    check(bool(torch.isfinite(ref).all()), f"apply_cinv {what}: the twin is not finite")
+    n_diff = int((got != ref).sum())
+    err = float((got - ref).abs().max())
+    check(torch.allclose(got, ref, rtol=CINV_RTOL, atol=0.0),
+          f"apply_cinv {what}: {n_diff} entries differ, max |diff| {err}")
+    print(f"apply_cinv {what}: "
+          f"{'bit-equal' if n_diff == 0 else f'{n_diff} entries differ'} max_abs_err={err:.3g}")
+    return err
+
+
+def phase_cinv(device):
+    """The inverse-apply kernel against its twin, then the three times."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import schur_blocks
+    from parakeet_slam_tpu_torch.kernels import schur
+
+    T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    err = 0.0
+    for n in (CINV_BENCH, CINV_BUCKET, 1, 1000):
+        C, u = schur_blocks(n, seed=n)
+        err = max(err, check_cinv(f"N={n}", T(C), T(u)))
+    # the blocks the solver makes: an invalid point (1e12 damping on a tiny
+    # block), |det| < eps (replaced by eps), a negative det (sign kept)
+    C, u = schur_blocks(4096, seed=3)
+    C[::7] = 1e-3 * C[::7] + (1e12 + 1e-6) * np.eye(3, dtype=np.float32)
+    C[1::7] = 1e-5 * np.eye(3, dtype=np.float32)
+    C[2::7] = -C[2::7]
+    err = max(err, check_cinv("N=4096 damped, |det|<eps and negative-det blocks", T(C), T(u)))
+    # a C that is a view into a wider tensor, and a u broadcast from one row
+    C, u = schur_blocks(5000, seed=4)
+    wide = torch.zeros(5000, 4, 5, device=device)
+    wide[:, :3, 1:4] = T(C)
+    err = max(err, check_cinv("N=5000 strided C, broadcast u", wide[:, :3, 1:4],
+                              T(u[:1]).expand(5000, 3)))
+
+    # times at the bench shape: 8 operand sets (126 MB) in turn, so that no
+    # launch finds its operands in the 50 MB L2
+    sets = [tuple(T(a) for a in schur_blocks(CINV_BENCH, seed=100 + i)) for i in range(8)]
+    pick = lambda i: sets[i % len(sets)]  # noqa: E731
+    # The library call is `solve_ex` without its error check: `linalg.solve`
+    # copies its status to the host in every call, and would be timed with
+    # that round trip. The twin (~35 launches) and the solve get few calls per
+    # run, so that the host has them all enqueued while the sleep still runs.
+    solve = lambda C, u: torch.linalg.solve_ex(C, u[..., None], check_errors=False)[0]  # noqa: E731
+    ms = queued_ms(lambda i: schur.apply_cinv(*pick(i)))
+    plain = queued_ms(lambda i: schur.apply_cinv_reference(*pick(i)), reps=5)
+    lib = queued_ms(lambda i: solve(*pick(i)), reps=5)
+    C, u = sets[0]
+    lib_err = float((solve(C, u)[..., 0] - schur.apply_cinv(C, u)).abs().max())
+    # bound: the function needs the upper triangle of each block (24 of its
+    # 36 bytes), u and y; 46 operations per block (24 multiplies, 14 adds and
+    # subtracts, 2 negations, 3 divisions, the |det| test). Beside it the
+    # bound with all of C as it lies in memory.
+    bnd = bound(nbytes(C) * 2 // 3 + nbytes(u, u), CINV_OPS * CINV_BENCH)
+    bnd_laid_out = bound(nbytes(C, u, u), CINV_OPS * CINV_BENCH)
+    small = tuple(T(a) for a in schur_blocks(CINV_BUCKET, seed=5))
+    ms_bucket = queued_ms(lambda i: schur.apply_cinv(*small))
+    print(f"apply_cinv N={CINV_BENCH}: kernel={ms:.5f} ms ({nbytes(C, u, u) / ms / 1e9:.3f} TB/s "
+          f"of C, u and y as laid out) twin={plain:.5f} ms linalg.solve_ex={lib:.5f} ms "
+          f"(max |solve - kernel| {lib_err:.3g}) bound={bnd[0]:.5f} ms ({bnd[1]}, upper "
+          f"triangle of C; {bnd_laid_out[0]:.5f} ms with all 36 B of a block); "
+          f"N={CINV_BUCKET}: kernel={ms_bucket:.5f} ms")
+    return {"err": err, "ms": ms, "plain": plain, "library": lib, "bound": bnd,
+            "bound_laid_out": bnd_laid_out[0], "ms_bucket": ms_bucket}
+
+
+def _profile(fn):
+    """(launches, device busy ms, wall ms, the five device activities with
+    the most time as (name, ms, count)) of fn() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(dev, "torch.profiler recorded no device activity")
+    by_name = {}
+    for e in dev:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(((name, ms, n) for name, (ms, n) in by_name.items()), key=lambda r: -r[1])[:5]
+    return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall, top
+
+
+def phase_ba(device):
+    """Bundle adjustment at full width with configs/euroc_mh.yaml's backend."""
+    import torch
+
+    from parakeet_slam_tpu_torch.backend import ba, graph
+    from parakeet_slam_tpu_torch.core.config import load_config
+    from parakeet_slam_tpu_torch.eval import bench_kernels
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import BA_BENCH_CAMERA, ba_bench_problem
+    from parakeet_slam_tpu_torch.frontend.camera import Pinhole
+    from parakeet_slam_tpu_torch.kernels import schur
+
+    be = load_config(os.path.join(HERE, "configs/euroc_mh.yaml")).backend
+    check(be.solver == "pcg", f"euroc_mh.yaml solver {be.solver}")
+    cam = Pinhole(*BA_BENCH_CAMERA)
+    prob = graph.make_ba_problem(**ba_bench_problem(), device=device)
+    t0 = time.perf_counter()
+    bk = graph.pack_buckets(prob)
+    t_pack = time.perf_counter() - t0
+    shapes = [tuple(p.shape) for p in bk.p_cam]
+    kw = dict(lam=be.lm_damping_init, pcg_iters=be.pcg_iters, huber_delta=be.huber_delta,
+              solver=be.solver, step_clamp=(be.ba_step_clamp_cam, be.ba_step_clamp_pt))
+    cost0 = float(ba.ba_cost(cam, prob, be.huber_delta))
+    ba.optimize_ba(cam, bk, iters=1, **kw)  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    schur.apply_cinv.launches = 0
+    t0 = time.perf_counter()
+    res = ba.optimize_ba(cam, bk, iters=be.gn_iters, **kw)
+    costs = res.costs.cpu()
+    dt = time.perf_counter() - t0
+    launches = schur.apply_cinv.launches
+    peak = torch.cuda.max_memory_allocated()
+    want = be.gn_iters * len(shapes) * (be.pcg_iters + 3)
+    print(f"ba full width (C={prob.num_cams} points={prob.num_points} obs={prob.num_obs}, "
+          f"buckets {shapes}, packed in {t_pack:.2f} s; lam0={be.lm_damping_init} "
+          f"iters={be.gn_iters} pcg_iters={be.pcg_iters} huber={be.huber_delta}): "
+          f"{dt:.3f} s, {dt / be.gn_iters * 1e3:.1f} ms per LM iteration, "
+          f"peak_mem={peak / 2**30:.3f} GiB, apply_cinv launches={launches}")
+    print(f"ba full width: cost {cost0:.1f} -> {float(costs[0]):.1f} -> {float(costs[-1]):.1f}, "
+          f"accepted {int((costs[1:] < costs[:-1]).sum()) + int(costs[0] < cost0)} of "
+          f"{be.gn_iters}, last pcg residual {float(res.pcg_residuals[-1]):.3g}")
+    check(bool(torch.isfinite(costs).all()), f"ba costs not finite: {costs}")
+    check(float(costs[-1]) < cost0 and float(costs[-1]) <= float(costs[0]),
+          f"ba cost did not fall: {cost0} -> {costs}")
+    check(bool(torch.isfinite(res.problem.cam_pose).all() & torch.isfinite(res.problem.points).all()),
+          "ba result not finite")
+    check(launches == want, f"apply_cinv launches {launches} != {be.gn_iters} x {len(shapes)} x "
+          f"({be.pcg_iters} + 3) = {want}")
+
+    # the first iterations again, the kernel path against the twin path
+    kernel = ba.optimize_ba(cam, bk, iters=BA_TWIN_ITERS, **kw)
+    dispatch = schur.cinv_apply
+    schur.cinv_apply = schur.apply_cinv_reference
+    try:
+        n0 = schur.apply_cinv.launches
+        twin = ba.optimize_ba(cam, bk, iters=BA_TWIN_ITERS, **kw)
+        check(schur.apply_cinv.launches == n0, "the twin path launched the kernel")
+    finally:
+        schur.cinv_apply = dispatch
+    kc, tc = kernel.costs.cpu(), twin.costs.cpu()
+    check(torch.equal(kc, costs[:BA_TWIN_ITERS]), f"ba is not repeatable: {kc} vs {costs[:2]}")
+    check(torch.allclose(kc, tc, rtol=BA_TWIN_RTOL, atol=0.0), f"ba kernel path {kc} vs twin {tc}")
+    check(torch.equal(kc < torch.tensor([cost0, float(kc[0])]),
+                      tc < torch.tensor([cost0, float(tc[0])])), "ba accepts differ from the twin's")
+    d_pose = float((kernel.problem.cam_pose - twin.problem.cam_pose).abs().max())
+    d_pts = float((kernel.problem.points - twin.problem.points).abs().max())
+    print(f"ba kernel vs twin path, {BA_TWIN_ITERS} iterations: costs {kc.tolist()} vs "
+          f"{tc.tolist()}, same accepts, max |diff| poses {d_pose:.3g} points {d_pts:.3g}")
+
+    # where an LM iteration's time goes
+    n_prof = 2
+    n_launch, busy, wall, top = _profile(lambda: ba.optimize_ba(cam, bk, iters=n_prof, **kw))
+    print(f"ba profile, {n_prof} LM iterations: {n_launch / n_prof:.0f} device launches, "
+          f"device busy {busy / n_prof:.2f} ms, wall {wall / n_prof:.1f} ms per iteration "
+          f"with the profiler on; idle share {1 - busy / wall:.3f} with it, "
+          f"{1 - busy / n_prof / (dt / be.gn_iters * 1e3):.3f} against the unprofiled "
+          f"{dt / be.gn_iters * 1e3:.1f} ms")
+    for name, ms, n in top:
+        print(f"ba profile:   {ms / n_prof:8.2f} ms {n / n_prof:7.0f} launches per iteration  "
+              f"{name[:90]}")
+    bench_kernels.run(["schur", "ba_iteration"], device)
+    return {"launches": launches, "per_iter_ms": dt / be.gn_iters * 1e3, "costs": costs.tolist(),
+            "peak_gib": peak / 2**30}
+
+
+def phase_run_ba(desk):
+    """`run_ba()` on the config 2 system that phase 10 left."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch import system
+    from parakeet_slam_tpu_torch.eval import ate_rmse
+    from parakeet_slam_tpu_torch.kernels import match, schur
+
+    sys_, est, gt = desk["system"], desk["est"], desk["gt"]
+    K = len(sys_.keyframes)
+    logged = []
+    sys_.metrics.log = lambda frame, **rec: logged.append(rec)
+    dedup, assign = [], system._assign_point_ids
+
+    def capture(desc, valid, world, **kw):
+        out = assign(desc, valid, world, **kw)
+        dedup.append(((desc, valid, world), kw, out))
+        return out
+
+    match.hamming_top2.launches = 0
+    schur.apply_cinv.launches = 0
+    system._assign_point_ids = capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        res = sys_.run_ba(iters=BA_SYSTEM_ITERS)
+    finally:
+        system._assign_point_ids = assign
+    costs = res.costs.cpu()
+    dt = time.perf_counter() - t0
+    launches = (match.hamming_top2.launches, schur.apply_cinv.launches)
+
+    # The point dedup again through the twin: one match per keyframe against
+    # the store as the kernel path left it after the keyframes before, so a
+    # wrong match anywhere changes the ids, the store or the counts.
+    check(len(dedup) == 1, f"run_ba deduplicated {len(dedup)} times")
+    args, kw, ((sd, sv, sp, cnt, drop), pid) = dedup[0]
+    kernel = match.hamming_top2
+    match.hamming_top2 = match.hamming_top2_reference
+    try:
+        (t_sd, t_sv, t_sp, t_cnt, t_drop), t_pid = assign(*args, **kw)
+    finally:
+        match.hamming_top2 = kernel
+    check(match.hamming_top2.launches == launches[0], "the twin dedup launched the kernel")
+    for name, a, b in (("pid", pid, t_pid), ("store descriptors", sd, t_sd),
+                       ("store_valid", sv, t_sv), ("store positions", sp, t_sp),
+                       ("count", cnt, t_cnt), ("dropped", drop, t_drop)):
+        check(torch.equal(a, b), f"run_ba dedup: {name} differs from the twin's in "
+              f"{int((a != b).sum())} entries")
+    print(f"run_ba dedup replay: {args[0].shape[0]} keyframes x {args[0].shape[1]} rows against a "
+          f"store of {kw['cap']} (Hamming < {kw['max_ham']}): ids, store, count {int(cnt)} and "
+          f"dropped {int(drop)} equal to the twin's ({int((pid >= 0).sum())} ids assigned)")
+    dropped = sum(r.get("ba_points_dropped", 0) for r in logged)
+    poses = np.stack([kf.pose for kf in sys_.keyframes])
+    # the online estimates re-anchored to the adjusted keyframes (no further
+    # pose-graph solve, which would overwrite them)
+    est_ba = sys_.corrected_trajectory(est, final_optimize=False)
+    n = len(est)
+    ate = float(ate_rmse(torch.as_tensor(est_ba[:, :3]), torch.as_tensor(gt[:n, :3]),
+                         with_scale=True))
+    be = desk["cfg"].backend
+    print(f"run_ba config 2: {K} keyframes, {int(res.problem.pt_valid.sum())} points "
+          f"({dropped} dropped at capacity {res.problem.num_points}), "
+          f"{int(res.problem.obs_valid.sum())} observations, {sys_.graph.n_edges} pose edges at "
+          f"weight {be.ba_pose_edge_weight}; {len(costs)} LM iterations in {dt:.3f} s; "
+          f"launches hamming_top2={launches[0]} apply_cinv={launches[1]}")
+    n_acc = int((costs[1:] < costs[:-1]).sum())
+    print(f"run_ba config 2: cost {float(costs[0]):.1f} -> {float(costs[-1]):.1f} ({n_acc} of the "
+          f"last {len(costs) - 1} iterations accepted); corrected ate "
+          f"{desk['ates'][0]:.4f} m before, {ate:.4f} m after (Sim(3), not gated)")
+    check(bool(np.isfinite(poses).all()) and bool(np.isfinite(est_ba).all()),
+          "run_ba keyframe poses not finite")
+    check(bool(torch.isfinite(costs).all()) and float(costs[-1]) <= float(costs[0]),
+          f"run_ba costs {costs}")
+    check(launches[0] == K, f"run_ba hamming_top2 launches {launches[0]}, keyframes {K}")
+    check(launches[1] > 0 and launches[1] % (len(costs) * (be.pcg_iters + 3)) == 0,
+          f"run_ba apply_cinv launches {launches[1]}")
+    return {"launches": launches, "seconds": dt, "ate": ate}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "parakeet_slam_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke FAILED: run from a checkout of the repository")
     sys.path.insert(0, HERE)
     import torch
 
+    check(len(sys.argv) == 1, f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
     card = phase_environment()
     device = torch.device("cuda", 0)
     phase_build()
@@ -810,39 +1253,47 @@ def main():
     km, l2_err, l2_launches = phase_match(device)
     desk = phase_desk(device)
     phase_desk_replay(desk["calls"])
+    cinv = phase_cinv(device)
+    ba_run = phase_ba(device)
+    sys_ba = phase_run_ba(desk)
 
     pkg = "parakeet_slam_tpu_torch"
+
+    def entry(name, source, replaces, n_launches, err, ms, plain, bnd, library=None, **more):
+        return {"name": name, "route": "cuda", "source": f"{pkg}/csrc/{source}",
+                "replaces": replaces, "launches": n_launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": library, **more}
+
+    ekf, gat = k[("ekf", REAL_SHAPE)], k[("gather", REAL_SHAPE)]
+    t3, eq = k3["kitti"][1], k3["equirect_3d"][1]
     record = {"kernels": [
-        {"name": "ekf_update_2d", "route": "cuda", "source": f"{pkg}/csrc/ekf_update_2d.cu",
-         "replaces": "parakeet_slam_tpu/kernels/ekf_update.py:443", "launches": launches[0],
-         "max_abs_err": ekf_err,
-         "ms": k[("ekf", REAL_SHAPE)][1], "plain_ms": k[("ekf", REAL_SHAPE)][2],
-         "ms_corridor": k[("ekf", CORRIDOR_SHAPE)][1],
-         "plain_ms_corridor": k[("ekf", CORRIDOR_SHAPE)][2]},
-        {"name": "gather_rows", "route": "cuda", "source": f"{pkg}/csrc/gather_rows.cu",
-         "replaces": "parakeet_slam_tpu/kernels/resample_pallas.py:32", "launches": launches[1],
-         "max_abs_err": max(k[("gather", s)][0] for s in (CORRIDOR_SHAPE, REAL_SHAPE)),
-         "ms": k[("gather", REAL_SHAPE)][1], "plain_ms": k[("gather", REAL_SHAPE)][2],
-         "ms_corridor": k[("gather", CORRIDOR_SHAPE)][1],
-         "plain_ms_corridor": k[("gather", CORRIDOR_SHAPE)][2]},
-        {"name": "measurement_update_3d", "route": "cuda", "source": f"{pkg}/csrc/ekf_update_3d.cu",
-         "replaces": "parakeet_slam_tpu/kernels/ekf_update_3d.py:664",
-         "launches": vision["launches"][1], "max_abs_err": err3,
-         "ms": k3["kitti"][1]["update"], "plain_ms": k3["kitti"][1]["update_twin"],
-         "ms_bench_equirect": k3["equirect_3d"][1]["update"],
-         "plain_ms_bench_equirect": k3["equirect_3d"][1]["update_twin"]},
-        {"name": "score_3d", "route": "cuda", "source": f"{pkg}/csrc/ekf_update_3d.cu",
-         "replaces": "parakeet_slam_tpu/kernels/ekf_update_3d.py:920",
-         "launches": vision["launches"][0], "max_abs_err": err3,
-         "ms": k3["kitti"][1]["score"], "plain_ms": k3["kitti"][1]["score_twin"],
-         "ms_bench_equirect": k3["equirect_3d"][1]["score"],
-         "plain_ms_bench_equirect": k3["equirect_3d"][1]["score_twin"]},
-        {"name": "hamming_top2", "route": "cuda", "source": f"{pkg}/csrc/match.cu",
-         "replaces": "parakeet_slam_tpu/kernels/match.py:269", "launches": desk["launches"][3],
-         "max_abs_err": 0.0, "ms": km["ham"][0], "plain_ms": km["ham"][1]},
-        {"name": "l2_top2", "route": "cuda", "source": f"{pkg}/csrc/match.cu",
-         "replaces": "parakeet_slam_tpu/kernels/match.py:342", "launches": l2_launches,
-         "max_abs_err": l2_err, "ms": km["l2"][1], "plain_ms": km["l2"][2]},
+        entry("ekf_update_2d", "ekf_update_2d.cu", "parakeet_slam_tpu/kernels/ekf_update.py:443",
+              launches[0], ekf_err, ekf[1], ekf[2], ekf[3],
+              ms_corridor=k[("ekf", CORRIDOR_SHAPE)][1],
+              plain_ms_corridor=k[("ekf", CORRIDOR_SHAPE)][2]),
+        entry("gather_rows", "gather_rows.cu", "parakeet_slam_tpu/kernels/resample_pallas.py:32",
+              launches[1], max(k[("gather", s)][0] for s in (CORRIDOR_SHAPE, REAL_SHAPE)),
+              gat[1], gat[2], gat[3], library=gat[2],
+              ms_corridor=k[("gather", CORRIDOR_SHAPE)][1],
+              plain_ms_corridor=k[("gather", CORRIDOR_SHAPE)][2]),
+        entry("measurement_update_3d", "ekf_update_3d.cu",
+              "parakeet_slam_tpu/kernels/ekf_update_3d.py:664", vision["launches"][1], err3,
+              t3["update"], t3["update_twin"], t3["update_bound"],
+              ms_bench_equirect=eq["update"], plain_ms_bench_equirect=eq["update_twin"]),
+        entry("score_3d", "ekf_update_3d.cu", "parakeet_slam_tpu/kernels/ekf_update_3d.py:920",
+              vision["launches"][0], err3, t3["score"], t3["score_twin"], t3["score_bound"],
+              ms_bench_equirect=eq["score"], plain_ms_bench_equirect=eq["score_twin"]),
+        entry("hamming_top2", "match.cu", "parakeet_slam_tpu/kernels/match.py:269",
+              desk["launches"][3], 0.0, km["ham"][0], km["ham"][1], km["ham"][2],
+              launches_run_ba=sys_ba["launches"][0]),
+        entry("l2_top2", "match.cu", "parakeet_slam_tpu/kernels/match.py:342", l2_launches,
+              l2_err, km["l2"][1], km["l2"][2], km["l2"][3], library=km["l2"][2]),
+        entry("apply_cinv", "schur.cu", "parakeet_slam_tpu/kernels/schur.py:83",
+              ba_run["launches"], cinv["err"], cinv["ms"], cinv["plain"], cinv["bound"],
+              library=cinv["library"], ms_bucket=cinv["ms_bucket"],
+              bound_ms_all_of_c=cinv["bound_laid_out"],
+              launches_run_ba=sys_ba["launches"][1]),
     ]}
     print(card)
     print(json.dumps(record))

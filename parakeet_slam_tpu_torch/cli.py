@@ -11,6 +11,7 @@ benchmark, and the per-kernel benchmarks.
   python -m parakeet_slam_tpu_torch.cli bench
   python -m parakeet_slam_tpu_torch.cli bench --kernel fs2_step
   python -m parakeet_slam_tpu_torch.cli bench --kernel ekf_update_3d --device cpu --shape 16 256 8
+  python -m parakeet_slam_tpu_torch.cli bench --kernel ba_iteration --device cpu --shape 4 200 60
 
 `--device` defaults to cuda and fails when there is no card; only
 `--device cpu` runs on the CPU (through the kernels' plain twins). Any
@@ -345,11 +346,12 @@ def main(argv=None):
     p_bench.add_argument(
         "--kernel", default="",
         choices=["", "all", "ekf_update", "ekf_update_3d", "resample", "fs1_step", "fs2_step",
-                 "match"],
+                 "match", "schur", "ba_iteration"],
         help="one JSON row per kernel bench instead of the corridor headline",
     )
     p_bench.add_argument("--shape", type=int, nargs="+", default=None, metavar="N",
-                         help="P L [Z] in place of the kernel bench's shape")
+                         help="P L [Z] in place of the kernel bench's shape (match: N M; "
+                              "schur: N; ba_iteration: C Pts obs_per_cam)")
     p_bench.add_argument("--device", default="cuda")
     p_bench.set_defaults(fn=cmd_bench)
 

@@ -137,7 +137,8 @@ def so3_log_quat(q: torch.Tensor) -> torch.Tensor:
     return scale[..., None] * u
 
 
-def _so3_hat(w: torch.Tensor) -> torch.Tensor:
+def hat3(w: torch.Tensor) -> torch.Tensor:
+    """so(3) hat operator: [..., 3] -> skew-symmetric [..., 3, 3]."""
     zeros = torch.zeros_like(w[..., 0])
     return torch.stack(
         [
@@ -162,7 +163,7 @@ def _se3_V(w: torch.Tensor) -> torch.Tensor:
     A = torch.where(small, 1.0 - t2 / 6.0, torch.sin(th) / th)
     B = torch.where(small, 0.5 - t2 / 24.0, (1.0 - torch.cos(th)) / th2)
     C = torch.where(small, 1.0 / 6.0 - t2 / 120.0, (1.0 - A) / th2)
-    W = _so3_hat(w)
+    W = hat3(w)
     return _eye3_like(W) + B[..., None, None] * W + C[..., None, None] * (W @ W)
 
 
@@ -176,7 +177,7 @@ def _se3_V_inv(w: torch.Tensor) -> torch.Tensor:
         1.0 / 12.0 + theta * theta / 720.0,
         (1.0 - half * torch.cos(half) / torch.sin(half)) / (th * th),
     )
-    W = _so3_hat(w)
+    W = hat3(w)
     return _eye3_like(W) - 0.5 * W + cot_term[..., None, None] * (W @ W)
 
 

@@ -1,6 +1,6 @@
 """Per-kernel benchmarks (port of `parakeet_slam_tpu.eval.bench_kernels`):
-the rows ekf_update, ekf_update_3d, resample, fs1_step, fs2_step and match
-at the reference's shapes, one JSON row each.
+the rows ekf_update, ekf_update_3d, resample, fs1_step, fs2_step, match,
+schur and ba_iteration at the reference's shapes, one JSON row each.
 
 On the card each call is timed with CUDA events (median of `reps` after a
 warm-up), with the state restored untimed before every call, because the
@@ -21,7 +21,13 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from parakeet_slam_tpu_torch.eval.kernel_inputs import bench_frame_3d, camera_par
+from parakeet_slam_tpu_torch.eval.kernel_inputs import (
+    BA_BENCH_CAMERA,
+    ba_bench_problem,
+    bench_frame_3d,
+    camera_par,
+    schur_blocks,
+)
 
 # Published peaks (device memory GB/s, float32 TFLOP/s outside the tensor
 # cores) by card name; SXM parts at their full power limit.
@@ -188,6 +194,35 @@ def bench_match(device, N=1024, M=131072, W=8, reps=10):
     return ms, (M + N) * W * 4 + M + 3 * N * 4, N * M * 2 * W * 32
 
 
+def bench_schur(device, N=262144, reps=10):
+    """The landmark-block inverse-apply y = C^-1 u on N blocks. Bytes: C and
+    u read once as they lie (36 + 12 bytes a block), y written once; 60
+    float operations a block by the reference bench's accounting (the
+    cofactor form itself is 46)."""
+    from parakeet_slam_tpu_torch.kernels import schur
+
+    C, u = (torch.as_tensor(a, device=device) for a in schur_blocks(N))
+    ms = time_call(lambda: schur.cinv_apply(C, u), device, reps)
+    return ms, N * (9 + 3 + 3) * 4, N * 60
+
+
+def bench_ba(device, C=64, Pts=50000, obs_per_cam=2000, iters=4, pcg_iters=25, reps=3):
+    """Whole Schur/PCG bundle-adjustment iterations at EuRoC-config scale: C
+    cameras, Pts landmarks, C * obs_per_cam residuals. The problem is packed
+    once outside the timed call; ms is per LM iteration, bytes and
+    operations by the reference's accounting."""
+    from parakeet_slam_tpu_torch.backend import ba, graph
+    from parakeet_slam_tpu_torch.frontend.camera import Pinhole
+
+    prob = graph.make_ba_problem(**ba_bench_problem(C, Pts, obs_per_cam), device=device)
+    bk = graph.pack_buckets(prob)
+    cam = Pinhole(*BA_BENCH_CAMERA)
+    ms = time_call(lambda: ba.optimize_ba(cam, bk, iters=iters, pcg_iters=pcg_iters,
+                                          huber_delta=50.0), device, reps)
+    O = C * obs_per_cam
+    return (ms / iters, (1 + pcg_iters) * O * (2 + 12 + 6) * 4, O * (500 + pcg_iters * 120))
+
+
 BENCHES = {
     "ekf_update": bench_ekf,
     "ekf_update_3d": bench_ekf3d,
@@ -195,19 +230,24 @@ BENCHES = {
     "fs1_step": lambda device, **kw: bench_fs_step(device, algorithm="fastslam1", **kw),
     "fs2_step": lambda device, **kw: bench_fs_step(device, algorithm="fastslam2", **kw),
     "match": bench_match,
+    "schur": bench_schur,
+    "ba_iteration": bench_ba,
 }
+
+
+_SHAPE_KEYS = {"match": ("N", "M"), "schur": ("N",), "ba_iteration": ("C", "Pts", "obs_per_cam")}
 
 
 def run(names, device, shape=None) -> list[dict]:
     """Print and return one JSON row per bench. `shape` overrides the
     (P, L, Z) of the benches that take them (resample takes P and L, match
-    N and M)."""
+    N and M, schur N, ba_iteration C, Pts and obs_per_cam)."""
     peak = _peak(device)
     rows = []
     for name in names:
         kw = {}
         if shape:
-            kw = dict(zip(("N", "M") if name == "match" else ("P", "L", "Z"), shape))
+            kw = dict(zip(_SHAPE_KEYS.get(name, ("P", "L", "Z")), shape))
             if name == "resample":
                 kw.pop("Z", None)
         ms, bytes_moved, flops = BENCHES[name](device, **kw)

@@ -247,3 +247,41 @@ def drive_observations(world, t, Z, W, seed, pixel_noise=(0.75, 0.75, 0.5), max_
     z[:n] = zw[pick] + rng.normal(size=(n, 3)) * np.asarray(pixel_noise)
     desc[:n] = flip_bits(rng, table[pick], 3)
     return z, desc, np.arange(Z) < n
+
+
+def schur_blocks(N, seed=0):
+    """The reference's Schur kernel-bench operands (eval/bench_kernels.py,
+    bench_schur), drawn with numpy: N symmetric positive definite blocks
+    C = A A^T + 0.5 I [N, 3, 3] and vectors u [N, 3], float32."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(N, 3, 3)).astype(np.float32)
+    C = a @ np.swapaxes(a, -1, -2) + 0.5 * np.eye(3, dtype=np.float32)
+    return C.astype(np.float32), rng.normal(size=(N, 3)).astype(np.float32)
+
+
+# The bundle-adjustment bench's pinhole camera: fx, fy, cx, cy, width, height.
+BA_BENCH_CAMERA = (458.0, 457.0, 367.0, 248.0, 752, 480)
+
+
+def ba_bench_problem(C=64, Pts=50000, obs_per_cam=2000, seed=0, noise_px=0.5):
+    """The reference's bundle-adjustment bench problem (eval/bench_kernels.py,
+    bench_ba), drawn with numpy: C cameras along x from 0 to 5 m facing +z,
+    Pts points uniform in +-10 m around (0, 0, 15), `obs_per_cam` random
+    points per camera, their pinhole projections with `noise_px` of pixel
+    noise. Returns the BAProblem fields cam_pose, points, obs_cam, obs_pt and
+    obs_uv as arrays (every mask defaults to valid, camera 0 fixed)."""
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy = BA_BENCH_CAMERA[:4]
+    pts = rng.uniform(-10.0, 10.0, (Pts, 3)) + np.array([0.0, 0.0, 15.0])
+    poses = np.zeros((C, 7))
+    poses[:, 6] = 1.0
+    poses[:, 0] = np.linspace(0.0, 5.0, C)
+    obs_cam = np.repeat(np.arange(C, dtype=np.int32), obs_per_cam)
+    obs_pt = rng.integers(0, Pts, C * obs_per_cam).astype(np.int32)
+    q = pts[obs_pt] - poses[obs_cam, :3]                  # identity rotations
+    z = np.maximum(q[:, 2], 1e-3)
+    uv = np.stack([fx * q[:, 0] / z + cx, fy * q[:, 1] / z + cy], axis=1)
+    uv = uv + noise_px * rng.normal(size=uv.shape)
+    f32 = np.float32
+    return dict(cam_pose=poses.astype(f32), points=pts.astype(f32), obs_cam=obs_cam,
+                obs_pt=obs_pt, obs_uv=uv.astype(f32))

@@ -178,7 +178,7 @@ def _se3_pose_jac(dh_dp):
     def pose_jac(pose, lm):
         p = geometry.se3_apply_inverse(pose, lm)
         Hp = dh_dp(p)
-        return torch.cat([-Hp, Hp @ geometry._so3_hat(p)], dim=-1)
+        return torch.cat([-Hp, Hp @ geometry.hat3(p)], dim=-1)
 
     return pose_jac
 

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "ekf_update_3d_launch": [_P] * 14 + [_I] * 9 + [_P, _P],
     "hamming_top2_launch": [_P] * 9 + [_I] * 3 + [_L] * 3 + [_I] * 2 + [_P],
     "l2_top2_launch": [_P] * 11 + [_I] * 5 + [_P],
+    "apply_cinv_launch": [_P] * 3 + [_I] + [_L] * 5 + [_F, _P],
 }
 
 

@@ -26,19 +26,30 @@ kernels, CPU tensors run their twins. Random draws come from a
 draws. Keyframe descriptors are int32 words carrying the reference's
 uint32 bits.
 
+Offline, `run_ba` refines the keyframe poses and a deduplicated point table
+by bundle adjustment (`backend/ba.py`): `build_ba_problem` merges the
+keyframes' landmark snapshots by descriptor (`_assign_point_ids`, one
+`hamming_top2` launch per keyframe against the growing point store), each
+keyframe's own measured local points are the observations, and the pose
+graph's edges are fused into the solve when `backend.ba_fuse_pose_graph` is
+set.
+
 Not ported (each raises NotImplementedError): stereo frames
 (`process_stereo_frame`, which needs `frontend/stereo.py`), the image
-pyramid, checkpoints, bundle adjustment (`build_ba_problem`, `run_ba`) and
-the sharded filter.
+pyramid, checkpoints, distributed bundle adjustment
+(`run_ba(distributed=True)`, which needs `dist/dist_ba.py`) and the sharded
+filter.
 """
 
 from __future__ import annotations
 
+import sys as _sys
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from parakeet_slam_tpu_torch.backend import ba as ba_mod
 from parakeet_slam_tpu_torch.backend import graph as graph_mod
 from parakeet_slam_tpu_torch.backend import posegraph as pg_mod
 from parakeet_slam_tpu_torch.core import geometry
@@ -68,6 +79,52 @@ def _batched_kf_match(qd, qv, db, dbv, ratio: float):
     fwd, _ = match_mod.match(qd, qv, db, dbv, ratio=ratio)
     rev, _ = match_mod.match(db, dbv, qd, qv, ratio=ratio)
     return fwd, rev
+
+
+def _assign_point_ids(desc, valid, world, *, cap: int, max_ham: int):
+    """Deduplicate keyframe landmark snapshots into a global point table.
+
+    Walks the keyframes in order; each step matches the keyframe's F
+    descriptors against the point store built so far (one `hamming_top2`
+    call) and gives unmatched valid rows new store slots in row order.
+
+    desc [K, F, W] int32 words, valid [K, F] bool, world [K, F, 3]
+    first-seen world positions, all on one device. Returns ((store_desc
+    [cap, W], store_valid [cap], store_pos [cap, 3], count, dropped), pid
+    [K, F] int32): pid is the point id per observation (-1 = invalid row, or
+    dropped because the store is full); count and dropped are 0-d tensors.
+
+    A keyframe's rows match only against the store built from earlier
+    keyframes (the store update commits after the whole keyframe's match),
+    so duplicate descriptors within one keyframe are not merged: two
+    same-looking detections in one frame are distinct points (the
+    detector's NMS separates them), and cross-keyframe matching is what
+    establishes identity."""
+    K, F, W = desc.shape
+    dev = desc.device
+    # one spare row past the capacity takes the writes of full-store rows
+    sd = torch.zeros(cap + 1, W, dtype=torch.int32, device=dev)
+    sv = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
+    sp = torch.zeros(cap + 1, 3, dtype=torch.float32, device=dev)
+    cnt = torch.zeros((), dtype=torch.int32, device=dev)
+    drop = torch.zeros((), dtype=torch.int32, device=dev)
+    world = world.to(torch.float32)
+    pids = []
+    for k in range(K):
+        bi, b1, _ = match_mod.hamming_top2(desc[k], sd[:cap], sv[:cap])
+        matched = valid[k] & (b1 < max_ham)
+        is_new = valid[k] & ~matched
+        slot = cnt + torch.cumsum(is_new.to(torch.int32), dim=0, dtype=torch.int32) - 1
+        ok_new = is_new & (slot < cap)
+        pids.append(torch.where(matched, bi, torch.where(ok_new, slot, torch.full_like(slot, -1))))
+        widx = torch.where(ok_new, slot, torch.full_like(slot, cap)).long()
+        sd[widx] = desc[k]
+        sv[widx] = True
+        sp[widx] = world[k]
+        n_new = torch.sum(is_new.to(torch.int32), dtype=torch.int32)
+        cnt = torch.clamp(cnt + n_new, max=cap)
+        drop = drop + torch.sum((is_new & ~ok_new).to(torch.int32), dtype=torch.int32)
+    return (sd[:cap], sv[:cap], sp[:cap], cnt, drop), torch.stack(pids)
 
 
 def _global_descriptor(desc: np.ndarray, valid: np.ndarray) -> np.ndarray:
@@ -683,13 +740,110 @@ class SLAMSystem:
     def load_checkpoint(self, path_prefix: str):
         raise NotImplementedError("checkpoints are not ported (ROADMAP Queue 1)")
 
-    def build_ba_problem(self, dedup_max_hamming: int = 40):
-        raise NotImplementedError("bundle adjustment is not ported (ROADMAP Queue 1, slice 5)")
-
-    def run_ba(self, iters=None, distributed=None):
-        raise NotImplementedError("bundle adjustment is not ported (ROADMAP Queue 1, slice 5)")
-
     # -- offline refinement ----------------------------------------------
+
+    def build_ba_problem(self, dedup_max_hamming: int = 40) -> graph_mod.BAProblem | None:
+        """Assemble a BA problem from the keyframe stores: cameras = keyframe
+        poses; points = the union of the keyframes' landmark snapshots,
+        deduplicated by descriptor matching (the first-seen world position
+        is the point); observations = each keyframe's own measured local
+        points projected through the camera. None with fewer than two
+        keyframes."""
+        self.flush_flags()
+        if len(self.keyframes) < 2:
+            return None
+        K = len(self.keyframes)
+        T = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        poses = T(np.stack([kf.pose for kf in self.keyframes]).astype(np.float32))
+        pts_kf = T(np.stack([kf.points_kf for kf in self.keyframes]))
+        desc = T(np.stack([kf.desc for kf in self.keyframes]).view(np.int32))
+        valid = T(np.stack([kf.valid for kf in self.keyframes]))
+        F = desc.shape[1]
+        cap = int(min(K * F, self.cfg.backend.max_landmarks))
+        world = geometry.se3_apply(poses[:, None, :], pts_kf)
+        (_, sv, sp, _, n_drop), pid = _assign_point_ids(
+            desc, valid, world, cap=cap, max_ham=dedup_max_hamming)
+        n_drop = int(n_drop)
+        if n_drop:
+            # recorded in the metrics stream (not just stderr), so that an
+            # exhausted capacity shows in a run's artifacts
+            self.metrics.log(self.frame_idx, ba_points_dropped=n_drop, ba_point_capacity=cap)
+            print(f"build_ba_problem: point capacity {cap} (backend.max_landmarks) exhausted; "
+                  f"dropped {n_drop} new points (their observations are excluded)",
+                  file=_sys.stderr)
+        pid_c = torch.clamp(pid, 0, cap - 1)
+        # Observations are each keyframe's own measured landmark position
+        # (the snapshot-time local coordinates) projected through the
+        # camera, not the deduped store position projected into every
+        # camera: that would make the problem exactly self-consistent at its
+        # initial values (cost 0, BA a no-op). Independent per-keyframe
+        # measurements of one point are what BA reconciles.
+        uv = self.camera.project(pts_kf)                     # [K, F, Dz]
+        # Observation gating: a diverged lane can carry a local point whose
+        # projection overflows float32 in the Huber cost.
+        uv_bound = 10.0 * float(max(self.cfg.frontend.image_size))
+        uv_ok = torch.all(torch.isfinite(uv) & (uv.abs() < uv_bound), dim=-1)
+        pt_ok = torch.all(torch.isfinite(sp) & (sp.abs() < 1e6), dim=-1)
+        cam_fixed = torch.zeros(K, dtype=torch.bool, device=self.device)
+        cam_fixed[0] = True
+        if not self.cfg.backend.ba_fuse_pose_graph:
+            # pin the monocular scale gauge; with fused pose-graph edges the
+            # odometry chain carries metric scale, so only camera 0 is pinned
+            cam_fixed[1] = True
+        return graph_mod.make_ba_problem(
+            poses, sp,
+            torch.arange(K, dtype=torch.int32, device=self.device).repeat_interleave(F),
+            pid_c.reshape(-1), uv.reshape(K * F, -1),
+            pt_valid=sv & pt_ok,
+            obs_valid=((pid >= 0) & uv_ok & pt_ok[pid_c.long()]).reshape(-1),
+            cam_fixed=cam_fixed, device=self.device,
+        )
+
+    def graph_pose_edges(self, weight: float = 1.0):
+        """The pose graph's live edges as BA fusion terms (edge_ij, edge_rel,
+        edge_info * weight, edge_valid); None when there is no edge."""
+        ne = self.graph.n_edges
+        if ne == 0:
+            return None
+        g = self.graph
+        return g.edge_ij[:ne], g.edge_rel[:ne], g.edge_info[:ne] * weight, g.edge_valid[:ne]
+
+    def run_ba(self, iters: int | None = None, distributed: bool | None = None):
+        """Refine the keyframe poses and the deduped points by bundle
+        adjustment with the single-device bucketed solver; returns its
+        `BAResult`, or None with fewer than two keyframes. distributed=None
+        selects the distributed solver when dist.map_axis > 1 fits the
+        available cards; that solver is not ported."""
+        d = self.cfg.dist
+        if distributed is None:
+            n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            distributed = 1 < d.map_axis <= n_dev
+        if distributed:
+            raise NotImplementedError("distributed bundle adjustment (dist/dist_ba.py) is not "
+                                      "ported (ROADMAP Queue 1)")
+        prob = self.build_ba_problem()
+        if prob is None:
+            return None
+        be = self.cfg.backend
+        if be.ba_outlier_px > 0:
+            prob = graph_mod.gate_outlier_obs(self.camera, prob, be.ba_outlier_px)
+        if be.ba_max_obs_per_point > 0:
+            prob = graph_mod.cap_obs_per_point(prob, be.ba_max_obs_per_point)
+        res = ba_mod.optimize_ba(
+            self.camera, prob,
+            iters=iters or be.gn_iters,
+            lam=be.lm_damping_init,
+            pcg_iters=be.pcg_iters,
+            huber_delta=be.huber_delta,
+            solver=be.solver if be.solver in ("pcg", "dense") else "pcg",
+            step_clamp=(be.ba_step_clamp_cam, be.ba_step_clamp_pt),
+            pose_edges=(self.graph_pose_edges(be.ba_pose_edge_weight)
+                        if be.ba_fuse_pose_graph else None),
+        )
+        poses_np = res.problem.cam_pose.cpu().numpy()
+        for i, kf in enumerate(self.keyframes):
+            kf.pose = poses_np[i]
+        return res
 
     def corrected_trajectory(self, est, final_optimize: bool = True):
         """Map the online per-frame estimates [T, 7] (frame t = row t-1) onto
@@ -712,16 +866,18 @@ class SLAMSystem:
             for i, kf in enumerate(self.keyframes):
                 kf.pose = poses_np[i]
         kf_frames = np.asarray([kf.frame for kf in self.keyframes])
-        poses = torch.as_tensor(np.stack([kf.pose for kf in self.keyframes]))
+        T = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        poses = T(np.stack([kf.pose for kf in self.keyframes]))
         a_kf = np.asarray([kf.index for kf in self.keyframes for _ in kf.anchors], np.int64)
         a_start = np.asarray([s for kf in self.keyframes for s, _ in kf.anchors], np.int64)
-        a_val = torch.as_tensor(np.stack([a for kf in self.keyframes for _, a in kf.anchors]))
-        corr = geometry.se3_compose(poses[torch.as_tensor(a_kf)], geometry.se3_inverse(a_val))
+        a_val = T(np.stack([a for kf in self.keyframes for _, a in kf.anchors]))
+        corr = geometry.se3_compose(poses[T(a_kf)], geometry.se3_inverse(a_val))
         frames = np.arange(1, len(est) + 1, dtype=np.int64)
         seg = np.searchsorted(kf_frames, frames, "right") - 1
         keys = a_kf * (np.int64(1) << 32) + a_start
         rowkey = seg.astype(np.int64) * (np.int64(1) << 32) + frames
         j = np.searchsorted(keys, rowkey, "right") - 1
-        out = geometry.se3_compose(corr[torch.as_tensor(np.clip(j, 0, None))],
-                                   torch.as_tensor(est, dtype=torch.float32)).numpy()
+        # composed on the system's device, copied to the host once
+        out = geometry.se3_compose(corr[T(np.clip(j, 0, None))],
+                                   T(np.asarray(est, np.float32))).cpu().numpy()
         return np.where((seg >= 0)[:, None], out, est)

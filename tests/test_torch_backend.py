@@ -41,7 +41,7 @@ def _circle_graph(n=16, loop=True, seed=0):
         est.append(tg.se3_compose(est[-1], noisy))
     info = rng.uniform(0.5, 2.0, (n, 6)).astype(np.float32)
     jgr = j_graph.make_pose_graph(max_nodes=n + 3, max_edges=2 * n)
-    tgr = t_graph.make_pose_graph(n + 3, 2 * n)
+    tgr = t_graph.make_pose_graph(n + 3, 2 * n, device="cpu")
     for p in est:
         jgr = j_graph.add_node(jgr, jnp.asarray(p.numpy()))
         tgr = t_graph.add_node(tgr, p)
@@ -67,7 +67,7 @@ def test_add_node_add_edge_match_jax():
     jgr, tgr, _ = _circle_graph(n=6)
     _assert_graph_equal(tgr, jgr)
     # capacity: appends past the end are no-ops
-    jfull, tfull = j_graph.make_pose_graph(2, 1), t_graph.make_pose_graph(2, 1)
+    jfull, tfull = j_graph.make_pose_graph(2, 1), t_graph.make_pose_graph(2, 1, device="cpu")
     p = np.array([1, 2, 3, 0, 0, 0, 1], np.float32)
     for _ in range(4):
         jfull = j_graph.add_node(jfull, jnp.asarray(p))
@@ -116,6 +116,17 @@ def test_optimize_pose_graph_matches_jax(seed):
     assert float(t_pg.graph_cost(topt)) < 1e-2 * float(t_pg.graph_cost(tgr))
     err = np.linalg.norm(topt.poses[:16, :3].numpy() - gt[:, :3].numpy(), axis=1)
     assert err.max() < 0.15, err.max()
+
+
+def test_make_pose_graph_needs_a_device():
+    """`device` is a required keyword, as in the port's other constructors,
+    and every tensor of the graph lies on it."""
+    with pytest.raises(TypeError, match="device"):
+        t_graph.make_pose_graph(4, 8)
+    g = t_graph.make_pose_graph(4, 8, device="meta")
+    for f in ("poses", "node_valid", "edge_ij", "edge_rel", "edge_info", "edge_valid"):
+        assert getattr(g, f).device.type == "meta", f
+    assert (g.max_nodes, g.max_edges, g.n_nodes, g.n_edges) == (4, 8, 0, 0)
 
 
 def _horn_case(seed, n=20, outlier=False):

@@ -3,14 +3,18 @@ loop closure over the stacked keyframe store (planted closure, no false
 closure, store growth), the closure verification (Horn consensus and the
 reprojection refines), a panoramic-world run under JAX's own per-frame
 draws, the reference's functional bounds on the whole run, the
-corrected-trajectory re-anchoring, the metrics log, the CLI's TUM path and
-the paths that are not ported.
+corrected-trajectory re-anchoring, the metrics log, the CLI's TUM path, the
+bundle-adjustment entry points (the point dedup, `build_ba_problem`,
+`run_ba`, alone on planted keyframes and after the panoramic run) and the
+paths that are not ported.
 
 The JAX system runs its XLA path (use_pallas=False, the config default).
 Match tables, keyframe frames, closure lists and descriptors must be equal;
 poses and points agree to atol=1e-4 (Horn/refine on noiseless or lightly
 noisy correspondences) or 1e-3 (a 12-frame filter run; float sums in
-another order)."""
+another order). BA problems: index tables and masks equal, floats within
+1e-4; after `run_ba(iters=2)` keyframe poses within 1e-3 and costs within
+rtol=1e-3."""
 
 import dataclasses
 import json
@@ -22,13 +26,19 @@ import pytest
 import torch
 
 from parakeet_slam_tpu import cli as j_cli
+from parakeet_slam_tpu.backend import ba as j_ba
+from parakeet_slam_tpu.backend import graph as j_graph
 from parakeet_slam_tpu.core import config as jcm
 from parakeet_slam_tpu.core import geometry as j_geo
 from parakeet_slam_tpu.data.panoramic import make_panoramic_world as j_make_panoramic_world
 from parakeet_slam_tpu.system import Keyframe as JKeyframe
 from parakeet_slam_tpu.system import SLAMSystem as JSystem
+from parakeet_slam_tpu.system import _assign_point_ids as j_assign_point_ids
 from parakeet_slam_tpu.system import _global_descriptor as j_global_descriptor
+from parakeet_slam_tpu.frontend.camera import Pinhole as JPinhole
 from parakeet_slam_tpu_torch import cli, system
+from parakeet_slam_tpu_torch.backend import ba as t_ba
+from parakeet_slam_tpu_torch.backend import graph as t_graph
 from parakeet_slam_tpu_torch.core import config as pcm
 from parakeet_slam_tpu_torch.core import geometry
 from parakeet_slam_tpu_torch.kernels import match
@@ -261,7 +271,11 @@ def _system_draws(seed, T, P, dim):
     return out
 
 
-def test_panoramic_run_matches_jax_under_its_draws(pano):
+@pytest.fixture(scope="module")
+def pano_pair(pano):
+    """Both systems after PARITY_FRAMES frames of the panoramic world, the
+    port under JAX's own draws: (JAX system, port system, JAX estimates,
+    port estimates)."""
     world, images = pano
     j_sys = JSystem(_pano_cfg(jcm))
     p_sys = system.SLAMSystem(_pano_cfg(pcm), device="cpu")
@@ -273,6 +287,11 @@ def test_panoramic_run_matches_jax_under_its_draws(pano):
                                          resample_u0=u0).numpy())
     for s in (j_sys, p_sys):
         s.flush_flags()
+    return j_sys, p_sys, j_est, p_est
+
+
+def test_panoramic_run_matches_jax_under_its_draws(pano_pair):
+    j_sys, p_sys, j_est, p_est = pano_pair
     np.testing.assert_allclose(np.stack(p_est), np.stack(j_est), atol=1e-3)
     assert [k.frame for k in p_sys.keyframes] == [k.frame for k in j_sys.keyframes]
     assert len(p_sys.keyframes) >= 2
@@ -288,6 +307,48 @@ def test_panoramic_run_matches_jax_under_its_draws(pano):
                                   np.asarray(j_sys.graph.edge_ij[:n]))
     np.testing.assert_allclose(p_sys.graph.edge_info[:n].numpy(),
                                np.asarray(j_sys.graph.edge_info[:n]), rtol=1e-6)
+
+
+def _assert_same_ba_problem(p_prob, j_prob):
+    for f in ("cam_valid", "pt_valid", "obs_cam", "obs_pt", "obs_valid", "cam_fixed"):
+        np.testing.assert_array_equal(getattr(p_prob, f).numpy(), np.asarray(getattr(j_prob, f)), f)
+    _same_pose(p_prob.cam_pose.numpy(), np.asarray(j_prob.cam_pose), 1e-4)
+    pv, ov = p_prob.pt_valid.numpy(), p_prob.obs_valid.numpy()
+    np.testing.assert_allclose(p_prob.points.numpy()[pv], np.asarray(j_prob.points)[pv], atol=1e-3)
+    np.testing.assert_allclose(p_prob.obs_uv.numpy()[ov], np.asarray(j_prob.obs_uv)[ov],
+                               rtol=1e-4, atol=1e-2)
+
+
+def test_panoramic_run_then_bundle_adjustment_matches_jax(pano_pair):
+    """The slice as a whole: after the panoramic run under JAX's draws, both
+    systems assemble the same BA problem (dedup, observations, gating) and
+    `run_ba(iters=2)` with the fused pose-graph edges moves the keyframes
+    alike. `run_ba` rewrites the keyframe poses and nothing else of a
+    system, so the shared pair gets them back whatever the order of the
+    tests."""
+    j_sys, p_sys, _, _ = pano_pair
+    saved = [(kf, np.array(kf.pose)) for s in (j_sys, p_sys) for kf in s.keyframes]
+    try:
+        _check_ba_after_panoramic_run(j_sys, p_sys)
+    finally:
+        for kf, pose in saved:
+            kf.pose = pose
+
+
+def _check_ba_after_panoramic_run(j_sys, p_sys):
+    j_prob, p_prob = j_sys.build_ba_problem(), p_sys.build_ba_problem()
+    assert p_prob.num_cams == len(p_sys.keyframes) >= 2
+    assert int(p_prob.obs_valid.sum()) > 50 and int(p_prob.pt_valid.sum()) > 20
+    _assert_same_ba_problem(p_prob, j_prob)
+    j_edges, p_edges = j_sys.graph_pose_edges(30.0), p_sys.graph_pose_edges(30.0)
+    np.testing.assert_array_equal(p_edges[0].numpy(), np.asarray(j_edges[0]))
+    np.testing.assert_allclose(p_edges[2].numpy(), np.asarray(j_edges[2]), rtol=1e-6)
+    j_res, p_res = j_sys.run_ba(iters=2), p_sys.run_ba(iters=2)
+    np.testing.assert_allclose(p_res.costs.numpy(), np.asarray(j_res.costs), rtol=1e-3)
+    assert np.isfinite(p_res.costs.numpy()).all()
+    for pk, jk in zip(p_sys.keyframes, j_sys.keyframes):
+        _same_pose(pk.pose, jk.pose, 1e-3)
+    np.testing.assert_allclose(p_sys.keyframes[0].pose, p_prob.cam_pose[0].numpy())  # the gauge
 
 
 def test_panoramic_run_meets_the_reference_bounds(pano):
@@ -362,6 +423,182 @@ def test_metrics_logged(tmp_path, pano):
     assert {"frame", "ess", "landmarks", "match_frac", "resampled", "keyframes"} <= set(rec)
 
 
+# -- bundle adjustment ----------------------------------------------------------
+
+
+def _dedup_case(name):
+    """(desc [K, F, W] uint32, valid, world, cap): the two fixtures of
+    tests/test_system_host_paths.py and a larger one with descriptors drawn
+    from a small pool (cross-keyframe matches, duplicates within a keyframe,
+    near-duplicates under the Hamming gate, an overflowing store)."""
+    W = 8
+    if name == "dedup_order":
+        rng = np.random.default_rng(9)
+        d = rng.integers(0, 2**32, (4, W), dtype=np.uint32)
+        desc = np.stack([np.stack([d[0], d[1], d[2]]), np.stack([d[1], d[3], d[0]])])
+        valid = np.array([[True, True, False], [True, True, True]])
+        return desc, valid, rng.normal(size=(2, 3, 3)).astype(np.float32), 16
+    if name == "capacity_overflow":
+        rng = np.random.default_rng(10)
+        return (rng.integers(0, 2**32, (1, 6, W), dtype=np.uint32), np.ones((1, 6), bool),
+                rng.normal(size=(1, 6, 3)).astype(np.float32), 4)
+    rng = np.random.default_rng(11)
+    pool = rng.integers(0, 2**32, (60, W), dtype=np.uint32)
+    desc = pool[rng.integers(0, 60, (5, 24))]
+    desc[2:, :6, 0] ^= np.uint32(0b1011)                  # 3 bits off: under the gate
+    return desc, rng.random((5, 24)) > 0.15, rng.normal(size=(5, 24, 3)).astype(np.float32), 48
+
+
+@pytest.mark.parametrize("name", ["dedup_order", "capacity_overflow", "pool"])
+def test_assign_point_ids_matches_jax(name):
+    desc, valid, world, cap = _dedup_case(name)
+    (jd, jv, jp, jc, jdrop), jpid = j_assign_point_ids(
+        jnp.asarray(desc), jnp.asarray(valid), jnp.asarray(world), cap=cap, use_pallas=False,
+        max_ham=40)
+    T = torch.as_tensor
+    (sd, sv, sp, cnt, drop), pid = system._assign_point_ids(
+        T(desc.view(np.int32)), T(valid), T(world), cap=cap, max_ham=40)
+    np.testing.assert_array_equal(pid.numpy(), np.asarray(jpid))
+    assert (int(cnt), int(drop)) == (int(jc), int(jdrop))
+    np.testing.assert_array_equal(sv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(sd.numpy().view(np.uint32), np.asarray(jd))
+    np.testing.assert_array_equal(sp.numpy(), np.asarray(jp))
+    assert pid.dtype == torch.int32 and sd.shape == (cap, 8)
+    if name == "dedup_order":
+        assert pid.tolist() == [[0, 1, -1], [1, 2, 0]]
+    elif name == "capacity_overflow":
+        assert pid.tolist() == [[0, 1, 2, 3, -1, -1]] and (int(cnt), int(drop)) == (4, 2)
+    else:
+        assert int(drop) > 0 and int(cnt) == cap
+
+
+def _noisy_keyframes(systems, rng, n=4, F=32, noise=0.05):
+    world = rng.uniform(-6, 6, (F, 3)).astype(np.float32)
+    desc = rng.integers(0, 2**32, (F, 8), dtype=np.uint32)
+    for i in range(n):
+        pose = np.array([0.6 * i, 0.1 * i, 0, 0, 0, 0, 1], np.float32)
+        noisy = world + rng.normal(0, noise, world.shape).astype(np.float32)
+        _add_keyframe(systems, i, pose, noisy, desc)
+
+
+def test_build_ba_problem_and_run_ba_match_jax(capsys):
+    """tests/test_system_host_paths.py's BA fixtures on both systems: four
+    keyframes measure the same 32 landmarks with independent noise."""
+    systems = _pair()
+    j_sys, p_sys = systems
+    assert p_sys.build_ba_problem() is None and p_sys.run_ba() is None  # < 2 keyframes
+    _noisy_keyframes(systems, np.random.default_rng(21))
+    j_prob, p_prob = j_sys.build_ba_problem(), p_sys.build_ba_problem()
+    assert (p_prob.num_cams, p_prob.num_points, p_prob.num_obs) == (4, 128, 128)
+    assert int(p_prob.pt_valid.sum()) == 32 and int(p_prob.obs_valid.sum()) == 4 * 32
+    assert p_prob.cam_fixed.tolist() == [True, False, False, False]
+    _assert_same_ba_problem(p_prob, j_prob)
+    # matched observations share their point ids across keyframes
+    pid = p_prob.obs_pt.reshape(4, 32)
+    assert (pid == pid[0]).all()
+    j_res, p_res = j_sys.run_ba(iters=3), p_sys.run_ba(iters=3)
+    np.testing.assert_allclose(p_res.costs.numpy(), np.asarray(j_res.costs), rtol=1e-3)
+    assert float(p_res.costs[-1]) < float(p_res.costs[0])
+    for pk, jk in zip(p_sys.keyframes, j_sys.keyframes):
+        _same_pose(pk.pose, jk.pose, 1e-3)
+    np.testing.assert_allclose(p_sys.keyframes[2].pose, p_res.problem.cam_pose[2].numpy())
+    assert "exhausted" not in capsys.readouterr().err
+
+
+def test_build_ba_problem_capacity_and_gauge(capsys):
+    """An exhausted point store is logged and the run carries on; without
+    fused pose edges the second camera is fixed too (the scale gauge)."""
+    cfg = _host_cfg(pcm)
+    cfg = dataclasses.replace(cfg, backend=dataclasses.replace(
+        cfg.backend, max_landmarks=40, ba_fuse_pose_graph=False))
+    p_sys = system.SLAMSystem(cfg, device="cpu")
+    logged = []
+    p_sys.metrics.log = lambda frame, **rec: logged.append(rec)
+    rng = np.random.default_rng(5)
+    for i in range(3):  # distinct maps: 96 new points against a capacity of 40
+        _add_port_keyframe(p_sys, i, np.array([0.5 * i, 0, 0, 0, 0, 0, 1], np.float32),
+                           rng.uniform(-6, 6, (32, 3)).astype(np.float32),
+                           rng.integers(0, 2**32, (32, 8), dtype=np.uint32))
+    prob = p_sys.build_ba_problem()
+    assert "point capacity 40" in capsys.readouterr().err
+    assert logged == [{"ba_points_dropped": 56, "ba_point_capacity": 40}]
+    assert prob.num_points == 40 and int(prob.obs_valid.sum()) == 40
+    assert prob.cam_fixed.tolist() == [True, True, False]
+    res = p_sys.run_ba(iters=2)
+    assert np.isfinite(res.problem.cam_pose.numpy()).all() and res.costs.shape == (2,)
+
+
+def test_run_ba_low_damping_rejections_match_jax():
+    """`run_ba` starts LM at the config's lm_damping_init (1e-4 for
+    configs/tum_fr1_desk.yaml). On the BA problem of a desk-world run (28
+    frames at a small width) the first iterations are rejected while the
+    damping climbs, and the JAX solver, handed the same problem and pose
+    edges as numpy, rejects them too; both then descend. Later accepts may
+    differ: PCG at low damping has not converged in 50 iterations, and its
+    step is sensitive to rounding."""
+    from parakeet_slam_tpu_torch.data.synth_vision import make_desk_world
+
+    frames = 28
+    cfg = pcm.load_config("configs/tum_fr1_desk.yaml", {
+        "filter.num_particles": 16, "filter.max_landmarks": 256,
+        "filter.max_observations": 32, "frontend.max_features": 64})
+    world = make_desk_world(num_steps=frames)
+    odom = cli._make_odometry(cfg.data, world.gt_pose, frames)
+    p_sys = system.SLAMSystem(cfg, device="cpu")
+    cli.run_tum_sequence(p_sys, [world.render(i) for i in range(frames)], odom)
+    be = cfg.backend
+    assert be.lm_damping_init == 1e-4 and be.ba_fuse_pose_graph
+    prob = p_sys.build_ba_problem()
+    prob = t_graph.cap_obs_per_point(
+        t_graph.gate_outlier_obs(p_sys.camera, prob, be.ba_outlier_px), be.ba_max_obs_per_point)
+    edges = p_sys.graph_pose_edges(be.ba_pose_edge_weight)
+    assert prob.num_cams >= 10 and int(prob.obs_valid.sum()) > 500 and len(edges[0]) >= 9
+    kw = dict(iters=be.gn_iters, lam=be.lm_damping_init, pcg_iters=be.pcg_iters,
+              huber_delta=be.huber_delta, solver="pcg",
+              step_clamp=(be.ba_step_clamp_cam, be.ba_step_clamp_pt))
+    t_costs = t_ba.optimize_ba(p_sys.camera, prob, pose_edges=edges, **kw).costs.numpy()
+    fx, fy, cx, cy = cfg.frontend.intrinsics[:4]
+    H, W = cfg.frontend.image_size
+    j_prob = j_graph.BAProblem(**{k: jnp.asarray(v)
+                                  for k, v in t_graph.ba_problem_to_numpy(prob).items()})
+    j_costs = np.asarray(j_ba.optimize_ba(
+        JPinhole(fx, fy, cx, cy, W, H), j_prob,
+        pose_edges=tuple(jnp.asarray(e.numpy()) for e in edges), **kw).costs)
+    print("port", t_costs, "jax", j_costs)
+    # rejected iterations report the unchanged cost: the same in both
+    np.testing.assert_allclose(t_costs[:2], j_costs[:2], rtol=1e-5)
+    assert t_costs[0] == t_costs[1] and j_costs[0] == j_costs[1]
+    assert t_costs[-1] < 0.8 * t_costs[0] and j_costs[-1] < 0.8 * j_costs[0]
+    # the system's own entry point is that solve
+    res = p_sys.run_ba()
+    np.testing.assert_array_equal(res.costs.numpy(), t_costs)
+
+
+def test_corrected_trajectory_composes_on_the_system_device(pano, monkeypatch):
+    """The re-anchoring builds its tensors on the system's device and copies
+    the result to the host once. Shown without a card by moving the system
+    to the `meta` device after the run: both compositions then see meta
+    tensors, and the one copy to the host is what fails."""
+    world, images = pano
+    p_sys = system.SLAMSystem(_pano_cfg(pcm), device="cpu")
+    est = torch.stack([p_sys.process_frame(images[t], world.odom[t]) for t in range(6)]).numpy()
+    out = p_sys.corrected_trajectory(est, final_optimize=False)
+    seen = []
+    compose = geometry.se3_compose
+    monkeypatch.setattr(system.geometry, "se3_compose",
+                        lambda a, b: seen.append((a.device.type, b.device.type)) or compose(a, b))
+    np.testing.assert_array_equal(p_sys.corrected_trajectory(est, final_optimize=False), out)
+    assert seen == [("cpu", "cpu")] * 2
+    # lists and tensors of estimates are taken as well
+    np.testing.assert_array_equal(
+        p_sys.corrected_trajectory(list(torch.as_tensor(est)), final_optimize=False), out)
+    p_sys.device = torch.device("meta")
+    del seen[:]
+    with pytest.raises(NotImplementedError, match="meta"):
+        p_sys.corrected_trajectory(est, final_optimize=False)
+    assert seen == [("meta", "meta")] * 2
+
+
 # -- the CLI's TUM path -------------------------------------------------------
 
 
@@ -403,7 +640,7 @@ def test_unported_paths_raise(pano):
     p_sys = system.SLAMSystem(_pano_cfg(pcm), device="cpu")
     for call in (lambda: p_sys.process_stereo_frame(images[0], images[0], world.odom[0]),
                  lambda: p_sys.save_checkpoint("x"), lambda: p_sys.load_checkpoint("x"),
-                 lambda: p_sys.build_ba_problem(), lambda: p_sys.run_ba()):
+                 lambda: p_sys.run_ba(distributed=True)):
         with pytest.raises(NotImplementedError):
             call()
     with pytest.raises(NotImplementedError, match="kitti"):
