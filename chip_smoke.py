@@ -10,10 +10,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
   3. each kernel against its plain PyTorch twin on the card, at the corridor
      shape (P=64, L=192, Z=16, S=3) and the real-size shape (P=2048,
      L=10240, Z=32, S=3): masks, counts, target lanes and n_match equal,
-     floats within rtol=atol=1e-5 (log_w atol=1e-4), the gather bit-exact;
-     median times of kernel and twin with CUDA events; then the update
-     kernel's other options (S=0, cull_unseen, no cull, no weight update,
-     full and empty maps, L=130, Z=64) at small shapes;
+     floats within rtol=atol=1e-5 (log_w atol=1e-4), the gather bit-exact
+     on the resample indices and on a permutation; median times of kernel
+     and twin with CUDA events (the gather's as the device's time alone,
+     kernel, twin, kernel, twin in turns, and around single calls); then the
+     update kernel's other options (S=0, cull_unseen, no cull, no weight
+     update, full and empty maps, L=130, Z=64) at small shapes, and the
+     gather on descriptor rows of W=8 words and on one row repeated P times;
   4. the main path, config 1 (configs/corridor.yaml) for 500 frames and
      filter seeds 0-4: every frame through the update kernel, every resample
      through the gather kernel, each ATE < 0.5 m, the 5-seed mean in the JAX
@@ -45,9 +48,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      against K=64 and 128 stored keyframes), and the edge cases (all-invalid
      database, one valid row, exact duplicates, M not a tile multiple, N=1,
      N>M), idx/best/second bit-equal; L2 at N=1024, M=131072, D=128 and
-     four edge cases, best and second within atol=1e-3 + rtol=1e-5, idx
-     equal wherever the twin's second - best exceeds 1e-2; median times of
-     kernel and twin; then the match_l2 front door (its one l2_top2 launch);
+     seven edge cases (all invalid, one valid row, D=33 with M=999, D=7 with
+     N>M, exact duplicates with idx equal in every row and second == best,
+     M=131073, best and second within the gap), best and second within
+     atol=1e-3 + rtol=1e-5, idx equal wherever the twin's second - best
+     exceeds 1e-2; median times of kernel and twin (L2's as the device's
+     time alone, in turns, and around single calls); then the match_l2 front
+     door (its one l2_top2 launch);
   10. the online monocular system at full width, benchmark config 2
      (configs/tum_fr1_desk.yaml: FastSLAM 2.0, pinhole_3d, P=512, L=1024,
      Z=64, 256 FAST + BRIEF features, 640x480), `cli run`'s TUM loop over
@@ -88,8 +95,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
 Every kernel's record carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and its
 operations over the card's peak for their type (67 TFLOP/s float32, 1,979
-TOP/s int8), counted from the inputs of this run and from the arithmetic of
-the plain twins (OPS_2D, OPS_3D, CINV_OPS).
+TOP/s int8, 495 TFLOP/s TF32 at three products per multiply-add for l2_top2,
+whose record keeps the float32 figure as bound_ms_fp32), counted from the
+inputs of this run and from the arithmetic of the plain twins (OPS_2D,
+OPS_3D, CINV_OPS).
 Exits non-zero at the first failed check, and without a result when there
 is no CUDA device or no package beside the script. The last line is
 {"ok": true, "device": {...}}, the line before it the kernels' JSON record
@@ -127,8 +136,8 @@ def cuda_ms(fn, reps, prepare=None):
 
 # Published peaks of one H100 SXM at its full power limit: device memory
 # bytes/s, float32 operations/s outside the tensor cores, int8 tensor-core
-# operations/s.
-PEAK_BYTES, PEAK_F32, PEAK_INT8 = 3.35e12, 67e12, 1979e12
+# operations/s, TF32 tensor-core operations/s.
+PEAK_BYTES, PEAK_F32, PEAK_INT8, PEAK_TF32 = 3.35e12, 67e12, 1979e12, 495e12
 
 
 def nbytes(*tensors):
@@ -190,35 +199,12 @@ def update_ops(counts, width, lm_valid, target, n_obs, n_valid_obs):
 
 
 def queued_ms(call, reps=20, batches=5):
-    """Median milliseconds per call of `call(i)` over `batches` runs of
-    `reps` back-to-back calls, each run queued behind a sleep kernel, so
-    that the time is the device's and not the host's time to enqueue the
-    launches. A run counts only if the sleep was still running when the last
-    call had been enqueued; otherwise the sleep is doubled (from ~10 ms) and
-    the run repeated. `call` must not wait for the device."""
-    import statistics
+    """Median milliseconds per call of `call(i)` on the device alone: runs of
+    `reps` back-to-back calls queued behind a sleep kernel (see
+    `eval.profiling.queued`). `call` must not wait for the device."""
+    from parakeet_slam_tpu_torch.eval.profiling import queued
 
-    import torch
-
-    call(0)
-    times, cycles = [], 20_000_000
-    while len(times) < batches:
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda._sleep(cycles)
-        start.record()
-        for i in range(reps):
-            call(i)
-        queued = not start.query()
-        end.record()
-        torch.cuda.synchronize()
-        if queued:
-            times.append(start.elapsed_time(end) / reps)
-        else:
-            cycles *= 2
-            check(cycles <= 1_280_000_000, "queued_ms: the host cannot enqueue the calls "
-                  "behind a 0.7 s sleep (does the call wait for the device?)")
-    return statistics.median(times)
+    return queued(call, reps=reps, batches=batches)
 
 
 def phase_environment():
@@ -329,44 +315,99 @@ def check_update_kernel(shape, device, fill="holes", timed=True, **flags):
     return err, ms, plain, bnd
 
 
-def check_gather_kernel(shape, device):
+def _gather_state(shape, device, desc_words=0):
+    """A 2-D state at `shape` from the kernel inputs; with `desc_words`,
+    random descriptors of that many words per lane beside it."""
     import torch
 
     from parakeet_slam_tpu_torch.core.state import ParticleState
-    from parakeet_slam_tpu_torch.kernels import resample, resample_cuda
 
-    P, L, Z, S = shape
+    P, L, _, _ = shape
     T = _update_inputs(shape, seed=sum(shape) + 1, device=device)
-    st = ParticleState(
-        **{k: T[k] for k in STATE_KEYS},
-        lm_desc=torch.zeros(P, L, 0, dtype=torch.int32, device=device),
-    )
-    g = torch.Generator(device=device).manual_seed(0)
-    log_w = 3.0 * torch.randn(P, generator=g, device=device)
-    idx = resample.systematic_resample_indices(log_w, 0.37 / P)
+    g = torch.Generator(device=device).manual_seed(1)
+    desc = torch.randint(-2**31, 2**31, (P, L, desc_words), generator=g, device=device,
+                         dtype=torch.int64).to(torch.int32)
+    return ParticleState(**{k: T[k] for k in STATE_KEYS}, lm_desc=desc)
+
+
+def check_gather_equal(what, st, idx):
+    """gather_state against its twin on `idx`: every leaf bit-equal."""
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import resample_cuda
+
     got = resample_cuda.gather_state(st, idx)
     ref = resample_cuda.gather_state_reference(st, idx)
     torch.cuda.synchronize()
     err = 0.0
     for k in STATE_KEYS + ("lm_desc",):
         a, b = getattr(got, k), getattr(ref, k)
-        check(torch.equal(a, b), f"gather_rows {shape}: {k} differs")
+        check(torch.equal(a, b), f"gather_rows {what}: {k} differs")
         if a.numel():
             err = max(err, float((a.double() - b.double()).abs().max()))
-    n_bytes = sum(t.numel() * t.element_size() for t in st.__dict__.values() if t is not st.log_w)
+    return err
+
+
+def check_gather_kernel(shape, device):
+    """The gather against `index_select` per leaf (its twin, and the library
+    call for this function) on the resample indices and on a permutation,
+    then kernel, twin, kernel, twin timed in turns. Returns (max |diff|,
+    kernel ms, twin ms, bound, single-call kernel ms, single-call twin ms)
+    on the permutation: the first two times are the device's alone (runs of
+    calls queued behind a sleep kernel), the last two bracket single calls
+    and hold the host's work before the first launch, as the records of the
+    earlier kernel did."""
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import resample, resample_cuda
+
+    P, L, Z, S = shape
+    st = _gather_state(shape, device)
+    g = torch.Generator(device=device).manual_seed(0)
+    log_w = 3.0 * torch.randn(P, generator=g, device=device)
+    idx = resample.systematic_resample_indices(log_w, 0.37 / P)
     # Resampling indices repeat rows, and a repeated row is read from L2; a
     # permutation reads every row once, the full traffic. The record keeps
     # the permutation's times.
     perm = torch.randperm(P, generator=g, device=device)
+    err = max(check_gather_equal(f"{shape} resample idx", st, idx),
+              check_gather_equal(f"{shape} permutation", st, perm))
+    n_bytes = sum(t.numel() * t.element_size() for t in st.__dict__.values() if t is not st.log_w)
     for name, ix in (("resample idx", idx), ("permutation", perm)):
-        ms = cuda_ms(lambda: resample_cuda.gather_state(st, ix), 20)
-        plain = cuda_ms(lambda: resample_cuda.gather_state_reference(st, ix), 20)
+        kernel = lambda i=0: resample_cuda.gather_state(st, ix)  # noqa: E731
+        twin = lambda i=0: resample_cuda.gather_state_reference(st, ix)  # noqa: E731
+        turns = [queued_ms(f, reps=10) for f in (kernel, twin, kernel, twin)]
+        ms, plain = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+        single, single_plain = cuda_ms(kernel, 20), cuda_ms(twin, 20)
         print(f"gather_rows P={P} L={L} S={S} {name} ({len(set(ix.tolist()))} distinct rows): "
-              f"{n_bytes / 1e9:.4f} GB per copy, kernel={ms:.4f} ms "
-              f"({2 * n_bytes / ms / 1e9:.3f} TB/s) twin={plain:.4f} ms")
-    # bound: every leaf read once and written once, plus the indices. The
-    # twin is `index_select` per leaf: the library call for this function.
-    return err, ms, plain, bound(2 * n_bytes + nbytes(idx), 0)
+              f"{n_bytes / 1e9:.4f} GB per copy, kernel={turns[0]:.4f}; {turns[2]:.4f} ms "
+              f"({2 * n_bytes / ms / 1e9:.3f} TB/s) twin={turns[1]:.4f}; {turns[3]:.4f} ms "
+              f"(device time, in turns); single calls with their host time: "
+              f"kernel={single:.4f} ms twin={single_plain:.4f} ms")
+    # bound: every leaf read once and written once, plus the indices
+    return err, ms, plain, bound(2 * n_bytes + nbytes(idx), 0), single, single_plain
+
+
+def check_gather_variants(device):
+    """Shapes of the gather that the 2-D paths do not give it: descriptor
+    rows of a 3-D state (W=8 words: 320 KB a row at L=10240), and one row
+    repeated P times."""
+    import torch
+
+    shape = (256, 10240, 8, 3)
+    st = _gather_state(shape, device, desc_words=8)
+    g = torch.Generator(device=device).manual_seed(2)
+    err = check_gather_equal("W=8 permutation", st, torch.randperm(shape[0], generator=g,
+                                                                   device=device))
+    row = st.lm_desc[0].numel() * st.lm_desc.element_size()
+    print(f"gather_rows P={shape[0]} L={shape[1]} W=8 (descriptor rows of {row} bytes): bit-equal")
+    st = _gather_state(CORRIDOR_SHAPE, device)
+    for what, s_ in (("corridor", st), ("real size", _gather_state(REAL_SHAPE, device))):
+        P = s_.num_particles
+        idx = torch.full((P,), P // 3, dtype=torch.int64, device=device)
+        err = max(err, check_gather_equal(f"{what} one row repeated", s_, idx))
+        print(f"gather_rows {what}: row {P // 3} repeated {P} times: bit-equal")
+    return err
 
 
 def phase_kernels(device):
@@ -377,6 +418,7 @@ def phase_kernels(device):
     err = max(res[("ekf", s)][0] for s in (CORRIDOR_SHAPE, REAL_SHAPE))
     for shape, fill, flags in UPDATE_VARIANTS:
         err = max(err, check_update_kernel(shape, device, fill, timed=False, **flags)[0])
+    res["gather_variants"] = check_gather_variants(device)
     return res, err
 
 
@@ -758,9 +800,11 @@ def check_hamming(what, qd, db, valid, timed=False):
     return ms, plain, bnd
 
 
-def check_l2(what, qd, db, valid, timed=False):
-    """l2_top2 against its twin within the stated tolerances. Returns
-    (max |diff| of best/second, kernel ms, twin ms)."""
+def check_l2(what, qd, db, valid, timed=False, exact_idx=False):
+    """l2_top2 against its twin within the stated tolerances; with
+    `exact_idx`, idx equal in every row whatever the gap. Returns (max |diff|
+    of best/second, kernel ms, twin ms, bound, float32 bound ms, single-call
+    kernel ms, single-call twin ms)."""
     import torch
 
     from parakeet_slam_tpu_torch.kernels import match
@@ -772,25 +816,39 @@ def check_l2(what, qd, db, valid, timed=False):
     for name, g, r in (("best", g1, r1), ("second", g2, r2)):
         check(torch.allclose(g, r, rtol=L2_RTOL, atol=L2_ATOL),
               f"l2_top2 {what}: {name} max |diff| {err}")
-    clear = (r2 - r1) > L2_GAP
+    clear = torch.ones_like(gi, dtype=torch.bool) if exact_idx else (r2 - r1) > L2_GAP
     n_bad = int(((gi != ri) & clear).sum())
-    check(n_bad == 0, f"l2_top2 {what}: idx differs in {n_bad} rows with a clear gap")
+    check(n_bad == 0, f"l2_top2 {what}: idx differs in {n_bad} rows" +
+          ("" if exact_idx else " with a clear gap"))
     n_swap = int((gi != ri).sum())
+    n_close = int(((r2 - r1) <= L2_GAP).sum())
     if not timed:
         print(f"l2_top2 {what}: max_abs_err={err:.3g} idx equal where gap > {L2_GAP} "
-              f"({n_swap} near-tie swaps)")
-        return err, None, None, None
-    ms = cuda_ms(lambda: match.l2_top2(qd, db, valid), 10)
-    plain = cuda_ms(lambda: match.l2_top2_reference(qd, db, valid), 5)
+              f"({n_close} rows within it, {n_swap} near-tie swaps)")
+        return err, None, None, None, None, None, None
+    kernel = lambda i=0: match.l2_top2(qd, db, valid)  # noqa: E731
+    twin = lambda i=0: match.l2_top2_reference(qd, db, valid)  # noqa: E731
+    # the device's time alone (runs of calls queued behind a sleep kernel), in
+    # turns; then single calls with the host's work before the first launch,
+    # as the records of the earlier kernel were taken
+    turns = [queued_ms(f, reps=reps) for f, reps in ((kernel, 10), (twin, 5)) * 2]
+    ms, plain = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+    single, single_plain = cuda_ms(kernel, 10), cuda_ms(twin, 5)
     # bound: operands read once, results written; a multiply and an add per
-    # dimension and pair of a query and a valid row, in float32 (TF32 would
-    # move the argmins). The twin is the matmul form: the library yardstick.
-    bnd = bound(nbytes(qd, db, valid, gi, g1, g2),
-                2 * qd.shape[0] * int(valid.sum()) * qd.shape[1])
+    # dimension and pair of a query and a valid row. One TF32 product would
+    # move the argmins, so the fastest unit that can do it is the tensor
+    # cores at three TF32 products per multiply-add (3xTF32); the float32
+    # rate outside the tensor cores gives the bound of the earlier records.
+    # The twin is the matmul form: the library yardstick.
+    n_bytes = nbytes(qd, db, valid, gi, g1, g2)
+    ops = 2 * qd.shape[0] * int(valid.sum()) * qd.shape[1]
+    bnd, bnd_fp32 = bound(n_bytes, 3 * ops, PEAK_TF32), bound(n_bytes, ops)[0]
     print(f"l2_top2 {what}: max_abs_err={err:.3g} idx equal where gap > {L2_GAP} "
-          f"({n_swap} near-tie swaps) kernel={ms:.4f} ms twin={plain:.4f} ms "
-          f"bound={bnd[0]:.4f} ms ({bnd[1]})")
-    return err, ms, plain, bnd
+          f"({n_close} rows within it, {n_swap} near-tie swaps) kernel={turns[0]:.4f}; "
+          f"{turns[2]:.4f} ms twin={turns[1]:.4f}; {turns[3]:.4f} ms (device time, in turns); "
+          f"single calls with their host time: kernel={single:.4f} ms twin={single_plain:.4f} ms; "
+          f"bound={bnd[0]:.4f} ms ({bnd[1]}, 3xTF32) float32 bound={bnd_fp32:.4f} ms")
+    return err, ms, plain, bnd, bnd_fp32, single, single_plain
 
 
 def phase_match(device):
@@ -845,6 +903,27 @@ def phase_match(device):
     ):
         err = max(err, check_l2(what, T(rng.normal(size=(n, d)).astype(np.float32)),
                                 T(rng.normal(size=(m, d)).astype(np.float32)), T(vfn(m)))[0])
+    # exact duplicates: every database row has many copies, so copies give
+    # bit-equal distances: the smallest valid index wins, second == best
+    pool = rng.normal(size=(5, 64)).astype(np.float32)
+    dup_db, dup_v = T(pool[rng.integers(0, 5, 700)]), T(rng.random(700) >= 0.2)
+    dup_q = T(rng.normal(size=(300, 64)).astype(np.float32))
+    err = max(err, check_l2("exact duplicates D=64", dup_q, dup_db, dup_v, exact_idx=True)[0])
+    _, d1, d2 = match.l2_top2(dup_q, dup_db, dup_v)
+    check(torch.equal(d1, d2), "l2_top2 exact duplicates: second != best")
+    # one row past a tile, and that row is query 5's exact copy
+    ext_db = torch.cat([dbf, qf[5:6]])
+    ext_v = torch.cat([vf, torch.ones(1, dtype=torch.bool, device=device)])
+    err = max(err, check_l2(f"N={N2} M={M2 + 1} D={D2} one row past a tile", qf, ext_db,
+                            ext_v)[0])
+    check(int(match.l2_top2(qf, ext_db, ext_v)[0][5]) == M2, "l2_top2: the last row was not found")
+    del ext_db
+    # best and second closer than L2_GAP: neighbours may swap, values hold
+    near = rng.normal(size=(1000, D2)).astype(np.float32)
+    near[1::2] = near[0::2] + 1e-4 * rng.normal(size=(500, D2)).astype(np.float32)
+    near_q = near[0:400:2] + 0.05 * rng.normal(size=(200, D2)).astype(np.float32)
+    err = max(err, check_l2("best and second within the gap", T(near_q), T(near),
+                            torch.ones(1000, dtype=torch.bool, device=device))[0])
     # the L2 kernel's own path: the match_l2 front door a user calls
     match.l2_top2.launches = 0
     idx, _ = match.match_l2(qf, torch.ones(N2, dtype=torch.bool, device=device), dbf, vf)
@@ -1273,10 +1352,14 @@ def main():
               ms_corridor=k[("ekf", CORRIDOR_SHAPE)][1],
               plain_ms_corridor=k[("ekf", CORRIDOR_SHAPE)][2]),
         entry("gather_rows", "gather_rows.cu", "parakeet_slam_tpu/kernels/resample_pallas.py:32",
-              launches[1], max(k[("gather", s)][0] for s in (CORRIDOR_SHAPE, REAL_SHAPE)),
+              launches[1], max(k["gather_variants"],
+                               *(k[("gather", s)][0] for s in (CORRIDOR_SHAPE, REAL_SHAPE))),
               gat[1], gat[2], gat[3], library=gat[2],
               ms_corridor=k[("gather", CORRIDOR_SHAPE)][1],
-              plain_ms_corridor=k[("gather", CORRIDOR_SHAPE)][2]),
+              plain_ms_corridor=k[("gather", CORRIDOR_SHAPE)][2],
+              ms_single_call=gat[4], plain_ms_single_call=gat[5],
+              ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][4],
+              plain_ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][5]),
         entry("measurement_update_3d", "ekf_update_3d.cu",
               "parakeet_slam_tpu/kernels/ekf_update_3d.py:664", vision["launches"][1], err3,
               t3["update"], t3["update_twin"], t3["update_bound"],
@@ -1288,7 +1371,9 @@ def main():
               desk["launches"][3], 0.0, km["ham"][0], km["ham"][1], km["ham"][2],
               launches_run_ba=sys_ba["launches"][0]),
         entry("l2_top2", "match.cu", "parakeet_slam_tpu/kernels/match.py:342", l2_launches,
-              l2_err, km["l2"][1], km["l2"][2], km["l2"][3], library=km["l2"][2]),
+              l2_err, km["l2"][1], km["l2"][2], km["l2"][3], library=km["l2"][2],
+              bound_ms_fp32=km["l2"][4], ms_single_call=km["l2"][5],
+              plain_ms_single_call=km["l2"][6]),
         entry("apply_cinv", "schur.cu", "parakeet_slam_tpu/kernels/schur.py:83",
               ba_run["launches"], cinv["err"], cinv["ms"], cinv["plain"], cinv["bound"],
               library=cinv["library"], ms_bucket=cinv["ms_bucket"],

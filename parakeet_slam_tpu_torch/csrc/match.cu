@@ -15,9 +15,10 @@
 //   - the best index is the smallest among equal distances; on a tie the
 //     second-best equals the best; with one valid row the second is the
 //     sentinel; with no valid row the result is (0, sentinel, sentinel);
-//   - L2 is ||a||^2 + ||b||^2 - 2 a.b in fp32 (norms precomputed by the
-//     wrapper, as the reference does), best and second clamped at >= 0
-//     after the top-2. No tensor cores, no TF32.
+//   - L2 is ||a||^2 + ||b||^2 - 2 a.b with float32 accumulation, best and
+//     second clamped at >= 0 after the top-2. The cross product runs on the
+//     tensor cores as 3xTF32 (below); one TF32 product alone would move
+//     the distances by up to 4e-2 at D=128, and with them the argmins.
 //
 // Design.
 //   Hamming: one thread per query keeps its query's 8 words in registers;
@@ -32,19 +33,46 @@
 //     b2' = min(max(b1, t1), min(b2, t2)).
 //   A batch axis on gridDim.z takes the place of the reference's vmap over
 //   the keyframe store; a batch stride of 0 shares an operand.
-//   L2: a block takes 32 queries and walks its chunk in tiles of 64 rows;
-//   the 32x64 cross products are accumulated from 32-wide slices of the
-//   feature axis staged in shared memory (sequential in d, one rounding per
-//   multiply and per add under -fmad=false), written to a shared distance
-//   tile, and folded into the running top-2 by one thread per query in
-//   ascending row order.
+//   L2: what bounds it is the cross product, 2 N M D operations: outside the
+//   tensor cores 0.41 ms at N=1024, M=131072, D=128, and a register-tiled
+//   loop is held by shared-memory reads far above that. So the product runs
+//   on the tensor cores, and since TF32 keeps 10 mantissa bits, as 3xTF32:
+//   every float is split into big = tf32(x) and small = tf32(x - big), and
+//   big.big + (big.small + small.big) is accumulated in float32 by
+//   wgmma.mma_async m64n128k8; the two sums are kept in separate
+//   accumulators and added in the fold. A block takes 128 queries and walks
+//   its chunk of the database in tiles of 128 rows, the feature axis in
+//   slices of 32 floats: one 128-byte row of the 128-byte swizzled K-major
+//   layout both operands use, so [rows, D] row-major needs no transposed
+//   copy. The queries' planes (times -2: exact) are split once and stay in
+//   shared memory (D <= 128; above that they are staged slice by slice like
+//   the database). The block is three warpgroups. One is the producer: it
+//   loads the next database slice to registers while it waits for a free
+//   stage of a ring of three, splits it, stores the planes and signals the
+//   stage's `full` mbarrier. Two are consumers, 64 queries each: they wait
+//   for `full`, start the step's 12 products, leave them in flight into the
+//   next step, and hand a stage back (`empty`) when its products are done.
+//   They never wait for each other, so one folds a tile while the other's
+//   products keep the tensor cores busy. Features past D and rows past the
+//   chunk are zeros in shared memory, never in device memory. The fold
+//   happens in the accumulator fragment: a thread owns two query rows and
+//   32 interleaved columns of the tile, forms (qn + dn) + (-2 a.b), puts
+//   invalid rows at 1e30, and folds its columns in ascending order into a
+//   running (best, idx, second) per row. The four lanes that share a row
+//   hold interleaved column sets, so they merge by shuffles with the index
+//   compared explicitly: the other's best wins if smaller, or equal with a
+//   smaller index. Chunks over gridDim.y and the merge kernel are as for
+//   Hamming. A pre-pass kernel writes the squared norms (one warp a row).
 //
 // Bound. Hamming at N=1024, M=131072: 134 M pairs x 8 popcounts = 1.07 G
 // popcounts (quarter-rate on the SM) plus ~3 G integer ops: instruction-bound,
 // ~0.3-0.6 ms at full occupancy; the database (4 MB) sits in L2. L2 at
-// N=1024, M=131072, D=128: 17 G fp32 multiply-adds without tensor cores
-// (67 TFLOP/s peak) bounds it at ~0.5 ms, far from reached by this simple
-// tiling (a wgmma/3xTF32 form is later work).
+// N=1024, M=131072, D=128 with 1 row in 5 invalid: 3 x 27.5 G TF32
+// operations at 495 TFLOP/s, 0.167 ms, against 0.02 ms for the 67.6 MB of
+// operands. Both operands of a wgmma come from shared memory here (96 bytes
+// a clock of its 128), and the producer's stores of the planes (21 more)
+// compete with them: that, not the tensor cores, holds the kernel at about
+// two and a half times that bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,6 +81,10 @@ namespace {
 
 constexpr int kBigI = 1 << 30;
 constexpr float kBigF = 1e30f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 // ---------------------------------------------------------------- Hamming
 
@@ -120,84 +152,381 @@ __global__ void __launch_bounds__(kHamThreads) hamming_partial_kernel(
 
 // ---------------------------------------------------------------- L2
 
-constexpr int kL2Threads = 256;
-constexpr int kL2Q = 32;   // queries per block
-constexpr int kL2M = 64;   // database rows per tile
-constexpr int kL2D = 32;   // feature slice staged per step
+constexpr int kL2Consumers = 256;  // two warpgroups, 64 query rows each, multiply and fold
+constexpr int kL2Producers = 128;  // one warpgroup stages the database
+constexpr int kL2Threads = kL2Consumers + kL2Producers;
+constexpr int kL2Q = 128;          // queries per block
+constexpr int kL2M = 128;          // database rows per tile: the wgmma's n
+constexpr int kL2K = 32;           // floats per slice of the feature axis: one 128-byte swizzle row
+constexpr int kL2QSlots = 4;       // query slices held in shared memory (D <= 128 stays resident)
+constexpr int kL2Stages = 3;       // database slices in the ring
+constexpr int kL2NormSlots = 4;    // tiles whose norms and validity are held
+constexpr int kPlane = kL2M * kL2K * 4;  // bytes of one plane (big or small) of one slice
+constexpr int kL2Smem = (kL2QSlots + kL2Stages) * 2 * kPlane + kL2NormSlots * kL2M * 5 +
+                        2 * kL2Stages * 8;
 
-__global__ void __launch_bounds__(kL2Threads) l2_partial_kernel(
+// x rounded to TF32 (10 mantissa bits, ties away from zero): the result of
+// cvt.rna.tf32.f32 for every finite x, in two integer operations.
+__device__ __forceinline__ float tf32_round(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// Four floats of row `row` from feature d on, zero past D.
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int d, int D, bool vec) {
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (vec) {
+    if (d < D) v = __ldg(reinterpret_cast<const float4*>(row + d));
+  } else {
+    if (d < D) v.x = row[d];
+    if (d + 1 < D) v.y = row[d + 1];
+    if (d + 2 < D) v.z = row[d + 2];
+    if (d + 3 < D) v.w = row[d + 3];
+  }
+  return v;
+}
+
+// Split four floats into big = tf32(x) and small = tf32(x - big) (the
+// difference is exact) and store them as 16-byte chunk `chunk` of row `row`
+// in the big plane at `plane` and the small plane behind it, in the 128-byte
+// swizzle the wgmma descriptor names: chunk c of row r lies at c ^ (r % 8).
+__device__ __forceinline__ void store_split(uint8_t* plane, int row, int chunk, float4 v) {
+  const float4 big = make_float4(tf32_round(v.x), tf32_round(v.y), tf32_round(v.z),
+                                 tf32_round(v.w));
+  const float4 small = make_float4(tf32_round(v.x - big.x), tf32_round(v.y - big.y),
+                                   tf32_round(v.z - big.z), tf32_round(v.w - big.w));
+  const int off = row * 128 + ((chunk ^ (row & 7)) << 4);
+  *reinterpret_cast<float4*>(plane + off) = big;
+  *reinterpret_cast<float4*>(plane + kPlane + off) = small;
+}
+
+// Shared-memory matrix descriptor of a K-major operand whose rows are 128
+// bytes, swizzled by 128 bytes: start address, leading offset (unused for
+// this layout), 1024 bytes from one group of 8 rows to the next.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3ffff) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (64 x 128, float32, 64 registers a thread) = a (64 x 8) . b (128 x 8)^T,
+// plus d unless scale_d is 0; both operands TF32 in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// Keeps the compiler from reading the accumulators before the wait for the
+// asynchronous products that write them.
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Squared norm of each row, one warp a row. The sums run in another order
+// than a library reduction's: a few units in the last place of the norm.
+__global__ void __launch_bounds__(256) row_norms_kernel(const float* __restrict__ x,
+                                                        float* __restrict__ out, int rows, int D,
+                                                        int vec) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const float* r = x + (long long)row * D;
+  float acc = 0.0f;
+  for (int d = 4 * lane; d < D; d += 128) {
+    const float4 v = load4(r, d, D, vec);
+    acc += v.x * v.x;
+    acc += v.y * v.y;
+    acc += v.z * v.z;
+    acc += v.w * v.w;
+  }
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) out[row] = acc;
+}
+
+struct Top2 {
+  float b1, b2;
+  int bi;
+};
+
+// One more distance, from a row index above all the earlier ones.
+__device__ __forceinline__ void fold(Top2& t, float d, int m) {
+  t.b2 = fminf(t.b2, fmaxf(t.b1, d));
+  t.bi = d < t.b1 ? m : t.bi;
+  t.b1 = fminf(t.b1, d);
+}
+
+// Two partial top-2 over disjoint row sets in any order: the smaller best
+// wins, the smaller index among equal bests.
+__device__ __forceinline__ void merge_by_index(Top2& t, float o1, float o2, int oi) {
+  const float nb2 = fminf(fmaxf(t.b1, o1), fminf(t.b2, o2));
+  t.bi = (o1 < t.b1 || (o1 == t.b1 && oi < t.bi)) ? oi : t.bi;
+  t.b1 = fminf(t.b1, o1);
+  t.b2 = nb2;
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__global__ void __launch_bounds__(kL2Threads, 1) l2_partial_kernel(
     const float* __restrict__ qd, const float* __restrict__ db,
     const float* __restrict__ qn, const float* __restrict__ dn,
     const uint8_t* __restrict__ valid, int32_t* __restrict__ p_idx,
     float* __restrict__ p_b1, float* __restrict__ p_b2, int N, int M, int D,
-    int S, int chunk) {
-  __shared__ float sq[kL2Q][kL2D + 1];
-  __shared__ float sdb[kL2M][kL2D + 1];
-  __shared__ float dist[kL2Q][kL2M + 1];
-  const int s = blockIdx.y;
-  const int q0 = blockIdx.x * kL2Q;
-  const int m0 = s * chunk;
-  const int m1 = min(m0 + chunk, M);
-  const int tid = threadIdx.x;
-  const int qi = tid >> 3;  // this thread's query row in the tile, 0..31
-  const int cj = tid & 7;   // its columns cj, cj+8, ..., cj+56
+    int S, int chunk, int vec) {
+  // the swizzle is a function of the address: planes start at multiples of 1024
+  extern __shared__ __align__(1024) uint8_t l2_smem[];
+  uint8_t* s_q = l2_smem;                              // [slot][big, small]
+  uint8_t* s_db = s_q + kL2QSlots * 2 * kPlane;        // [stage][big, small]
+  float* s_dn = reinterpret_cast<float*>(s_db + kL2Stages * 2 * kPlane);   // [tile % 4][row]
+  uint8_t* s_valid = reinterpret_cast<uint8_t*>(s_dn + kL2NormSlots * kL2M);  // [tile % 4][row]
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(s_valid + kL2NormSlots * kL2M);
+  const uint32_t full = smem_u32(s_bar);               // [stage]: the stage's planes are stored
+  const uint32_t empty = full + 8 * kL2Stages;         // [stage]: its products are done
+  if (smem_u32(l2_smem) & 1023) __trap();
 
-  float b1 = kBigF, b2 = kBigF;
-  int bi = m0;
-  for (int t0 = m0; t0 < m1; t0 += kL2M) {
-    const int cnt = min(kL2M, m1 - t0);
-    float acc[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[k] = 0.0f;
-    for (int d0 = 0; d0 < D; d0 += kL2D) {
-      const int dw = min(kL2D, D - d0);
-      __syncthreads();
-      for (int e = tid; e < kL2Q * kL2D; e += kL2Threads) {
-        const int r = e / kL2D, c = e % kL2D;
-        const int qr = q0 + r;
-        sq[r][c] = (qr < N && c < dw) ? qd[(long long)qr * D + d0 + c] : 0.0f;
-      }
-      for (int e = tid; e < kL2M * kL2D; e += kL2Threads) {
-        const int r = e / kL2D, c = e % kL2D;
-        sdb[r][c] = (r < cnt && c < dw) ? db[(long long)(t0 + r) * D + d0 + c] : 0.0f;
-      }
-      __syncthreads();
-      for (int c = 0; c < dw; ++c) {
-        const float a = sq[qi][c];
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[k] = acc[k] + a * sdb[cj + 8 * k][c];
-      }
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kL2Q;
+  const int m0 = blockIdx.y * chunk;
+  const int m1 = min(m0 + chunk, M);
+  const int n_slices = (D + kL2K - 1) / kL2K;
+  const int n_steps = ((m1 - m0 + kL2M - 1) / kL2M) * n_slices;
+  const bool resident = n_slices <= kL2QSlots;
+
+  // Slice `slice` of the block's queries, split, into slot `slot`, by the
+  // n_threads threads that call it. The products are taken with -2 q:
+  // scaling by a power of two is exact in the split, the products and the
+  // sums, and saves the fold a multiply.
+  auto stage_q = [&](int slice, int slot, int t, int n_threads) {
+    for (int e = t; e < kL2Q * 8; e += n_threads) {
+      const int r = e >> 3, c = e & 7;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (q0 + r < N) v = load4(qd + (long long)(q0 + r) * D, slice * kL2K + 4 * c, D, vec);
+      v = make_float4(-2.0f * v.x, -2.0f * v.y, -2.0f * v.z, -2.0f * v.w);
+      store_split(s_q + slot * 2 * kPlane, r, c, v);
     }
-    const int qr = q0 + qi;
-    const float qnv = qr < N ? qn[qr] : 0.0f;
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int c = cj + 8 * k;
-      if (c < cnt) {
-        const int m = t0 + c;
-        const float v = (qnv + dn[m]) - 2.0f * acc[k];
-        dist[qi][c] = valid[m] ? v : kBigF;
-      }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kL2Stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(full + 8 * s),
+                   "r"(kL2Producers) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(empty + 8 * s),
+                   "r"(kL2Consumers) : "memory");
     }
-    __syncthreads();
-    if (tid < kL2Q) {
-      for (int c = 0; c < cnt; ++c) {
-        const float d = dist[tid][c];
-        if (d < b1) {
-          b2 = b1;
-          b1 = d;
-          bi = t0 + c;
-        } else if (d < b2) {
-          b2 = d;
-        }
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if (tid < kL2Q && q0 + tid < N) {
-    const long long o = (long long)s * N + q0 + tid;
-    p_idx[o] = bi;
-    p_b1[o] = b1;
-    p_b2[o] = b2;
+  if (resident) {
+    for (int sl = 0; sl < n_slices; ++sl) stage_q(sl, sl, tid, kL2Threads);
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  if (tid >= kL2Consumers) {
+    // ------------------------------------------------------------ producer
+    // Step p's slice of the database goes to ring stage p % 3 once the
+    // products of step p - 3 are done with it: loaded to registers a step
+    // ahead, split, stored. Rows past the chunk's end are staged as zeros
+    // and invalid: they fold as the sentinel, which changes no top-2.
+    // the block's registers go where they are needed: 88 a thread here, 208
+    // for the consumers' two accumulator sets
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 88;");
+    const int t = tid - kL2Consumers;
+    const int s_chunk = t & 7;   // a thread moves 16-byte chunk s_chunk of rows s_row + 16 i
+    const int s_row = t >> 3;
+    float4 pre[8];
+    float pre_dn = 0.0f;
+    uint8_t pre_valid = 0;
+    auto load_db = [&](int t0, int slice) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = t0 + s_row + 16 * i;
+        pre[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (m < m1) pre[i] = load4(db + (long long)m * D, slice * kL2K + 4 * s_chunk, D, vec);
+      }
+      if (slice == 0) {
+        const int m = t0 + t;
+        pre_dn = m < m1 ? dn[m] : 0.0f;
+        pre_valid = m < m1 ? valid[m] : 0;
+      }
+    };
+    load_db(m0, 0);
+    int tile = 0, slice = 0, stage = 0;
+    uint32_t parity = 1;  // the ring starts empty: the first waits pass
+    for (int step = 0; step < n_steps; ++step) {
+      mbar_wait(empty + 8 * stage, parity);
+      if (!resident) stage_q(slice, stage, t, kL2Producers);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        store_split(s_db + stage * 2 * kPlane, s_row + 16 * i, s_chunk, pre[i]);
+      }
+      if (slice == 0) {
+        s_dn[(tile % kL2NormSlots) * kL2M + t] = pre_dn;
+        s_valid[(tile % kL2NormSlots) * kL2M + t] = pre_valid;
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(full + 8 * stage);
+      if (++slice == n_slices) {
+        slice = 0;
+        ++tile;
+      }
+      if (++stage == kL2Stages) {
+        stage = 0;
+        parity ^= 1;
+      }
+      if (step + 1 < n_steps) load_db(m0 + tile * kL2M, slice);  // in flight under the wait
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 208;");
+    // the accumulator fragment: this thread holds rows r_lo and r_lo + 8 of
+    // its warpgroup's 64, columns 8 j + c_lo + {0, 1} for j = 0..15
+    const int lane = tid & 31;
+    const int wg = tid >> 7;
+    const int r_lo = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    const int c_lo = (lane & 3) * 2;
+    const float qn_lo = q0 + r_lo < N ? qn[q0 + r_lo] : 0.0f;
+    const float qn_hi = q0 + r_lo + 8 < N ? qn[q0 + r_lo + 8] : 0.0f;
+    Top2 lo = {kBigF, kBigF, m0}, hi = lo;
+    // the big x big products and the two cross terms are summed apart: the
+    // cross terms are 2^-11 of the sum, and added to it one by one each would
+    // cost a rounding at the sum's magnitude
+    float acc_big[64], acc_small[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc_big[i] = acc_small[i] = 0.0f;
+
+    // A step's products stay in flight into the next step; its stage goes
+    // back to the producer when they are done. The two warpgroups wait for
+    // the producer alone, never for each other, so one folds a tile while
+    // the other multiplies.
+    int tile = 0, slice = 0, stage = 0, unreleased = -1;
+    uint32_t parity = 0;
+    for (int step = 0; step < n_steps; ++step) {
+      mbar_wait(full + 8 * stage, parity);
+      const uint32_t a_big = smem_u32(s_q + (resident ? slice : stage) * 2 * kPlane) + wg * 64 * 128;
+      const uint32_t b_big = smem_u32(s_db + stage * 2 * kPlane);
+      const int n_k8 = min(kL2K, D - slice * kL2K + 7) / 8;  // 8-wide steps that hold data
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+      for (int kk = 0; kk < n_k8; ++kk) {
+        const int first = slice == 0 && kk == 0 ? 0 : 1;
+        // 32 bytes further along every (swizzled) row
+        const uint64_t ab = smem_desc(a_big + 32 * kk), as = smem_desc(a_big + kPlane + 32 * kk);
+        const uint64_t bb = smem_desc(b_big + 32 * kk), bs = smem_desc(b_big + kPlane + 32 * kk);
+        wgmma_m64n128k8(acc_small, as, bb, first);
+        wgmma_m64n128k8(acc_small, ab, bs, 1);
+        wgmma_m64n128k8(acc_big, ab, bb, first);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      if (unreleased >= 0) {
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        mbar_arrive(empty + 8 * unreleased);
+      }
+      unreleased = stage;
+
+      if (slice + 1 == n_slices) {
+        // the tile's cross products are whole: fold its distances
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        mbar_arrive(empty + 8 * stage);
+        unreleased = -1;
+        pin(acc_big);
+        pin(acc_small);
+        const float* t_dn = s_dn + (tile % kL2NormSlots) * kL2M;
+        const uint8_t* t_valid = s_valid + (tile % kL2NormSlots) * kL2M;
+        const int t0 = m0 + tile * kL2M;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = 8 * j + c_lo;
+          const float2 dn2 = *reinterpret_cast<const float2*>(t_dn + c);
+          const uchar2 v2 = *reinterpret_cast<const uchar2*>(t_valid + c);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dnv = e ? dn2.y : dn2.x;
+            const bool ok = e ? v2.y : v2.x;
+            const float x_lo = acc_big[4 * j + e] + acc_small[4 * j + e];
+            const float x_hi = acc_big[4 * j + 2 + e] + acc_small[4 * j + 2 + e];
+            fold(lo, ok ? (qn_lo + dnv) + x_lo : kBigF, t0 + c + e);
+            fold(hi, ok ? (qn_hi + dnv) + x_hi : kBigF, t0 + c + e);
+          }
+        }
+        slice = 0;
+        ++tile;
+      } else {
+        ++slice;
+      }
+      if (++stage == kL2Stages) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+
+    // the four lanes that share a row hold interleaved columns
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      const float l1 = __shfl_xor_sync(0xffffffffu, lo.b1, w), l2 = __shfl_xor_sync(0xffffffffu, lo.b2, w);
+      const int li = __shfl_xor_sync(0xffffffffu, lo.bi, w);
+      const float h1 = __shfl_xor_sync(0xffffffffu, hi.b1, w), h2 = __shfl_xor_sync(0xffffffffu, hi.b2, w);
+      const int hidx = __shfl_xor_sync(0xffffffffu, hi.bi, w);
+      merge_by_index(lo, l1, l2, li);
+      merge_by_index(hi, h1, h2, hidx);
+    }
+    if ((lane & 3) == 0) {
+      const long long o = (long long)blockIdx.y * N + q0 + r_lo;
+      if (q0 + r_lo < N) {
+        p_idx[o] = lo.bi;
+        p_b1[o] = lo.b1;
+        p_b2[o] = lo.b2;
+      }
+      if (q0 + r_lo + 8 < N) {
+        p_idx[o + 8] = hi.bi;
+        p_b1[o + 8] = hi.b1;
+        p_b2[o + 8] = hi.b2;
+      }
+    }
   }
 }
 
@@ -264,19 +593,29 @@ extern "C" int hamming_top2_launch(const int32_t* qd, const int32_t* db, const u
   return (int)cudaGetLastError();
 }
 
-extern "C" int l2_top2_launch(const float* qd, const float* db, const float* qn,
-                              const float* dn, const uint8_t* valid, int32_t* idx, float* b1,
-                              float* b2, int32_t* p_idx, float* p_b1, float* p_b2, int N,
-                              int M, int D, int S, int chunk, void* stream) {
-  if (N < 1 || M < 1 || D < 1 || S < 1 || chunk < 1 || (long long)S * chunk < M ||
-      (long long)(S - 1) * chunk >= M || S > 65535) {
+// qn [N] and dn [M] are scratch for the squared norms.
+extern "C" int l2_top2_launch(const float* qd, const float* db, float* qn, float* dn,
+                              const uint8_t* valid, int32_t* idx, float* b1, float* b2,
+                              int32_t* p_idx, float* p_b1, float* p_b2, int N, int M, int D,
+                              int S, int chunk, void* stream) {
+  if (N < 1 || M < 1 || D < 1 || S < 1 || chunk < 1 || chunk % kL2M != 0 ||
+      (long long)S * chunk < M || (long long)(S - 1) * chunk >= M || S > 65535) {
     return (int)cudaErrorInvalidValue;
   }
+  cudaError_t err = cudaFuncSetAttribute(l2_partial_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kL2Smem);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte loads where every row starts at a multiple of 16 bytes
+  const int vec = D % 4 == 0 && (((uintptr_t)qd | (uintptr_t)db) & 15) == 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  row_norms_kernel<<<blocks_for(N, 8), 256, 0, st>>>(qd, qn, N, D, vec);
+  row_norms_kernel<<<blocks_for(M, 8), 256, 0, st>>>(db, dn, M, D, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(blocks_for(N, kL2Q), S, 1);
-  l2_partial_kernel<<<grid, kL2Threads, 0, st>>>(qd, db, qn, dn, valid, p_idx, p_b1, p_b2, N,
-                                                 M, D, S, chunk);
-  cudaError_t err = cudaGetLastError();
+  l2_partial_kernel<<<grid, kL2Threads, kL2Smem, st>>>(qd, db, qn, dn, valid, p_idx, p_b1, p_b2,
+                                                       N, M, D, S, chunk, vec);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_kernel<float><<<blocks_for(N, 256), 256, 0, st>>>(p_idx, p_b1, p_b2, idx, b1, b2, 1,
                                                          N, S);

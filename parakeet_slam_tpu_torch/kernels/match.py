@@ -18,8 +18,14 @@ Semantics, as the reference's XLA twins define them: invalid database rows
 count as 2^30 (Hamming) or 1e30 (L2); the best index is the smallest among
 equal distances and the second-best equals the best on a tie; with one
 valid row the second is the sentinel; with none the result is
-(0, sentinel, sentinel). L2 is ||a||^2 + ||b||^2 - 2 a.b in fp32, best and
-second clamped at >= 0 after the top-2, as the reference's kernel does.
+(0, sentinel, sentinel). L2 is ||a||^2 + ||b||^2 - 2 a.b with float32
+accumulation, best and second clamped at >= 0 after the top-2, as the
+reference's kernel does. On the card the cross product a.b runs on the
+tensor cores as 3xTF32: every float is split into big = tf32(x) and
+small = tf32(x - big), and big.big + big.small + small.big is summed in
+float32, which keeps the distances within 4e-4 of the float32 twin at
+D=128. One TF32 product alone moves them by up to 4e-2 and with them the
+argmins.
 """
 
 from __future__ import annotations
@@ -32,11 +38,13 @@ BIG = 2**30
 BIG_F = 1e30
 # The twins bound the [.., N, chunk, W] XOR block to this many bytes.
 _TWIN_BYTES = 1 << 28
-# Split the database into chunks until about this many blocks are in flight
-# (4 per SM of an H100).
-_TARGET_BLOCKS = 528
+# Split the database into chunks until about this many blocks are in flight:
+# 4 per SM of an H100 for Hamming; one per SM for L2, whose block holds
+# all of an SM's shared memory, and never more than the 132 SMs, so that no
+# block waits for a second wave.
+_HAM_BLOCKS, _L2_BLOCKS = 528, 132
 _HAM_QUERIES, _HAM_TILE = 128, 256
-_L2_QUERIES, _L2_TILE = 32, 64
+_L2_QUERIES, _L2_TILE = 128, 128
 
 
 # ---------------------------------------------------------------------------
@@ -142,11 +150,14 @@ def l2_top2_reference(qd, db, db_valid):
 # ---------------------------------------------------------------------------
 
 
-def _split(M: int, blocks: int, tile: int) -> tuple[int, int]:
+def _split(M: int, blocks: int, tile: int, target: int, over: bool) -> tuple[int, int]:
     """(S, chunk): S contiguous database chunks of `chunk` rows (a multiple
-    of the tile) so that about _TARGET_BLOCKS blocks are in flight."""
+    of the tile), S * chunk >= M > (S - 1) * chunk, so that `blocks` blocks
+    per chunk make about `target` blocks: the first count at or above it
+    (`over`), or the last at or below it."""
     n_tiles = -(-M // tile)
-    s = max(1, min(n_tiles, -(-_TARGET_BLOCKS // blocks)))
+    want = -(-target // blocks) if over else target // blocks
+    s = max(1, min(n_tiles, want))
     chunk = -(-n_tiles // s) * tile
     return -(-M // chunk), chunk
 
@@ -181,7 +192,7 @@ def hamming_top2(qd, db, db_valid):
     qd, db = _aligned(qd), _aligned(db)
     valid = db_valid.to(torch.bool).contiguous()
     nb = max(B, 1)
-    S, chunk = _split(M, -(-N // _HAM_QUERIES) * nb, _HAM_TILE)
+    S, chunk = _split(M, -(-N // _HAM_QUERIES) * nb, _HAM_TILE, _HAM_BLOCKS, over=True)
     i32 = dict(dtype=torch.int32, device=dev)
     out = [torch.empty(nb, N, **i32) for _ in range(3)]
     part = [torch.empty(nb, S, N, **i32) for _ in range(3)]
@@ -211,18 +222,18 @@ def l2_top2(qd, db, db_valid):
         raise ValueError(f"l2_top2: qd {tuple(qd.shape)}, db {tuple(db.shape)}, "
                          f"db_valid {tuple(db_valid.shape)}")
     qd, db = qd.float().contiguous(), db.float().contiguous()
-    qn = torch.sum(qd * qd, dim=-1)  # the twin's norms, bit for bit
-    dn = torch.sum(db * db, dim=-1)
     valid = db_valid.to(torch.bool).contiguous()
-    S, chunk = _split(M, -(-N // _L2_QUERIES), _L2_TILE)
-    idx = torch.empty(N, dtype=torch.int32, device=dev)
-    b1, b2 = (torch.empty(N, dtype=torch.float32, device=dev) for _ in range(2))
-    p_idx = torch.empty(S, N, dtype=torch.int32, device=dev)
-    p1, p2 = (torch.empty(S, N, dtype=torch.float32, device=dev) for _ in range(2))
+    S, chunk = _split(M, -(-N // _L2_QUERIES), _L2_TILE, _L2_BLOCKS, over=False)
+    # rows: the results, then S partial results of each, then scratch for
+    # the queries' squared norms; dn is scratch for the database's
+    ints = torch.empty(1 + S, N, dtype=torch.int32, device=dev)
+    floats = torch.empty(2 * (1 + S) + 1, N, dtype=torch.float32, device=dev)
+    dn = torch.empty(M, dtype=torch.float32, device=dev)
+    idx, b1, b2 = ints[0], floats[0], floats[1]
     err = _build.library().l2_top2_launch(
-        qd.data_ptr(), db.data_ptr(), qn.data_ptr(), dn.data_ptr(), valid.data_ptr(),
-        idx.data_ptr(), b1.data_ptr(), b2.data_ptr(), p_idx.data_ptr(), p1.data_ptr(),
-        p2.data_ptr(), N, M, D, S, chunk, _build.stream_ptr(qd),
+        qd.data_ptr(), db.data_ptr(), floats[-1].data_ptr(), dn.data_ptr(), valid.data_ptr(),
+        idx.data_ptr(), b1.data_ptr(), b2.data_ptr(), ints[1].data_ptr(),
+        floats[2].data_ptr(), floats[2 + S].data_ptr(), N, M, D, S, chunk, _build.stream_ptr(qd),
     )
     _build.check(err, "l2_top2")
     l2_top2.launches += 1

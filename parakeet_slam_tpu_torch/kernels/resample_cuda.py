@@ -3,10 +3,10 @@
 After systematic index selection every surviving particle's ENTIRE state,
 pose plus its whole landmark map, is copied to its new slot: a
 bandwidth-bound gather with no arithmetic. `gather_state` launches the
-hand-written kernel `csrc/gather_rows.cu` (one launch for every leaf) on
-CUDA tensors and its plain twin `gather_state_reference` (`index_select`
-per leaf) on CPU tensors. Port of
-`parakeet_slam_tpu/kernels/resample_pallas.py::gather_state`.
+hand-written kernel `csrc/gather_rows.cu` (one launch for every leaf; the
+work lists it walks are cut by `plan_gather`) on CUDA tensors and its plain
+twin `gather_state_reference` (`index_select` per leaf) on CPU tensors. Port
+of `parakeet_slam_tpu/kernels/resample_pallas.py::gather_state`.
 
 Both reset the weights to 0, as `kernels/resample.py::gather_particles` of
 the reference does after its gather.
@@ -15,6 +15,7 @@ the reference does after its gather.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,6 +32,56 @@ def gather_state_reference(state: ParticleState, idx: torch.Tensor) -> ParticleS
     return state.replace(log_w=torch.zeros_like(state.log_w), **out)
 
 
+# The kernel streams rows in chunks of this many bytes through a ring of
+# shared-memory stages of the same size (a multiple of 16).
+_CHUNK = 16384
+
+
+def plan_gather(row_bytes: tuple, shaped: tuple, P: int, chunk: int):
+    """The kernel's two work lists for leaves of `row_bytes[k]` bytes a row.
+
+    A leaf that is `shaped[k]` (base addresses and row length multiples of
+    16 bytes) is cut into chunks: item (row r, piece c) covers bytes
+    [c * chunk, min((c + 1) * chunk, row_bytes)) of row r, `per` = pieces of
+    a row, P * per items. Any other leaf is copied by threads, `per` whole
+    rows to an item (as many as fit in a sixteenth of a chunk, at least
+    one: these rows are a few bytes, and many short items keep every block
+    busy), ceil(P / per) items. Zero-width leaves are left out.
+
+    Returns (bulk, small, n_bulk_items, n_small_items); `bulk` and `small`
+    list (k, per, first) with `first` the leaf's first item in its list.
+    """
+    if chunk < 16 or chunk % 16:
+        raise ValueError(f"plan_gather: chunk {chunk} must be a positive multiple of 16")
+    if len(row_bytes) != len(shaped):
+        raise ValueError(f"plan_gather: {len(row_bytes)} widths, {len(shaped)} flags")
+    lists, counts = ([], []), [0, 0]
+    for k, (nb, ok) in enumerate(zip(row_bytes, shaped)):
+        if nb == 0:
+            continue
+        which = 0 if ok else 1
+        per = -(-nb // chunk) if ok else max(1, chunk // 16 // nb)
+        lists[which].append((k, per, counts[which]))
+        counts[which] += P * per if ok else -(-P // per)
+    return tuple(lists[0]), tuple(lists[1]), counts[0], counts[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_plan(row_bytes: tuple, shaped: tuple, P: int, chunk: int):
+    """plan_gather's answer as the launch takes it: the leaves' order (bulk
+    first), then the widths, `per`, `first` and the counts as C values."""
+    bulk, small, n_bulk_items, n_small_items = plan_gather(row_bytes, shaped, P, chunk)
+    order = bulk + small
+    n = len(order)
+    return (
+        tuple(k for k, _, _ in order),
+        (ctypes.c_longlong * n)(*(row_bytes[k] for k, _, _ in order)),
+        (ctypes.c_int * n)(*(per for _, per, _ in order)),
+        (ctypes.c_int * n)(*(first for _, _, first in order)),
+        len(bulk), len(small), n_bulk_items, n_small_items,
+    )
+
+
 def gather_state(state: ParticleState, idx: torch.Tensor) -> ParticleState:
     """Gathered state (new tensors) with out[i] = state[idx[i]] for every
     leaf and log_w = 0. idx [P] integer, every entry in [0, P)."""
@@ -42,7 +93,9 @@ def gather_state(state: ParticleState, idx: torch.Tensor) -> ParticleState:
     dev = state.pose.device
     if idx.shape != (P,) or idx.device != dev:
         raise ValueError(f"gather_state: idx must be [{P}] on {dev}, got {tuple(idx.shape)} on {idx.device}")
-    idx32 = idx.to(torch.int32).contiguous()
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.long()
+    idx = idx.contiguous()
     srcs, dsts, nbytes, out = [], [], [], {}
     for f in _LEAVES:
         a = getattr(state, f)
@@ -50,18 +103,16 @@ def gather_state(state: ParticleState, idx: torch.Tensor) -> ParticleState:
             raise ValueError(f"gather_state: leaf {f} must be contiguous [{P}, ...] on {dev}")
         o = torch.empty_like(a)
         out[f] = o
-        row = a.numel() // P * a.element_size()
-        if row == 0:  # zero-width leaf (desc_words=0)
-            continue
         srcs.append(a.data_ptr())
         dsts.append(o.data_ptr())
-        nbytes.append(row)
-    n = len(srcs)
-    lib = _build.library()
-    err = lib.gather_rows_launch(
-        (ctypes.c_void_p * n)(*srcs), (ctypes.c_void_p * n)(*dsts),
-        (ctypes.c_longlong * n)(*nbytes), n, idx32.data_ptr(), P,
-        _build.stream_ptr(idx32),
+        nbytes.append(a.numel() // P * a.element_size())
+    shaped = tuple((s | d | nb) % 16 == 0 for s, d, nb in zip(srcs, dsts, nbytes))
+    order, *table = _launch_plan(tuple(nbytes), shaped, P, _CHUNK)
+    n = len(order)
+    err = _build.library().gather_rows_launch(
+        (ctypes.c_void_p * n)(*(srcs[k] for k in order)),
+        (ctypes.c_void_p * n)(*(dsts[k] for k in order)),
+        *table, _CHUNK, idx.data_ptr(), idx.dtype == torch.int64, P, _build.stream_ptr(idx),
     )
     _build.check(err, "gather_rows")
     gather_state.launches += 1
