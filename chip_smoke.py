@@ -7,13 +7,18 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
   1. environment: torch/CUDA versions, card name and power limit, TF32 flags;
   2. build the hand-written kernels from `parakeet_slam_tpu_torch/csrc` (five
      sources);
+  2b. the 2-D update kernel's bearing wrap against the twin's
+     torch.atan2(torch.sin(a), torch.cos(a)), bit for bit, over all 2^32
+     float32 values;
   3. each kernel against its plain PyTorch twin on the card, at the corridor
      shape (P=64, L=192, Z=16, S=3) and the real-size shape (P=2048,
      L=10240, Z=32, S=3): masks, counts, target lanes and n_match equal,
      floats within rtol=atol=1e-5 (log_w atol=1e-4), the gather bit-exact
      on the resample indices and on a permutation; median times of kernel
-     and twin with CUDA events (the gather's as the device's time alone,
-     kernel, twin, kernel, twin in turns, and around single calls); then the
+     as the device's time alone (runs queued behind a sleep kernel, the
+     update's state restored outside each call's events), in turns with the
+     twin's (around single calls: a twin's thousands of launches overflow
+     the launch queue behind a sleep), and around single calls; then the
      update kernel's other options (S=0, cull_unseen, no cull, no weight
      update, full and empty maps, L=130, Z=64) at small shapes, and the
      gather on descriptor rows of W=8 words and on one row repeated P times;
@@ -32,7 +37,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      score lanes equal; scores, means and covariances within
      rtol=atol=1e-5, log_w within atol=2e-3 + rtol=1e-6 (sums over up to
      128 observations in another order); the update fed score_3d's scores
-     equal to the update that scores itself;
+     equal to the update that scores itself (so score_3d's scores equal the
+     update's own pass bit for bit); score_3d timed as the device's time
+     alone, in turns with its twin (around single calls), and around
+     single calls;
   7. the vision path at full width, benchmark config 3 (configs/kitti_00.yaml:
      FastSLAM 2.0, stereo_3d, P=2048, L=10240, Z=128) for 30 frames of the
      synthetic drive world: one score_3d and one measurement_update_3d
@@ -64,7 +72,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      one score_3d and one measurement_update_3d launch per frame, one gather
      per resample; frames/s (from frame 3), keyframes, dispatches, accepted
      closures, peak device memory, and the corrected, online and
-     dead-reckoning ATE (Sim(3), not gated);
+     dead-reckoning ATE (Sim(3), not gated); then the same run again from
+     the same seed: keyframe count, resample count, estimates and pose-graph
+     poses equal bit for bit;
   11. every keyframe-store match of phase 10, replayed through the twin:
      forward and reverse tables equal;
   12. the landmark-block inverse-apply kernel (apply_cinv) against its twin:
@@ -198,13 +208,15 @@ def update_ops(counts, width, lm_valid, target, n_obs, n_valid_obs):
     return pair * n_obs * lanes + sweep, pair * n_valid_obs * lanes + sweep + rest
 
 
-def queued_ms(call, reps=20, batches=5):
+def queued_ms(call, reps=20, batches=5, prepare=None):
     """Median milliseconds per call of `call(i)` on the device alone: runs of
     `reps` back-to-back calls queued behind a sleep kernel (see
-    `eval.profiling.queued`). `call` must not wait for the device."""
+    `eval.profiling.queued`; `prepare(i)` restores an in-place kernel's
+    inputs outside the call's own events). `call` must not wait for the
+    device."""
     from parakeet_slam_tpu_torch.eval.profiling import queued
 
-    return queued(call, reps=reps, batches=batches)
+    return queued(call, reps=reps, batches=batches, prepare=prepare)
 
 
 def phase_environment():
@@ -235,6 +247,39 @@ def phase_build():
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.library.build_seconds:.2f} s) sources={[s.name for s in _build.sources()]}")
+
+
+def phase_wrap(device):
+    """The 2-D update kernel's bearing wrap (its own device function, which
+    takes sin and cos from one sincosf for |a| <= 8) against the twin's
+    torch.atan2(torch.sin(a), torch.cos(a)) on the card, bit for bit, over
+    every float32 bit pattern: |a| <= 8, the rest, +-inf and the NaNs (a NaN
+    equals a NaN)."""
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import ekf_update
+
+    chunk = 1 << 28
+    n_bad = n_bad_small = 0
+    first = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start in range(-2**31, 2**31, chunk):
+        a = torch.arange(start, start + chunk, dtype=torch.int64, device=device).to(torch.int32)
+        a = a.view(torch.float32)
+        got = ekf_update.wrap_angle(a)
+        want = torch.atan2(torch.sin(a), torch.cos(a))
+        bad = (got.view(torch.int32) != want.view(torch.int32)) & ~(got.isnan() & want.isnan())
+        n = int(bad.sum())
+        n_bad += n
+        n_bad_small += int((bad & (a.abs() <= 8.0)).sum())
+        if n and first is None:
+            first = float(a[bad][0])
+    dt = time.perf_counter() - t0
+    print(f"wrap: the kernels' atan2(sin a, cos a) against torch's over all 2^32 float32 values "
+          f"(+-inf and NaN included) in {dt:.2f} s: {n_bad} differ ({n_bad_small} with |a| <= 8)"
+          + (f", the first at a={first!r}" if first is not None else ""))
+    check(n_bad == 0, f"the kernels' wrap differs from the twin's in {n_bad} values")
 
 
 # Options of the update kernel that the main path does not take, held
@@ -294,7 +339,7 @@ def check_update_kernel(shape, device, fill="holes", timed=True, **flags):
     if not timed:
         print(f"ekf_update_2d P={P} L={L} Z={Z} S={S} fill={fill} {flags}: targets={n_upd} "
               f"collisions={n_coll} max_abs_err={err:.3g} agrees")
-        return err, None, None, None
+        return err, None, None, None, None
     # bound: the state and the frame read once, the results written once; the
     # operations this frame needs (OPS_2D: 34 per pair of a valid observation
     # and a valid lane at S=3, 57 per lane, the updates, inits and the cull)
@@ -302,17 +347,27 @@ def check_update_kernel(shape, device, fill="holes", timed=True, **flags):
     _, ops = update_ops(OPS_2D, S, T["lm_valid"], ref[7], n_valid_obs, n_valid_obs)
     bnd = bound(nbytes(*state, *obs) + nbytes(*got), ops)
 
-    def reset():
+    def reset(i=0):
         for w, s in zip(work, state):
             w.copy_(s)
 
+    # the kernel's time on the device alone (the state restored before each
+    # call, outside its events) in turns with the twin's; the twin's ~5,000
+    # launches a call overflow the launch queue behind a sleep, so it is
+    # timed around single calls (host-bound). Then the kernel around single
+    # calls, with the host's work before its launch.
     reps = 20 if P < 1024 else 10
-    ms = cuda_ms(lambda: ekf_update.measurement_update_2d(*work, *obs, **kw), reps, reset)
-    plain = cuda_ms(lambda: ekf_update.measurement_update_2d_reference(*state, *obs, **kw), reps)
+    kernel = lambda i=0: ekf_update.measurement_update_2d(*work, *obs, **kw)  # noqa: E731
+    twin = lambda i=0: ekf_update.measurement_update_2d_reference(*state, *obs, **kw)  # noqa: E731
+    turns = [queued_ms(kernel, reps=reps, prepare=reset), cuda_ms(twin, 3),
+             queued_ms(kernel, reps=reps, prepare=reset), cuda_ms(twin, 3)]
+    ms, plain = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+    single = cuda_ms(kernel, reps, reset)
     print(f"ekf_update_2d P={P} L={L} Z={Z} S={S}: targets={n_upd} collisions={n_coll} "
-          f"max_abs_err={err:.3g} kernel={ms:.4f} ms twin={plain:.4f} ms "
-          f"bound={bnd[0]:.4f} ms ({bnd[1]})")
-    return err, ms, plain, bnd
+          f"max_abs_err={err:.3g} kernel={turns[0]:.4f}; {turns[2]:.4f} ms twin={turns[1]:.4f}; "
+          f"{turns[3]:.4f} ms (device time, in turns); single calls with their host time: "
+          f"kernel={single:.4f} ms; bound={bnd[0]:.4f} ms ({bnd[1]})")
+    return err, ms, plain, bnd, single
 
 
 def _gather_state(shape, device, desc_words=0):
@@ -599,17 +654,26 @@ def check_update_3d(model, shape, device, fill="holes", timed=True, ext=False, *
     # observations, the update the valid ones and then applies and culls.
     score_ops, update_ops_ = update_ops(OPS_3D[model], kw["desc_words"], T["lm_valid"], ref[7],
                                         shape[2], int(T["valid"].sum()))
+    # score_3d on the device alone, in turns with its twin (around single
+    # calls: its launches overflow the queue behind a sleep)
+    score = lambda i=0: E.score_3d(*score_args, **sk)  # noqa: E731
+    score_twin = lambda i=0: E.score_3d_reference(*score_args, **sk)  # noqa: E731
+    turns = [queued_ms(score, reps=reps_k), cuda_ms(score_twin, reps_t),
+             queued_ms(score, reps=reps_k), cuda_ms(score_twin, reps_t)]
     t = {
         "update_bound": bound(nbytes(*state, *obs) + nbytes(*got), update_ops_),
         "score_bound": bound(nbytes(*score_args) + nbytes(ll, ix), score_ops),
         "update": cuda_ms(lambda: E.measurement_update_3d(*work, *obs, **kw), reps_k, reset),
         "update_twin": cuda_ms(lambda: E.measurement_update_3d_reference(*state, *obs, **kw), reps_t),
-        "score": cuda_ms(lambda: E.score_3d(*score_args, **sk), reps_k),
-        "score_twin": cuda_ms(lambda: E.score_3d_reference(*score_args, **sk), reps_t),
+        "score": (turns[0] + turns[2]) / 2,
+        "score_twin": (turns[1] + turns[3]) / 2,
+        "score_single": cuda_ms(score, reps_k),
     }
     print(f"ekf_update_3d {what}: targets={n_upd} max_abs_err={err:.3g} "
           f"update kernel={t['update']:.4f} ms twin={t['update_twin']:.4f} ms | "
-          f"score_3d kernel={t['score']:.4f} ms twin={t['score_twin']:.4f} ms | bounds "
+          f"score_3d kernel={turns[0]:.4f}; {turns[2]:.4f} ms twin={turns[1]:.4f}; "
+          f"{turns[3]:.4f} ms (device time, in turns), single calls kernel="
+          f"{t['score_single']:.4f} ms | bounds "
           f"update={t['update_bound'][0]:.4f} ms ({t['update_bound'][1]}) "
           f"score={t['score_bound'][0]:.4f} ms ({t['score_bound'][1]})")
     return err, t
@@ -947,7 +1011,7 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
     from parakeet_slam_tpu_torch import cli, system
     from parakeet_slam_tpu_torch.core.config import load_config
     from parakeet_slam_tpu_torch.data.synth_vision import make_desk_world
-    from parakeet_slam_tpu_torch.kernels import ekf_update_3d, match, resample_cuda
+    from parakeet_slam_tpu_torch.kernels import match
 
     cfg = load_config(os.path.join(HERE, config))
     fc, fe = cfg.filter, cfg.frontend
@@ -965,24 +1029,37 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
         calls.append(tuple(t.clone() for t in (qd, qv, db, dbv, fwd, rev)) + (ratio,))
         return fwd, rev
 
-    resampled = []
+    def run():
+        resampled = []
+        sys_ = system.SLAMSystem(cfg, device=device)
+        sys_.metrics.log = lambda frame, **rec: resampled.append(rec["resampled"])
+        est, fps, wall = cli.run_tum_sequence(sys_, images, odom)
+        sys_.flush_flags()
+        sys_.flush_metrics()
+        return sys_, est, fps, wall, sum(resampled), sys_.graph.poses.cpu().numpy()
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts_3d()
     match.hamming_top2.launches = 0
     system._batched_kf_match = capture
     try:
-        sys_ = system.SLAMSystem(cfg, device=device)
-        sys_.metrics.log = lambda frame, **rec: resampled.append(rec["resampled"])
-        est, fps, wall = cli.run_tum_sequence(sys_, images, odom)
-        sys_.flush_flags()
-        sys_.flush_metrics()
+        sys_, est, fps, wall, n_res, graph_poses = run()
         launches = _counts_3d() + (match.hamming_top2.launches,)
-        est_opt, ates = cli.tum_ate(sys_, est, world.gt_pose, odom, cfg)
     finally:
         system._batched_kf_match = kf_match
     peak = torch.cuda.max_memory_allocated()
-    n_res = sum(resampled)
+    # the same run again from the same seed: bit for bit the same
+    sys2, est2, _, _, n_res2, graph_poses2 = run()
+    same = {"keyframes": len(sys2.keyframes) == len(sys_.keyframes), "resamples": n_res2 == n_res,
+            "estimates": np.array_equal(est2, est), "graph poses": np.array_equal(graph_poses2,
+                                                                                 graph_poses)}
+    print(f"desk config 2 repeated: keyframes {len(sys_.keyframes)} / {len(sys2.keyframes)}, "
+          f"resamples {n_res} / {n_res2}, estimates and graph poses "
+          f"{'bit-equal' if same['estimates'] and same['graph poses'] else 'differ'}")
+    check(all(same.values()), f"config 2 is not repeatable: {same}")
+    del sys2
+    est_opt, ates = cli.tum_ate(sys_, est, world.gt_pose, odom, cfg)
     print(f"desk config 2 (FastSLAM 2.0 pinhole_3d P={fc.num_particles} L={fc.max_landmarks} "
           f"Z={fc.max_observations}, {fe.max_features} features {fe.image_size[1]}x"
           f"{fe.image_size[0]}): {frames} frames fps={fps:.3f} (steady, from frame 3) "
@@ -1323,6 +1400,7 @@ def main():
     card = phase_environment()
     device = torch.device("cuda", 0)
     phase_build()
+    phase_wrap(device)
     k, ekf_err = phase_kernels(device)
     launches = phase_corridor(device)
     phase_real_size(device)
@@ -1350,7 +1428,9 @@ def main():
         entry("ekf_update_2d", "ekf_update_2d.cu", "parakeet_slam_tpu/kernels/ekf_update.py:443",
               launches[0], ekf_err, ekf[1], ekf[2], ekf[3],
               ms_corridor=k[("ekf", CORRIDOR_SHAPE)][1],
-              plain_ms_corridor=k[("ekf", CORRIDOR_SHAPE)][2]),
+              plain_ms_corridor=k[("ekf", CORRIDOR_SHAPE)][2],
+              bound_ms_corridor=k[("ekf", CORRIDOR_SHAPE)][3][0],
+              ms_single_call=ekf[4], ms_corridor_single_call=k[("ekf", CORRIDOR_SHAPE)][4]),
         entry("gather_rows", "gather_rows.cu", "parakeet_slam_tpu/kernels/resample_pallas.py:32",
               launches[1], max(k["gather_variants"],
                                *(k[("gather", s)][0] for s in (CORRIDOR_SHAPE, REAL_SHAPE))),
@@ -1366,7 +1446,8 @@ def main():
               ms_bench_equirect=eq["update"], plain_ms_bench_equirect=eq["update_twin"]),
         entry("score_3d", "ekf_update_3d.cu", "parakeet_slam_tpu/kernels/ekf_update_3d.py:920",
               vision["launches"][0], err3, t3["score"], t3["score_twin"], t3["score_bound"],
-              ms_bench_equirect=eq["score"], plain_ms_bench_equirect=eq["score_twin"]),
+              ms_single_call=t3["score_single"], ms_bench_equirect=eq["score"],
+              plain_ms_bench_equirect=eq["score_twin"], launches_desk=desk["launches"][0]),
         entry("hamming_top2", "match.cu", "parakeet_slam_tpu/kernels/match.py:269",
               desk["launches"][3], 0.0, km["ham"][0], km["ham"][1], km["ham"][2],
               launches_run_ba=sys_ba["launches"][0]),

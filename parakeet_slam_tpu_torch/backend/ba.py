@@ -23,9 +23,10 @@ Three layouts, as in the reference: the bucketed point-major one
 (`_optimize_buckets`, what `optimize_ba` runs on a `BAProblem`), the padded
 point-major one (`_optimize_packed`) and the observation-major oracle
 (`optimize_ba_obsmajor`). In the bucketed solver the camera-side gathers are
-`index_select` (exact) and the camera-side segment sums are products with a
-0/1 matrix [C, N] built once per solve: a deterministic sum, where
-`index_add_` on the card adds with atomics in arrival order. The reported
+`index_select` (exact). Every segment sum, in all three layouts, is a
+product with a 0/1 matrix [n, N] (built once per solve in the bucketed
+solver, per sum in the other two): a deterministic sum, where `index_add_`
+on the card adds with atomics in arrival order. The reported
 costs differ by path on purpose: the bucketed solver reports the achieved
 cost and refuses non-finite candidates, the other two report the
 candidate's cost.
@@ -122,9 +123,12 @@ def linearize(camera, prob: BAProblem, huber_delta: float):
 
 
 def _segment_sum(values, index, n):
-    """out[i] = sum of the rows of values whose index is i."""
-    out = torch.zeros((n,) + values.shape[1:], dtype=values.dtype, device=values.device)
-    return out.index_add_(0, index, values)
+    """out[i] = sum of the rows of values whose index is i, as a product
+    with the 0/1 selector [n, N] (see `_selector`): summed in a fixed order
+    on every device. The selector is dense, which suits the oracles' test
+    sizes; the bucketed solver builds its selectors once per solve."""
+    flat = values.reshape(values.shape[0], -1)
+    return (_selector(index, n) @ flat).reshape((n,) + values.shape[1:])
 
 
 def _damp(B, C, cam_fixed, cam_valid, pt_valid, lam):
@@ -564,7 +568,8 @@ def optimize_ba_obsmajor(
     solver: str = "pcg",
 ) -> BAResult:
     """Observation-major optimizer on a raw BAProblem: the semantics oracle
-    of the tests (its per-point sums are scatter-adds)."""
+    of the tests (its per-point and per-camera sums are `_segment_sum`
+    selector products, [points, observations] dense: an oracle's sizes)."""
     def step(p, lam_t):
         oc, op = p.obs_cam.long(), p.obs_pt.long()
         r, Jc, Jp, w = linearize(camera, p, huber_delta)

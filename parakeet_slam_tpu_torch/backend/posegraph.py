@@ -7,8 +7,17 @@ first valid node fixed as the gauge, IRLS-Huber edge weights, adaptive
 damping and step acceptance. The residual Jacobians of all edges come from
 one `torch.func.jacfwd` over the shared 12-dim (delta_i, delta_j)
 perturbation (each edge's residual depends only on its own two poses); the
-normal system is assembled densely ([K*6, K*6]) and solved in float32.
-Every step stays on the device: acceptance and damping are tensors.
+normal system is assembled into a dense [K*6, K*6] matrix and solved in
+float32. Every step stays on the device: acceptance and damping are
+tensors.
+
+The assembly sums each edge's 6x6 blocks (Hii, Hjj, Hij, Hij^T) and 6-vectors
+into the graph's blocks and nodes by a sorted segment sum: the contributions
+are sorted by destination once per solve, summed within runs of equal keys
+by a segmented scan, and each run's total is written once. On the card
+`index_put_(accumulate=True)` and `index_add_` add with atomics in arrival
+order, and the rounding of the solve then differed from run to run; the scan
+adds in a fixed order, at O(E log E) cost per iteration.
 """
 
 from __future__ import annotations
@@ -42,6 +51,65 @@ def graph_cost(g: PoseGraph) -> torch.Tensor:
     return 0.5 * torch.sum(w * r * r)
 
 
+def _segment_plan(keys, n):
+    """The fixed part of a segment sum over keys [N] into n rows, made once
+    per solve: the stable sort of the keys, for each step d of the scan the
+    mask of rows whose row d before has the same key, and each sorted row's
+    destination (its key if it ends its run, else the spare row n)."""
+    keys, order = torch.sort(keys, stable=True)
+    steps, d = [], 1
+    while d < keys.shape[0]:
+        steps.append((d, (keys[d:] == keys[:-d])[:, None]))
+        d *= 2
+    last = torch.ones_like(keys, dtype=torch.bool)
+    last[:-1] = keys[1:] != keys[:-1]
+    return order, steps, torch.where(last, keys, n), n
+
+
+def _segment_sum(plan, values):
+    """out[k] = sum of the rows of values [N, C] whose key is k, [n, C], in a
+    fixed order: the rows sorted by key, an inclusive scan within runs of
+    equal keys (Hillis-Steele, log2 N steps), and each run's last row
+    written once (index_put_ at distinct keys; the rest go to the spare
+    row)."""
+    order, steps, dest, n = plan
+    v = values[order]
+    zero = torch.zeros((), dtype=v.dtype, device=v.device)
+    for d, same in steps:
+        v[d:] += torch.where(same, v[:-d], zero)  # the right side is read before the add
+    out = torch.zeros((n + 1, v.shape[1]), dtype=v.dtype, device=v.device)
+    out[dest] = v
+    return out[:n]
+
+
+def assembly_plan(ii, jj, K):
+    """The segment-sum plan of `normal_equations` for edges ii -> jj [E] on
+    K nodes: rows 0..K*K-1 are H's 6x6 blocks (the (i, i), (j, j), (i, j)
+    and (j, i) block of every edge), rows K*K.. are b's 6-vectors (i, j)."""
+    return _segment_plan(torch.cat([ii * K + ii, jj * K + jj, ii * K + jj, jj * K + ii,
+                                    K * K + ii, K * K + jj]), K * K + K)
+
+
+def normal_equations(r, Ji, Jj, w, plan, K):
+    """(H [K*6, K*6], b [K, 6]) of the weighted edge residuals r [E, 6] with
+    Jacobians Ji, Jj [E, 6, 6] and weights w [E, 6]: H = A^T (W A) and
+    b = A^T (W r) for the edge Jacobian A whose row block e holds Ji at node
+    i's columns and Jj at node j's, summed per block and node in one pass of
+    `_segment_sum` over `plan` (`assembly_plan`)."""
+    E = r.shape[0]
+    JiW, JjW = Ji * w[:, :, None], Jj * w[:, :, None]
+    Hij = torch.einsum("eki,ekj->eij", Ji, JjW)
+    wr = w * r
+    pad = lambda x: torch.nn.functional.pad(x, (0, 30))  # noqa: E731  6-vectors as rows of 36
+    out = _segment_sum(plan, torch.cat([
+        torch.einsum("eki,ekj->eij", Ji, JiW).reshape(E, 36),
+        torch.einsum("eki,ekj->eij", Jj, JjW).reshape(E, 36),
+        Hij.reshape(E, 36), Hij.transpose(-1, -2).reshape(E, 36),
+        pad(torch.einsum("eki,ek->ei", Ji, wr)), pad(torch.einsum("eki,ek->ei", Jj, wr))]))
+    H = out[:K * K].reshape(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
+    return H, out[K * K:, :6]
+
+
 def optimize_pose_graph(
     g: PoseGraph, iters: int = 10, damping: float = 1e-4, huber: float = 3.0,
 ) -> tuple[PoseGraph, torch.Tensor]:
@@ -54,7 +122,7 @@ def optimize_pose_graph(
     free = g.node_valid & (torch.arange(K, device=dev) != first)
     w = g.edge_valid[:, None] * g.edge_info  # [E, 6]
     ii, jj = g.edge_ij[:, 0].long(), g.edge_ij[:, 1].long()
-    six = torch.arange(6, device=dev)
+    plan = assembly_plan(ii, jj, K)
     zero = torch.zeros(12, device=dev)
 
     def linearize(poses):
@@ -78,9 +146,6 @@ def optimize_pose_graph(
         sn = torch.sqrt(torch.clamp(torch.sum(w * r * r, dim=1), min=1e-12))
         return w * torch.clamp(huber / sn, max=1.0)[:, None]
 
-    def block(a, b):  # rows of node a, columns of node b: [E, 6, 6] indices
-        return (a[:, None] * 6 + six)[:, :, None], (b[:, None] * 6 + six)[:, None, :]
-
     mask = free.to(torch.float32)
     fixed_diag = 1.0 - mask.repeat_interleave(6)
     poses = g.poses
@@ -89,20 +154,7 @@ def optimize_pose_graph(
     costs = []
     for _ in range(iters):
         r, Ji, Jj = linearize(poses)
-        we = robust_w(r)
-        wr = we * r
-        JiW, JjW = Ji * we[:, :, None], Jj * we[:, :, None]
-        Hii = torch.einsum("eki,ekj->eij", Ji, JiW)
-        Hjj = torch.einsum("eki,ekj->eij", Jj, JjW)
-        Hij = torch.einsum("eki,ekj->eij", Ji, JjW)
-        bi = torch.einsum("eki,ek->ei", Ji, wr)
-        bj = torch.einsum("eki,ek->ei", Jj, wr)
-        H = torch.zeros(K * 6, K * 6, device=dev)
-        H.index_put_(block(ii, ii), Hii, accumulate=True)
-        H.index_put_(block(jj, jj), Hjj, accumulate=True)
-        H.index_put_(block(ii, jj), Hij, accumulate=True)
-        H.index_put_(block(jj, ii), Hij.transpose(-1, -2), accumulate=True)
-        b = torch.zeros(K, 6, device=dev).index_add_(0, ii, bi).index_add_(0, jj, bj)
+        H, b = normal_equations(r, Ji, Jj, robust_w(r), plan, K)
         # gauge and invalid nodes: project out their DOFs
         m6 = mask.repeat_interleave(6)
         Hm = H * m6[:, None] * m6[None, :]

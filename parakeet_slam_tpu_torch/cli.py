@@ -12,6 +12,7 @@ benchmark, and the per-kernel benchmarks.
   python -m parakeet_slam_tpu_torch.cli bench --kernel fs2_step
   python -m parakeet_slam_tpu_torch.cli bench --kernel ekf_update_3d --device cpu --shape 16 256 8
   python -m parakeet_slam_tpu_torch.cli bench --kernel ba_iteration --device cpu --shape 4 200 60
+  python -m parakeet_slam_tpu_torch.cli eval --est est.txt --gt groundtruth.txt
 
 `--device` defaults to cuda and fails when there is no card; only
 `--device cpu` runs on the CPU (through the kernels' plain twins). Any
@@ -121,6 +122,10 @@ def measure_corridor(device, num_steps: int = 500, seeds=range(5), cfg=None) -> 
 def cmd_run(args):
     from parakeet_slam_tpu_torch.core.config import load_config
 
+    if args.ba:
+        raise NotImplementedError(
+            "run --ba (joint BA after the EuRoC multi-session run) is not ported yet "
+            "(ROADMAP Queue 1 item 2)")
     device = resolve_device(args.device)
     cfg = load_config(args.config, _parse_overrides(args.set))
     if cfg.data.dataset == "panoramic":
@@ -288,6 +293,10 @@ def cmd_synth(args):
     download is needed; see data/synth_vision.py)."""
     from parakeet_slam_tpu_torch.data import synth_vision as sv
 
+    if args.sessions is not None:
+        raise NotImplementedError(
+            "synth --sessions (EuRoC multi-session worlds) is not ported yet "
+            "(ROADMAP Queue 1 item 2)")
     if args.kind != "tum":
         raise NotImplementedError(f"synth --kind {args.kind} is not ported yet (ROADMAP Queue 1)")
     t0 = time.time()
@@ -296,6 +305,22 @@ def cmd_synth(args):
     sv.write_tum_format(world, args.out)
     print(f"wrote {args.kind} dataset: {len(world)} frames, {len(world.landmarks)} landmarks "
           f"-> {args.out} ({time.time() - t0:.1f}s)")
+
+
+def cmd_eval(args):
+    """ATE RMSE between two TUM-format trajectories (ts x y z ...), over
+    their common first frames."""
+    from parakeet_slam_tpu_torch.eval import ate_rmse
+
+    device = resolve_device(args.device)
+
+    def load_traj(path):
+        return torch.as_tensor(np.loadtxt(path)[:, 1:4], dtype=torch.float32, device=device)
+
+    est, gt = load_traj(args.est), load_traj(args.gt)
+    n = min(len(est), len(gt))
+    ate = float(ate_rmse(est[:n], gt[:n]))
+    print(json.dumps({"ate_rmse_m": round(ate, 5), "frames": n}))
 
 
 def cmd_bench(args):
@@ -330,6 +355,8 @@ def main(argv=None):
     p_run.add_argument("--out", default="",
                        help="trajectory output (corridor: x y theta rows; vision: TUM format)")
     p_run.add_argument("--frames", type=int, default=0, help="first N frames of a TUM sequence")
+    p_run.add_argument("--ba", type=int, default=0,
+                       help="joint-BA LM iterations after a EuRoC multi-session run (not ported)")
     p_run.add_argument("--device", default="cuda")
     p_run.set_defaults(fn=cmd_run)
 
@@ -339,7 +366,15 @@ def main(argv=None):
     p_synth.add_argument("--steps", type=int, default=0)
     p_synth.add_argument("--landmarks", type=int, default=0)
     p_synth.add_argument("--seed", type=int, default=20)
+    p_synth.add_argument("--sessions", type=int, default=None,
+                         help="euroc: number of sessions sharing one world (not ported)")
     p_synth.set_defaults(fn=cmd_synth)
+
+    p_eval = sub.add_parser("eval", help="ATE between two TUM trajectories")
+    p_eval.add_argument("--est", required=True)
+    p_eval.add_argument("--gt", required=True)
+    p_eval.add_argument("--device", default="cuda")
+    p_eval.set_defaults(fn=cmd_eval)
 
     p_bench = sub.add_parser("bench", help="corridor frames/s and 5-seed ATE, or one kernel")
     p_bench.add_argument("--steps", type=int, default=500)

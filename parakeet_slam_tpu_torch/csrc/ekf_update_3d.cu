@@ -23,24 +23,33 @@
 // Arithmetic follows the plain PyTorch twins (kernels/ekf_update_3d.py)
 // operation for operation, and the library is built with -fmad=false, so
 // that masks, lanes and counts agree exactly with the twins on the card.
-// score_3d_kernel and the update's own score pass are the same device
-// function, so their scores are equal bit for bit.
+// score_3d_kernel and the update's own score pass score a pair with the same
+// device functions (residual, maha, the popcount sum), and the best lane does
+// not depend on the order of the reduction, so their scores and lanes are
+// equal bit for bit.
 //
 // Design: one block per particle, working straight from device memory in
 // the JAX layout ([P, L, 3] means, [P, L, 3, 3] covariances, [P, L, W]
 // descriptor words); the update writes the state IN PLACE (the Pallas call
 // aliases it the same way). Only lanes below the particle's live
-// high-watermark are swept. Shared memory holds the observations, the
-// per-observation best (ll, lane), the free-slot list, the targets and a
-// bitmap of the lanes matched this frame. The apply pass runs one thread
-// per distinct target lane, which walks that lane's observations in order.
+// high-watermark are swept.
+//   - score_3d_kernel lists each window of 256 lanes' valid lanes in
+//     ascending order and stages their geometry (zhat, Q^-1, log det Q) and
+//     descriptors once per frame as shared-memory records; observations lie
+//     across threads, each sweeping every G-th record with its z and
+//     descriptor in registers (no divergence on invalid lanes, no geometry
+//     redone per chunk of observations).
+//   - The update's own score pass (score_pass) gives each thread a lane and
+//     recomputes its geometry for each chunk of 16 observations. Shared
+//     memory holds the observations, the per-observation best (ll, lane),
+//     the free-slot list, the targets and a bitmap of the lanes matched this
+//     frame. The apply pass runs one thread per distinct target lane, which
+//     walks that lane's observations in order.
 //
-// Bound: the sweep spends about 60 instructions per (lane, observation)
-// (the Mahalanobis form, W popcounts, the argmax) and reads the map once per
-// chunk of 16 observations (85 B per lane at W=8). At P=2048, L=10240,
-// Z=128 that is 2.7 G pairs, so the kernel is bound by instruction issue,
-// not by the 1.78 GB state. The per-lane geometry (projection, Jacobian,
-// 3x3 inverse) is recomputed for every chunk of observations.
+// Bound: a pair costs about 60 instructions (the Mahalanobis form, W
+// popcounts at an eighth of the FP32 rate, the argmax); at P=2048,
+// L=10240, Z=128 with half the lanes valid that is 1.34 G pairs, so both
+// kernels are bound by instruction issue, not by the 1.78 GB state.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -58,10 +67,9 @@ constexpr int kZChunk = 16;
 constexpr float kNegInf = -1e30f;
 constexpr float kMinDepth = 0.1f;
 constexpr int kPinhole = 0, kStereo = 1, kEquirect = 2;
-// Three blocks of 256 threads per SM: caps both kernels at 80 registers
-// (the score kernel used 97-103 unbounded, two blocks per SM), at the cost
-// of 8-24 bytes of spills. On an H100 this took score_3d from 14.8 to
-// 13.0 ms at P=2048, L=10240, Z=128 (stereo).
+// Three blocks of 256 threads per SM: caps the kernels at 80 registers, at
+// the cost of up to 24 bytes of spills; both kernels were faster so than at
+// two blocks per SM in the same call on an H100.
 constexpr int kMinBlocksPerSM = 3;
 
 // Float constants of one call, in the order of ekf_update_3d.Consts.NAMES.
@@ -376,6 +384,66 @@ __device__ void load_obs(const Flags& f, int Dz, const float* z, const int32_t* 
   }
 }
 
+// score_3d's lane record: one valid lane's scoring geometry and descriptor,
+// staged once per frame in shared memory (64 bytes for Dz = 2, 96 for 3).
+template <int D>
+struct alignas(16) ScoreRec {
+  float zh[D];
+  float logdet;
+  float inv[D][D];
+  int lane;
+  alignas(16) uint32_t desc[kMaxW];
+};
+static_assert(sizeof(ScoreRec<2>) == 64 && sizeof(ScoreRec<3>) == 96, "ScoreRec layout");
+
+template <int D>
+__device__ __forceinline__ ScoreRec<D> load_score_rec(const ScoreRec<D>* rec, bool with_desc) {
+  constexpr int kGeom = (sizeof(ScoreRec<D>) - kMaxW * sizeof(uint32_t)) / 16;
+  const float4* src = reinterpret_cast<const float4*>(rec);
+  ScoreRec<D> R;
+  float4* dst = reinterpret_cast<float4*>(&R);
+#pragma unroll
+  for (int k = 0; k < kGeom; ++k) dst[k] = src[k];
+  if (with_desc) {
+    dst[kGeom] = src[kGeom];
+    dst[kGeom + 1] = src[kGeom + 1];
+  }
+  return R;
+}
+
+// The pair's score, in score_pass's arithmetic (so bit-equal to it).
+template <int MODEL>
+__device__ __forceinline__ float score_pair(const Consts& c, int W, const ScoreRec<Dims<MODEL>::Dz>& R,
+                                            const float* zt, const uint32_t* zd) {
+  constexpr int D = Dims<MODEL>::Dz;
+  float inv[3][3];
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+#pragma unroll
+    for (int b = 0; b < D; ++b) inv[a][b] = R.inv[a][b];
+  float zh[3] = {R.zh[0], R.zh[1], D == 3 ? R.zh[D - 1] : 0.f};
+  float nu[3];
+  residual<MODEL>(c, zt, zh, nu);
+  float ll = -0.5f * ((maha<D>(nu, inv) + R.logdet) + c.log2pi_d);
+  if (W > 0) {
+    int ham = 0;
+#pragma unroll
+    for (int w = 0; w < kMaxW; ++w)
+      if (w < W) ham += __popc(R.desc[w] ^ zd[w]);
+    ll = ll - c.desc_weight * (float)ham;
+  }
+  return isfinite(ll) ? ll : kNegInf;
+}
+
+// score_3d: the best lane and its score per (particle, observation).
+// One block per particle. Lanes below the high-watermark are walked in
+// windows of 256: each window's valid lanes are listed in ascending order
+// (ballot and prefix) and their geometry and descriptors staged as records;
+// then thread t, owning observation t % Z in group t / Z of G = 256 / Z
+// groups, sweeps every G-th record with its z and descriptor in registers
+// and one running (best, lane). The groups merge by the first-lane rule,
+// and the smallest invalid lane enters the merge at -1e30, as the invalid
+// lanes score in the twin.
 template <int MODEL>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) score_3d_kernel(
     const float* __restrict__ cam, const float* __restrict__ lm_mean,
@@ -383,24 +451,103 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) score_3d_kernel(
     const uint8_t* __restrict__ lm_valid, const float* __restrict__ z,
     const int32_t* __restrict__ desc, float* __restrict__ out_ll, int32_t* __restrict__ out_ix,
     Consts c, Flags f) {
+  constexpr int D = Dims<MODEL>::Dz;
+  __shared__ ScoreRec<D> s_rec[kThreads];
   __shared__ float s_z[kMaxZ][3];
   __shared__ uint32_t s_desc[kMaxZ][kMaxW];
-  __shared__ float s_best_ll[kMaxZ];
-  __shared__ int s_best_ix[kMaxZ];
-  __shared__ float s_wll[kWarps][kZChunk];
-  __shared__ int s_wix[kWarps][kZChunk];
+  __shared__ float s_part_ll[kThreads];
+  __shared__ int s_part_ix[kThreads];
+  __shared__ int s_wcount[kWarps];
   __shared__ int s_red[kWarps];
+  __shared__ int s_first_free;
   const int p = blockIdx.x;
-  const size_t base = (size_t)p * f.L;
-  load_obs(f, Dims<MODEL>::Dz, z, desc, s_z, s_desc);
+  const int tid = threadIdx.x, lane_id = tid & 31, warp = tid >> 5;
+  const int L = f.L, Z = f.Z, W = f.W;
+  const size_t base = (size_t)p * L;
+  const float* mean = lm_mean + 3 * base;
+  const float* cov = lm_cov + 9 * base;
+  const int32_t* ldesc = lm_desc + base * W;
+  const uint8_t* valid = lm_valid + base;
+  load_obs(f, D, z, desc, s_z, s_desc);
+  if (tid == 0) s_first_free = 0x7fffffff;  // the smallest invalid lane below hwm
   const Cam cm = load_cam(cam, p);
-  const int hwm = high_watermark(lm_valid + base, f.L, s_red);  // syncs after load_obs
-  score_pass<MODEL>(c, f, cm, hwm, lm_mean + 3 * base, lm_cov + 9 * base,
-                    lm_desc + base * f.W, lm_valid + base, s_z, s_desc, s_best_ll, s_best_ix,
-                    s_wll, s_wix);
-  for (int i = threadIdx.x; i < f.Z; i += kThreads) {
-    out_ll[(size_t)p * f.Z + i] = s_best_ll[i];
-    out_ix[(size_t)p * f.Z + i] = s_best_ix[i];
+  const int hwm = high_watermark(valid, L, s_red);  // syncs the stores above
+
+  const int G = kThreads / Z;
+  const int my_i = tid % Z, my_g = tid / Z;
+  const bool sweeps = my_g < G;
+  float zt[3];
+  uint32_t zd[kMaxW];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) zt[k] = k < D ? s_z[my_i][k] : 0.f;
+#pragma unroll
+  for (int w = 0; w < kMaxW; ++w) zd[w] = w < W ? s_desc[my_i][w] : 0u;
+  float best = -CUDART_INF_F;
+  int bix = 0x7fffffff;
+
+  for (int l0 = 0; l0 < hwm; l0 += kThreads) {
+    const int l = l0 + tid;
+    const bool ok = l < hwm && valid[l] != 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, ok);
+    const unsigned holes = __ballot_sync(0xffffffffu, l < hwm && !ok);
+    if (lane_id == 0) {
+      s_wcount[warp] = __popc(ballot);
+      if (holes) atomicMin(&s_first_free, l0 + 32 * warp + __ffs(holes) - 1);
+    }
+    __syncthreads();
+    int rank = __popc(ballot & ((1u << lane_id) - 1u)), listed = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      rank += w < warp ? s_wcount[w] : 0;
+      listed += s_wcount[w];
+    }
+    if (ok) {
+      LaneGeom g;
+      lane_geometry<MODEL>(c, cm, mean + 3 * (size_t)l, cov + 9 * (size_t)l, g);
+      ScoreRec<D>& R = s_rec[rank];
+#pragma unroll
+      for (int k = 0; k < D; ++k) R.zh[k] = g.zh[k];
+      R.logdet = g.logdet;
+#pragma unroll
+      for (int a = 0; a < D; ++a)
+#pragma unroll
+        for (int b = 0; b < D; ++b) R.inv[a][b] = g.inv[a][b];
+      R.lane = l;
+#pragma unroll
+      for (int w = 0; w < kMaxW; ++w) R.desc[w] = w < W ? (uint32_t)ldesc[(size_t)l * W + w] : 0u;
+    }
+    __syncthreads();
+    if (sweeps) {
+      int j = my_g;
+      for (; j + G < listed; j += 2 * G) {
+        const ScoreRec<D> A = load_score_rec<D>(&s_rec[j], W > 0);
+        const ScoreRec<D> B = load_score_rec<D>(&s_rec[j + G], W > 0);
+        const float a = score_pair<MODEL>(c, W, A, zt, zd);
+        const float b = score_pair<MODEL>(c, W, B, zt, zd);
+        if (a > best) { best = a; bix = A.lane; }  // lanes rise: keeps the first maximum
+        if (b > best) { best = b; bix = B.lane; }
+      }
+      if (j < listed) {
+        const ScoreRec<D> A = load_score_rec<D>(&s_rec[j], W > 0);
+        const float a = score_pair<MODEL>(c, W, A, zt, zd);
+        if (a > best) { best = a; bix = A.lane; }
+      }
+    }
+    __syncthreads();
+  }
+
+  s_part_ll[tid] = best;
+  s_part_ix[tid] = bix;
+  __syncthreads();
+  // every lane at or above hwm is invalid: the first of them, if none below
+  const int first_free = s_first_free < hwm ? s_first_free : hwm;
+  for (int i = tid; i < Z; i += kThreads) {
+    float a = s_part_ll[i];
+    int ia = s_part_ix[i];
+    for (int g = 1; g < G; ++g) take_better(a, ia, s_part_ll[g * Z + i], s_part_ix[g * Z + i]);
+    if (first_free < L) take_better(a, ia, kNegInf, first_free);
+    out_ll[(size_t)p * Z + i] = a;
+    out_ix[(size_t)p * Z + i] = ia;
   }
 }
 
@@ -676,8 +823,7 @@ int launch_score(const float* cam, const float* lm_mean, const float* lm_cov,
                  const int32_t* lm_desc, const uint8_t* lm_valid, const float* z,
                  const int32_t* desc, float* out_ll, int32_t* out_ix, const Consts& c,
                  const Flags& f, cudaStream_t stream) {
-  score_3d_kernel<MODEL><<<f.P, kThreads, 0, stream>>>(cam, lm_mean, lm_cov, lm_desc,
-                                                       lm_valid, z, desc, out_ll, out_ix, c, f);
+  score_3d_kernel<MODEL><<<f.P, kThreads, 0, stream>>>(cam, lm_mean, lm_cov, lm_desc, lm_valid, z, desc, out_ll, out_ix, c, f);
   return (int)cudaGetLastError();
 }
 

@@ -36,28 +36,42 @@ def timed(fn, *args, reps: int = 10, warmup: int = 1, prepare=None):
     return statistics.median(times), out
 
 
-def queued(call, reps: int = 20, batches: int = 5):
+def queued(call, reps: int = 20, batches: int = 5, prepare=None):
     """Median milliseconds per call of `call(i)` over `batches` runs of
     `reps` back-to-back calls, each run queued behind a sleep kernel, so
     that the time is the device's and not the host's time to enqueue the
     launches. A run counts only if the sleep was still running when the last
     call had been enqueued; otherwise the sleep is doubled (from ~10 ms) and
-    the run repeated. `call` must not wait for the device."""
+    the run repeated. `call` must not wait for the device. With `prepare`
+    (e.g. restoring the inputs of an in-place kernel), `prepare(i)` is
+    queued before each call, and each call's own device time is taken
+    between events that bracket it alone."""
     if not torch.cuda.is_available():
         raise RuntimeError("queued: needs a CUDA device")
+    if prepare is not None:
+        prepare(0)
     call(0)
     times, cycles = [], 20_000_000
     while len(times) < batches:
         torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        marks = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(reps if prepare is not None else 0)]
         torch.cuda._sleep(cycles)
         start.record()
         for i in range(reps):
+            if marks:
+                prepare(i)
+                marks[i][0].record()
             call(i)
+            if marks:
+                marks[i][1].record()
         was_queued = not start.query()
         end.record()
         torch.cuda.synchronize()
-        if was_queued:
+        if was_queued and marks:
+            times.append(statistics.median(a.elapsed_time(b) for a, b in marks))
+        elif was_queued:
             times.append(start.elapsed_time(end) / reps)
         else:
             cycles *= 2

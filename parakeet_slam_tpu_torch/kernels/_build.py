@@ -39,6 +39,7 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "ekf_update_2d_launch": [_P] * 12 + [_I] * 4 + [_F] * 8 + [_I] * 3 + [_P],
+    "wrap_angle_launch": [_P, _P, _L, _P],
     "gather_rows_launch": [_P] * 5 + [_I] * 5 + [_P, _I, _I, _P],
     "score_3d_launch": [_P] * 9 + [_I] * 5 + [_P, _P],
     "ekf_update_3d_launch": [_P] * 14 + [_I] * 9 + [_P, _P],

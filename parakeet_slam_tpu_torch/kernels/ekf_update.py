@@ -35,6 +35,7 @@ _NEG_INF = -1e30
 _BIG_LANE = 2**30
 MAX_OBS = 64
 MAX_SIG = 4
+MAX_L = 1 << 18  # the cull's lane bitmap lives in shared memory
 # D * log(2 pi) for D=2, rounded as the reference's float32 graph rounds it.
 LOG_2PI_2D = 2.0 * float(np.log(np.float32(2.0 * math.pi)))
 
@@ -66,31 +67,43 @@ def _pair_geometry(px, py, pth, mx, my, s11, s12, s21, s22, r11, r22):
     return r, phi, inv, det, (h11, h12, h21, h22)
 
 
-def _score_frame(pose, lm_mean, lm_cov, lm_sig, lm_valid, z, sig, S, r_var, sig_var):
-    """Best lane and its log-likelihood [P, Z] for every observation against
-    the pre-frame map (geometry once per lane, then one pass per obs)."""
+def _lane_geometry(pose, lm_mean, lm_cov, r_var):
+    """Every lane's (r, phi, Q^-1, log det Q) [P, L] against its particle's pose."""
     px, py, pth = pose[:, 0:1], pose[:, 1:2], pose[:, 2:3]
-    r, phi, (i11, i12, i21, i22), det, _ = _pair_geometry(
+    r, phi, inv, det, _ = _pair_geometry(
         px, py, pth, lm_mean[..., 0], lm_mean[..., 1],
         lm_cov[..., 0, 0], lm_cov[..., 0, 1], lm_cov[..., 1, 0], lm_cov[..., 1, 1],
         *r_var,
     )
-    logdet = torch.log(torch.clamp(det, min=1e-12))  # keeps NaN, as the kernel does
+    return r, phi, inv, torch.log(torch.clamp(det, min=1e-12))  # keeps NaN, as the kernel does
+
+
+def _pair_scores(geom, lm_sig, lm_valid, zi, sigi, S, sig_var):
+    """Log-likelihood [P, L] of one observation (zi [2], sigi [S]) against
+    every lane; invalid lanes and non-finite scores are -1e30."""
+    r, phi, (i11, i12, i21, i22), logdet = geom
+    nu1 = zi[0] - r
+    nu2 = _wrap(zi[1] - phi)
+    t1 = nu1 * i11 + nu2 * i21
+    t2 = nu1 * i12 + nu2 * i22
+    maha = torch.clamp(t1 * nu1 + t2 * nu2, min=0.0)
+    ll = -0.5 * (maha + logdet + LOG_2PI_2D)
+    if S > 0:
+        d2 = torch.zeros_like(ll)
+        for s in range(S):
+            d = lm_sig[..., s] - sigi[s]
+            d2 = d2 + d * d
+        ll = ll - (0.5 * d2) / sig_var
+    return torch.where(lm_valid & torch.isfinite(ll), ll, _NEG_INF)
+
+
+def _score_frame(pose, lm_mean, lm_cov, lm_sig, lm_valid, z, sig, S, r_var, sig_var):
+    """Best lane and its log-likelihood [P, Z] for every observation against
+    the pre-frame map (geometry once per lane, then one pass per obs)."""
+    geom = _lane_geometry(pose, lm_mean, lm_cov, r_var)
     best, best_ll = [], []
     for i in range(z.shape[0]):
-        nu1 = z[i, 0] - r
-        nu2 = _wrap(z[i, 1] - phi)
-        t1 = nu1 * i11 + nu2 * i21
-        t2 = nu1 * i12 + nu2 * i22
-        maha = torch.clamp(t1 * nu1 + t2 * nu2, min=0.0)
-        ll = -0.5 * (maha + logdet + LOG_2PI_2D)
-        if S > 0:
-            d2 = torch.zeros_like(ll)
-            for s in range(S):
-                d = lm_sig[..., s] - sig[i, s]
-                d2 = d2 + d * d
-            ll = ll - (0.5 * d2) / sig_var
-        ll = torch.where(lm_valid & torch.isfinite(ll), ll, _NEG_INF)
+        ll = _pair_scores(geom, lm_sig, lm_valid, z[i], sig[i], S, sig_var)
         b = torch.argmax(ll, dim=1)  # first index among equal maxima
         best.append(b)
         best_ll.append(torch.gather(ll, 1, b[:, None])[:, 0])
@@ -123,6 +136,79 @@ def _associate(lm_valid, best, best_ll, valid, log_p0):
     return target, is_new, do_upd, do_alloc
 
 
+def _apply_observation(i, target, is_new, pose, z, sig, S, r_var, init_infl,
+                       lm_mean, lm_cov, lm_sig, lm_valid, lm_count, matched):
+    """Observation i applied at its target lane of every particle, in place:
+    the EKF update at a matched lane, the inverse-model initialisation at an
+    allocated one. It reads and writes that lane alone, so any order that
+    keeps each lane's observations in observation order gives the same state
+    (the kernel applies one lane per thread)."""
+    r11, r22 = r_var
+    rows = torch.arange(pose.shape[0], device=pose.device)
+    px, py, pth = pose[:, 0], pose[:, 1], pose[:, 2]
+    t = target[:, i]
+    act = t >= 0
+    upd = act & ~is_new[:, i]
+    alloc = act & is_new[:, i]
+    tc = torch.clamp(t, min=0)
+    mx, my = lm_mean[rows, tc, 0], lm_mean[rows, tc, 1]
+    s11, s12 = lm_cov[rows, tc, 0, 0], lm_cov[rows, tc, 0, 1]
+    s21, s22 = lm_cov[rows, tc, 1, 0], lm_cov[rows, tc, 1, 1]
+    zr, zphi = z[i, 0], z[i, 1]
+
+    # EKF update at a matched lane
+    r, phi, (i11, i12, i21, i22), _, (h11, h12, h21, h22) = _pair_geometry(
+        px, py, pth, mx, my, s11, s12, s21, s22, r11, r22
+    )
+    nu1 = zr - r
+    nu2 = _wrap(zphi - phi)
+    b11, b12 = s11 * h11 + s12 * h12, s11 * h21 + s12 * h22
+    b21, b22 = s21 * h11 + s22 * h12, s21 * h21 + s22 * h22
+    k11, k12 = b11 * i11 + b12 * i21, b11 * i12 + b12 * i22
+    k21, k22 = b21 * i11 + b22 * i21, b21 * i12 + b22 * i22
+    mx_u = mx + (k11 * nu1 + k12 * nu2)
+    my_u = my + (k21 * nu1 + k22 * nu2)
+    e11, e12 = 1.0 - (k11 * h11 + k12 * h21), -(k11 * h12 + k12 * h22)
+    e21, e22 = -(k21 * h11 + k22 * h21), 1.0 - (k21 * h12 + k22 * h22)
+    c11, c12 = e11 * s11 + e12 * s21, e11 * s12 + e12 * s22
+    c21, c22 = e21 * s11 + e22 * s21, e21 * s12 + e22 * s22
+    cov_u = (0.5 * (c11 + c11), 0.5 * (c12 + c21), 0.5 * (c21 + c12), 0.5 * (c22 + c22))
+
+    # allocation at a free lane: the range-bearing inverse model
+    ang = pth + zphi
+    ca, sa = torch.cos(ang), torch.sin(ang)
+    nx, ny = px + zr * ca, py + zr * sa
+    _, _, _, _, (g11, g12, g21, g22) = _pair_geometry(
+        px, py, pth, nx, ny, s11, s12, s21, s22, r11, r22
+    )
+    hdet = g11 * g22 - g12 * g21
+    hds = torch.where(hdet.abs() < 1e-12, torch.full_like(hdet, 1e-12), hdet)
+    j11, j12, j21, j22 = g22 / hds, -g12 / hds, -g21 / hds, g11 / hds
+    cov_n = (
+        init_infl * ((j11 * r11) * j11 + (j12 * r22) * j12),
+        init_infl * ((j11 * r11) * j21 + (j12 * r22) * j22),
+        init_infl * ((j21 * r11) * j11 + (j22 * r22) * j12),
+        init_infl * ((j21 * r11) * j21 + (j22 * r22) * j22),
+    )
+
+    pick = lambda u, n, old: torch.where(upd, u, torch.where(alloc, n, old))  # noqa: E731
+    lm_mean[rows, tc, 0] = pick(mx_u, nx, mx)
+    lm_mean[rows, tc, 1] = pick(my_u, ny, my)
+    for (a, b), cu, cn, old in zip(
+        ((0, 0), (0, 1), (1, 0), (1, 1)), cov_u, cov_n, (s11, s12, s21, s22)
+    ):
+        lm_cov[rows, tc, a, b] = pick(cu, cn, old)
+    cnt = lm_count[rows, tc]
+    cnt_u = cnt + 2
+    lm_count[rows, tc] = pick(cnt_u, torch.ones_like(cnt), cnt)
+    cf = torch.clamp(cnt_u.to(torch.float32), min=1.0)
+    for s in range(S):
+        so = lm_sig[rows, tc, s]
+        lm_sig[rows, tc, s] = pick(so + (sig[i, s] - so) / cf, sig[i, s].expand_as(so), so)
+    lm_valid[rows, tc] = lm_valid[rows, tc] | alloc
+    matched[rows, tc] = matched[rows, tc] | act
+
+
 def measurement_update_2d_reference(
     pose, log_w, lm_mean, lm_cov, lm_sig, lm_valid, lm_count, z, sig, valid,
     *, sig_dim, r_var, sig_var, log_p0, init_infl, max_range, fov_half, cull,
@@ -132,7 +218,6 @@ def measurement_update_2d_reference(
     (log_w, lm_mean, lm_cov, lm_sig, lm_valid, lm_count, n_match [P] float32,
     target [P, Z] int32); the inputs are left unchanged."""
     S = sig_dim
-    r11, r22 = r_var
     P, L = lm_valid.shape
     Z = z.shape[0]
     best, best_ll = _score_frame(
@@ -149,70 +234,9 @@ def measurement_update_2d_reference(
     lm_mean, lm_cov, lm_sig = lm_mean.clone(), lm_cov.clone(), lm_sig.clone()
     lm_valid, lm_count = lm_valid.clone(), lm_count.clone()
     matched = torch.zeros_like(lm_valid)
-    rows = torch.arange(P, device=pose.device)
-    px, py, pth = pose[:, 0], pose[:, 1], pose[:, 2]
     for i in range(Z):
-        t = target[:, i]
-        act = t >= 0
-        upd = act & ~is_new[:, i]
-        alloc = act & is_new[:, i]
-        tc = torch.clamp(t, min=0)
-        mx, my = lm_mean[rows, tc, 0], lm_mean[rows, tc, 1]
-        s11, s12 = lm_cov[rows, tc, 0, 0], lm_cov[rows, tc, 0, 1]
-        s21, s22 = lm_cov[rows, tc, 1, 0], lm_cov[rows, tc, 1, 1]
-        zr, zphi = z[i, 0], z[i, 1]
-
-        # EKF update at a matched lane
-        r, phi, (i11, i12, i21, i22), _, (h11, h12, h21, h22) = _pair_geometry(
-            px, py, pth, mx, my, s11, s12, s21, s22, r11, r22
-        )
-        nu1 = zr - r
-        nu2 = _wrap(zphi - phi)
-        b11, b12 = s11 * h11 + s12 * h12, s11 * h21 + s12 * h22
-        b21, b22 = s21 * h11 + s22 * h12, s21 * h21 + s22 * h22
-        k11, k12 = b11 * i11 + b12 * i21, b11 * i12 + b12 * i22
-        k21, k22 = b21 * i11 + b22 * i21, b21 * i12 + b22 * i22
-        mx_u = mx + (k11 * nu1 + k12 * nu2)
-        my_u = my + (k21 * nu1 + k22 * nu2)
-        e11, e12 = 1.0 - (k11 * h11 + k12 * h21), -(k11 * h12 + k12 * h22)
-        e21, e22 = -(k21 * h11 + k22 * h21), 1.0 - (k21 * h12 + k22 * h22)
-        c11, c12 = e11 * s11 + e12 * s21, e11 * s12 + e12 * s22
-        c21, c22 = e21 * s11 + e22 * s21, e21 * s12 + e22 * s22
-        cov_u = (0.5 * (c11 + c11), 0.5 * (c12 + c21), 0.5 * (c21 + c12), 0.5 * (c22 + c22))
-
-        # allocation at a free lane: the range-bearing inverse model
-        ang = pth + zphi
-        ca, sa = torch.cos(ang), torch.sin(ang)
-        nx, ny = px + zr * ca, py + zr * sa
-        _, _, _, _, (g11, g12, g21, g22) = _pair_geometry(
-            px, py, pth, nx, ny, s11, s12, s21, s22, r11, r22
-        )
-        hdet = g11 * g22 - g12 * g21
-        hds = torch.where(hdet.abs() < 1e-12, torch.full_like(hdet, 1e-12), hdet)
-        j11, j12, j21, j22 = g22 / hds, -g12 / hds, -g21 / hds, g11 / hds
-        cov_n = (
-            init_infl * ((j11 * r11) * j11 + (j12 * r22) * j12),
-            init_infl * ((j11 * r11) * j21 + (j12 * r22) * j22),
-            init_infl * ((j21 * r11) * j11 + (j22 * r22) * j12),
-            init_infl * ((j21 * r11) * j21 + (j22 * r22) * j22),
-        )
-
-        pick = lambda u, n, old: torch.where(upd, u, torch.where(alloc, n, old))  # noqa: E731
-        lm_mean[rows, tc, 0] = pick(mx_u, nx, mx)
-        lm_mean[rows, tc, 1] = pick(my_u, ny, my)
-        for (a, b), cu, cn, old in zip(
-            ((0, 0), (0, 1), (1, 0), (1, 1)), cov_u, cov_n, (s11, s12, s21, s22)
-        ):
-            lm_cov[rows, tc, a, b] = pick(cu, cn, old)
-        cnt = lm_count[rows, tc]
-        cnt_u = cnt + 2
-        lm_count[rows, tc] = pick(cnt_u, torch.ones_like(cnt), cnt)
-        cf = torch.clamp(cnt_u.to(torch.float32), min=1.0)
-        for s in range(S):
-            so = lm_sig[rows, tc, s]
-            lm_sig[rows, tc, s] = pick(so + (sig[i, s] - so) / cf, sig[i, s].expand_as(so), so)
-        lm_valid[rows, tc] = lm_valid[rows, tc] | alloc
-        matched[rows, tc] = matched[rows, tc] | act
+        _apply_observation(i, target, is_new, pose, z, sig, S, r_var, init_infl,
+                           lm_mean, lm_cov, lm_sig, lm_valid, lm_count, matched)
 
     if cull:
         if cull_unseen:
@@ -261,8 +285,9 @@ def measurement_update_2d(
         raise ValueError(f"measurement_update_2d: unsupported device {dev}")
     P, L = lm_valid.shape
     Z, S = z.shape[0], sig_dim
-    if not (1 <= Z <= MAX_OBS and 0 <= S <= MAX_SIG):
-        raise ValueError(f"measurement_update_2d: needs 1 <= Z <= {MAX_OBS}, 0 <= S <= {MAX_SIG}")
+    if not (1 <= Z <= MAX_OBS and 0 <= S <= MAX_SIG and 1 <= L <= MAX_L):
+        raise ValueError(f"measurement_update_2d: needs 1 <= Z <= {MAX_OBS}, "
+                         f"0 <= S <= {MAX_SIG}, 1 <= L <= {MAX_L}")
     f32 = torch.float32
     sig = sig[:, :S].contiguous()
     for name, t, shape, dtype in (
@@ -290,3 +315,20 @@ def measurement_update_2d(
 
 
 measurement_update_2d.launches = 0
+
+
+def wrap_angle(a: torch.Tensor) -> torch.Tensor:
+    """The bearing wrap atan2(sin a, cos a), elementwise, float32. On a CUDA
+    tensor it runs the kernels' own device function (`csrc/ekf_update_2d.cu`
+    wrap_angle), so that it can be held against this twin bit for bit; on a
+    CPU tensor it runs the twin."""
+    if a.device.type == "cpu":
+        return _wrap(a)
+    if a.device.type != "cuda" or a.dtype != torch.float32:
+        raise ValueError(f"wrap_angle: needs float32 on cuda, got {a.dtype} on {a.device}")
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    err = _build.library().wrap_angle_launch(a.data_ptr(), out.data_ptr(), a.numel(),
+                                             _build.stream_ptr(a))
+    _build.check(err, "wrap_angle")
+    return out

@@ -251,26 +251,37 @@ def _popcount32(x):
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def _lane_geometry(c, cam, lm_mean, lm_cov, r_var):
+    """Every lane's (zhat list[Dz], Q^-1 nested [Dz][Dz], log det Q) [P, L]."""
+    R, t = _cam(cam, lanes=True)
+    m, S = _planes(lm_mean, lm_cov)
+    zhat, H = _zhat_jac(c, R, _cam_point(R, t, m))
+    _, Q = _innovation_cov(H, S, r_var)
+    inv, det = _inverse(Q, c.Dz)
+    return zhat, inv, torch.log(torch.clamp(det, min=1e-12))  # keeps NaN, as the kernel does
+
+
+def _pair_scores(c, geom, lm_desc, lm_valid, zi, desci, W):
+    """Score [P, L] of one observation (zi [Dz], desci [W]) against every
+    lane; invalid lanes and non-finite scores are -1e30."""
+    zhat, inv, logdet = geom
+    nu = _residual(c, [zi[k] for k in range(c.Dz)], zhat)
+    ll = -0.5 * ((_maha(nu, inv) + logdet) + c.log2pi_d)
+    if W > 0:
+        ham = torch.zeros(lm_valid.shape, dtype=torch.int64, device=lm_valid.device)
+        for w in range(W):
+            ham = ham + _popcount32(torch.bitwise_xor(lm_desc[..., w], desci[w]))
+        ll = ll - c.desc_weight * ham.to(torch.float32)
+    return torch.where(lm_valid & torch.isfinite(ll), ll, _NEG_INF)
+
+
 def _score_frame(c, cam, lm_mean, lm_cov, lm_desc, lm_valid, z, desc, W, r_var):
     """(best lane [P, Z] int64, best ll [P, Z]) against the pre-frame map:
     the lane geometry once, then one pass per observation."""
-    R, t = _cam(cam, lanes=True)
-    m, S = _planes(lm_mean, lm_cov)
-    p = _cam_point(R, t, m)
-    zhat, H = _zhat_jac(c, R, p)
-    _, Q = _innovation_cov(H, S, r_var)
-    inv, det = _inverse(Q, c.Dz)
-    logdet = torch.log(torch.clamp(det, min=1e-12))  # keeps NaN, as the kernel does
+    geom = _lane_geometry(c, cam, lm_mean, lm_cov, r_var)
     best, best_ll = [], []
     for i in range(z.shape[0]):
-        nu = _residual(c, [z[i, k] for k in range(c.Dz)], zhat)
-        ll = -0.5 * ((_maha(nu, inv) + logdet) + c.log2pi_d)
-        if W > 0:
-            ham = torch.zeros(lm_valid.shape, dtype=torch.int64, device=lm_valid.device)
-            for w in range(W):
-                ham = ham + _popcount32(torch.bitwise_xor(lm_desc[..., w], desc[i, w]))
-            ll = ll - c.desc_weight * ham.to(torch.float32)
-        ll = torch.where(lm_valid & torch.isfinite(ll), ll, _NEG_INF)
+        ll = _pair_scores(c, geom, lm_desc, lm_valid, z[i], desc[i], W)
         b = torch.argmax(ll, dim=1)  # first index among equal maxima
         best.append(b)
         best_ll.append(torch.gather(ll, 1, b[:, None])[:, 0])

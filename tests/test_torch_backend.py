@@ -118,6 +118,66 @@ def test_optimize_pose_graph_matches_jax(seed):
     assert err.max() < 0.15, err.max()
 
 
+def _scatter_normal_equations(r, Ji, Jj, w, ii, jj, K):
+    """The accumulating assembly the port had before (index_put_ with
+    accumulate=True, index_add_): exact on the CPU, the oracle of the
+    product form."""
+    six = torch.arange(6)
+    JiW, JjW = Ji * w[:, :, None], Jj * w[:, :, None]
+    blk = lambda a, b: ((a[:, None] * 6 + six)[:, :, None], (b[:, None] * 6 + six)[:, None, :])  # noqa: E731
+    H = torch.zeros(K * 6, K * 6, dtype=torch.float64)
+    H.index_put_(blk(ii, ii), torch.einsum("eki,ekj->eij", Ji, JiW), accumulate=True)
+    H.index_put_(blk(jj, jj), torch.einsum("eki,ekj->eij", Jj, JjW), accumulate=True)
+    Hij = torch.einsum("eki,ekj->eij", Ji, JjW)
+    H.index_put_(blk(ii, jj), Hij, accumulate=True)
+    H.index_put_(blk(jj, ii), Hij.transpose(-1, -2), accumulate=True)
+    b = (torch.zeros(K, 6, dtype=torch.float64)
+         .index_add_(0, ii, torch.einsum("eki,ek->ei", Ji, w * r))
+         .index_add_(0, jj, torch.einsum("eki,ek->ei", Jj, w * r)))
+    return H, b
+
+
+def test_normal_equations_equal_the_scatter_assembly():
+    """The segment-sum assembly against the accumulating assembly in
+    float64, with repeated edges, a self-edge (i == j) and zero-weight
+    edges: the same sums in another order, so equal to rounding."""
+    rng = np.random.default_rng(3)
+    K, E = 7, 19
+    ij = rng.integers(0, K, (E, 2))
+    ij[3] = (4, 4)
+    ij[5] = ij[6] = (1, 2)
+    r, Ji, Jj = (torch.tensor(rng.normal(size=s)) for s in ((E, 6), (E, 6, 6), (E, 6, 6)))
+    w = torch.tensor(rng.uniform(0.5, 2.0, (E, 6)))
+    w[7:9] = 0.0
+    ii, jj = torch.tensor(ij[:, 0]), torch.tensor(ij[:, 1])
+    H, b = t_pg.normal_equations(r, Ji, Jj, w, t_pg.assembly_plan(ii, jj, K), K)
+    Hs, bs = _scatter_normal_equations(r, Ji, Jj, w, ii, jj, K)
+    np.testing.assert_allclose(H.numpy(), Hs.numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(b.numpy(), bs.numpy(), rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("N,n", [(1, 1), (37, 1), (200, 9), (513, 64)])
+def test_segment_sum_equals_index_add(N, n):
+    """Runs of every length, up to one key taking all N rows (the scan's
+    longest run), against index_add_ in float64; keys that no row has stay
+    zero."""
+    rng = np.random.default_rng(N)
+    keys = torch.tensor(rng.integers(0, n, N))
+    vals = torch.tensor(rng.normal(size=(N, 5)))
+    want = torch.zeros(n + 2, 5, dtype=torch.float64).index_add_(0, keys, vals)
+    got = t_pg._segment_sum(t_pg._segment_plan(keys, n + 2), vals)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+
+
+def test_optimize_pose_graph_is_repeatable():
+    """Two solves of one graph give the same poses and costs bit for bit
+    (the assembly is a sorted segment sum, not a scatter with atomics)."""
+    _, tgr, _ = _circle_graph(seed=2)
+    a, ca = t_pg.optimize_pose_graph(tgr, iters=6)
+    b, cb = t_pg.optimize_pose_graph(tgr, iters=6)
+    assert torch.equal(a.poses, b.poses) and torch.equal(ca, cb)
+
+
 def test_make_pose_graph_needs_a_device():
     """`device` is a required keyword, as in the port's other constructors,
     and every tensor of the graph lies on it."""

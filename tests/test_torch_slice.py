@@ -162,7 +162,8 @@ def test_port_never_imports_jax():
         "new = ('kernels.ekf_update_3d', 'filter.fastslam2', 'data.synth_vision', 'eval.bench_kernels',\n"
         "       'system', 'frontend.camera', 'frontend.detect', 'frontend.describe', 'backend.graph',\n"
         "       'backend.posegraph', 'kernels.match', 'data.panoramic', 'data.tum',\n"
-        "       'utils.metrics_log', 'backend.ba', 'kernels.schur')\n"
+        "       'utils.metrics_log', 'backend.ba', 'kernels.schur', 'eval.repeatability',\n"
+        "       'eval.ab_kernels')\n"
         "assert all(pkg.__name__ + '.' + m in names for m in new), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'parakeet_slam_tpu')]\n"
         "assert not bad, bad\n"
