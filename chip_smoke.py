@@ -29,18 +29,22 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
   5. the main path at the real-size shape for 30 frames: finite, both
      kernels launched, frames/s and peak device memory;
   6. the two 3-D kernels (measurement_update_3d, score_3d) against their
-     twins: each model at the bench shape (P=1024, L=8192, Z=32) and stereo
-     at the KITTI shape (P=2048, L=10240, Z=128), with median times, then
+     twins: each model at the bench shape (P=1024, L=8192, Z=32), stereo at
+     the KITTI shape (P=2048, L=10240, Z=128) and equirect at the panoramic
+     config's shape (P=1024, L=8192, Z=128), the update scoring the frame
+     itself; the update fed score_3d's scores, as FastSLAM 2.0 runs it, at
+     the KITTI shape and config 2's (pinhole, P=512, L=1024, Z=64); then
      the options (external scores, no weight update, freeze, cull_unseen,
-     no cull, full and empty maps, L=1100, Z=128 past the 64-slot cap) at
-     small shapes. Masks, counts, target lanes, n_match, descriptors and
-     score lanes equal; scores, means and covariances within
+     no cull, full and empty maps, L=1100, Z=128 past the 64-slot cap,
+     L=2^18) at small shapes. Masks, counts, target lanes, n_match,
+     descriptors and score lanes equal; scores, means and covariances within
      rtol=atol=1e-5, log_w within atol=2e-3 + rtol=1e-6 (sums over up to
      128 observations in another order); the update fed score_3d's scores
      equal to the update that scores itself (so score_3d's scores equal the
-     update's own pass bit for bit); score_3d timed as the device's time
-     alone, in turns with its twin (around single calls), and around
-     single calls;
+     update's own pass bit for bit); each kernel timed as the device's time
+     alone, in turns with its twin (around single calls), and around single
+     calls; the update fed scores against the bound of what that mode reads
+     and writes;
   7. the vision path at full width, benchmark config 3 (configs/kitti_00.yaml:
      FastSLAM 2.0, stereo_3d, P=2048, L=10240, Z=128) for 30 frames of the
      synthetic drive world: one score_3d and one measurement_update_3d
@@ -53,9 +57,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
   9. the two matcher kernels (hamming_top2, l2_top2) against their twins:
      Hamming at the bench shape (N=1024, M=131072, W=8; all valid, and 1 in
      5 invalid), both batched directions of the loop-closure match (F=256
-     against K=64 and 128 stored keyframes), and the edge cases (all-invalid
-     database, one valid row, exact duplicates, M not a tile multiple, N=1,
-     N>M), idx/best/second bit-equal; L2 at N=1024, M=131072, D=128 and
+     against K=64 and 128 stored keyframes; F=512 against the panoramic
+     config's store of 2048 with the first 1025 eligible), and the edge
+     cases (all-invalid database, one valid row, exact duplicates, M not a
+     tile multiple, N=1, N>M, five whole tiles invalid), idx/best/second
+     bit-equal; Hamming timed as the device's time alone in turns with its
+     twin at the bench shape and both directions of config 2's and the
+     panoramic closure shape; L2 at N=1024, M=131072, D=128 and
      seven edge cases (all invalid, one valid row, D=33 with M=999, D=7 with
      N>M, exact duplicates with idx equal in every row and second == best,
      M=131073, best and second within the gap), best and second within
@@ -190,10 +198,12 @@ def appearance_ops(width):
 
 
 def update_ops(counts, width, lm_valid, target, n_obs, n_valid_obs):
-    """(operations of the score pass, operations of the whole frame update)
-    for this frame: `lm_valid` [P, L] before the frame, `target` [P, Z] the
-    lanes the twin wrote, `n_obs` observations scored against every valid
-    lane by the score function and `n_valid_obs` of them by the update."""
+    """(operations of the score pass, operations of the whole frame update,
+    operations of the update fed scores) for this frame: `lm_valid` [P, L]
+    before the frame, `target` [P, Z] the lanes the twin wrote, `n_obs`
+    observations scored against every valid lane by the score function and
+    `n_valid_obs` of them by the update. Fed scores, the update does no pair
+    and no lane geometry: association, apply and cull."""
     import torch
 
     lanes = int(lm_valid.sum())
@@ -205,7 +215,40 @@ def update_ops(counts, width, lm_valid, target, n_obs, n_valid_obs):
     sweep = counts["lane"] * lanes
     rest = (counts["obs"] * n_valid_obs * lm_valid.shape[0] + counts["update"] * n_update
             + counts["init"] * n_init + counts["cull"] * (lanes - n_update))
-    return pair * n_obs * lanes + sweep, pair * n_valid_obs * lanes + sweep + rest
+    return pair * n_obs * lanes + sweep, pair * n_valid_obs * lanes + sweep + rest, rest
+
+
+def ext_update_bytes(valid0, count0, valid1, count1, target, kw, *frame):
+    """Bytes the update fed scores must move, worked out from the state
+    before the frame (`valid0`, `count0` [P, L]) and the twin's result
+    (`valid1`, `count1`, `target` [P, Z]): each particle's flags up to its
+    high-watermark read, and written where they change; the counts of the
+    valid lanes read (the cull's test; an updated lane's too), and written
+    where they change; the mean of every valid lane the frame leaves
+    unmatched read for the field-of-view test (unless `cull_unseen`); an
+    updated lane's mean and covariance read and written, an allocated
+    lane's written, the descriptor of both written; `frame` (observations,
+    descriptors, their flags, ext_ll, ext_ix, n_match, target) once, and
+    log_w read and written when the weights update."""
+    import torch
+
+    P, L = valid0.shape
+    valid0 = valid0.bool()
+    lanes = torch.arange(1, L + 1, device=valid0.device)
+    hwm = int(torch.where(valid0, lanes, 0).max(dim=1).values.sum())
+    matched = torch.zeros_like(valid0)
+    hit = target >= 0
+    rows = torch.arange(P, device=target.device)[:, None].expand_as(target)
+    matched[rows[hit], target[hit].long()] = True
+    n_upd, n_alloc = int((matched & valid0).sum()), int((matched & ~valid0).sum())
+    cull = kw.get("cull", True)
+    n_count_read = int(valid0.sum()) if cull else n_upd
+    n_mean_read = int((valid0 & ~matched).sum()) if cull and not kw.get("cull_unseen") else 0
+    geometry, desc = (3 + 9) * 4, kw["desc_words"] * 4
+    return (hwm + int((valid0 != valid1.bool()).sum()) + 4 * n_count_read
+            + 4 * int((count0 != count1).sum()) + 12 * n_mean_read
+            + n_upd * (2 * geometry + desc) + n_alloc * (geometry + desc) + nbytes(*frame)
+            + (2 * 4 * P if kw.get("update_weights", True) else 0))
 
 
 def queued_ms(call, reps=20, batches=5, prepare=None):
@@ -344,7 +387,7 @@ def check_update_kernel(shape, device, fill="holes", timed=True, **flags):
     # operations this frame needs (OPS_2D: 34 per pair of a valid observation
     # and a valid lane at S=3, 57 per lane, the updates, inits and the cull)
     n_valid_obs = int(T["valid"].sum())
-    _, ops = update_ops(OPS_2D, S, T["lm_valid"], ref[7], n_valid_obs, n_valid_obs)
+    _, ops, _ = update_ops(OPS_2D, S, T["lm_valid"], ref[7], n_valid_obs, n_valid_obs)
     bnd = bound(nbytes(*state, *obs) + nbytes(*got), ops)
 
     def reset(i=0):
@@ -540,10 +583,7 @@ def phase_real_size(device):
 # Slice 2: the 3-D vision filter
 # --------------------------------------------------------------------------
 
-BENCH_3D = (1024, 8192, 32)
-KITTI_3D = (2048, 10240, 128)
 STATE_3D = ("pose", "log_w", "lm_mean", "lm_cov", "lm_desc", "lm_valid", "lm_count")
-NOISE_3D = {"pinhole_3d": (2.0, 2.0), "stereo_3d": (1.5, 1.5, 1.0), "equirect_3d": (3.0, 3.0)}
 # (model, (P, L, Z), map fill, options) of the small-shape variants
 UPDATE_3D_VARIANTS = (
     ("stereo_3d", (64, 512, 32), "holes", {"ext": True}),
@@ -555,22 +595,8 @@ UPDATE_3D_VARIANTS = (
     ("stereo_3d", (64, 512, 32), "empty", {}),
     ("pinhole_3d", (16, 1100, 8), "holes", {}),
     ("stereo_3d", (16, 256, 128), "empty", {}),
+    ("pinhole_3d", (4, 1 << 18, 16), "holes", {}),  # the largest L: a 32 KB lane bitmap
 )
-
-
-def _kw_3d(model, **flags):
-    from parakeet_slam_tpu_torch.eval.kernel_inputs import camera_par
-
-    kw = dict(model=model, desc_words=8, par=camera_par(model),
-              r_var=tuple(v * v for v in NOISE_3D[model]), desc_weight=0.5, log_p0=-30.0,
-              init_infl=1.0, init_range_prior=8.0, init_range_sigma=3.0, max_range=35.0,
-              cull=True)
-    kw.update(flags)
-    return kw
-
-
-def _score_kw(kw):
-    return {k: kw[k] for k in ("model", "desc_words", "par", "r_var", "desc_weight")}
 
 
 def _frame_3d(model, shape, fill, device):
@@ -608,15 +634,16 @@ def check_update_3d(model, shape, device, fill="holes", timed=True, ext=False, *
     """measurement_update_3d and score_3d against their twins on one frame."""
     import torch
 
+    from parakeet_slam_tpu_torch.eval import kernel_inputs as KI
     from parakeet_slam_tpu_torch.kernels import ekf_update_3d as E
 
     T = _frame_3d(model, shape, fill, device)
-    kw = _kw_3d(model, **flags)
+    kw = KI.update_3d_kwargs(model, **flags)
     state = [T[k] for k in STATE_3D]
     obs = [T["z"], T["desc"], T["valid"]]
     score_args = (T["pose"], T["lm_mean"], T["lm_cov"], T["lm_desc"], T["lm_valid"],
                   T["z"], T["desc"])
-    sk = _score_kw(kw)
+    sk = {k: kw[k] for k in KI.SCORE_3D_KEYS}
     ll, ix = E.score_3d(*score_args, **sk)
     r_ll, r_ix = E.score_3d_reference(*score_args, **sk)
     torch.cuda.synchronize()
@@ -644,7 +671,7 @@ def check_update_3d(model, shape, device, fill="holes", timed=True, ext=False, *
     P = shape[0]
     reps_k, reps_t = (10, 5) if P <= 1024 else (5, 3)
 
-    def reset():
+    def reset(i=0):
         for w, s in zip(work, state):
             w.copy_(s)
 
@@ -652,38 +679,64 @@ def check_update_3d(model, shape, device, fill="holes", timed=True, ext=False, *
     # frame needs (OPS_3D: 58 per pair for stereo with 8 descriptor words, 46
     # pinhole, 50 equirect, plus the per-lane geometry). score_3d scores all Z
     # observations, the update the valid ones and then applies and culls.
-    score_ops, update_ops_ = update_ops(OPS_3D[model], kw["desc_words"], T["lm_valid"], ref[7],
-                                        shape[2], int(T["valid"].sum()))
-    # score_3d on the device alone, in turns with its twin (around single
-    # calls: its launches overflow the queue behind a sleep)
+    # Fed scores, the update reads only what its association, apply and cull
+    # need (`ext_update_bytes`) and does their operations alone.
+    score_ops, update_ops_, ext_ops = update_ops(OPS_3D[model], kw["desc_words"], T["lm_valid"],
+                                                 ref[7], shape[2], int(T["valid"].sum()))
+    # the update on the device alone (its state restored outside each call's
+    # events), in turns with its twin (around single calls: the twin's
+    # launches overflow the queue behind a sleep)
+    update = lambda i=0: E.measurement_update_3d(*work, *obs, *extra, **kw)  # noqa: E731
+    update_twin = lambda i=0: E.measurement_update_3d_reference(  # noqa: E731
+        *state, *obs, *((r_ll, r_ix) if ext else ()), **kw)
+    u_turns = [queued_ms(update, reps=reps_k, prepare=reset), cuda_ms(update_twin, reps_t),
+               queued_ms(update, reps=reps_k, prepare=reset), cuda_ms(update_twin, reps_t)]
+    t = {
+        "update": (u_turns[0] + u_turns[2]) / 2,
+        "update_twin": (u_turns[1] + u_turns[3]) / 2,
+        "update_single": cuda_ms(update, reps_k, reset),
+    }
+    if ext:
+        t["update_bound"] = bound(ext_update_bytes(
+            T["lm_valid"], T["lm_count"], ref[4], ref[5], ref[7], kw, *obs, ll, ix, got[6],
+            got[7]), ext_ops)
+        print(f"ekf_update_3d {what}: targets={n_upd} max_abs_err={err:.3g} "
+              f"update fed scores kernel={u_turns[0]:.4f}; {u_turns[2]:.4f} ms "
+              f"twin={u_turns[1]:.4f}; {u_turns[3]:.4f} ms (device time, in turns), single "
+              f"calls kernel={t['update_single']:.4f} ms | bound "
+              f"{t['update_bound'][0]:.4f} ms ({t['update_bound'][1]})")
+        return err, t
+    t["update_bound"] = bound(nbytes(*state, *obs) + nbytes(*got), update_ops_)
+    t["score_bound"] = bound(nbytes(*score_args) + nbytes(ll, ix), score_ops)
+    # score_3d on the device alone, in turns with its twin
     score = lambda i=0: E.score_3d(*score_args, **sk)  # noqa: E731
     score_twin = lambda i=0: E.score_3d_reference(*score_args, **sk)  # noqa: E731
     turns = [queued_ms(score, reps=reps_k), cuda_ms(score_twin, reps_t),
              queued_ms(score, reps=reps_k), cuda_ms(score_twin, reps_t)]
-    t = {
-        "update_bound": bound(nbytes(*state, *obs) + nbytes(*got), update_ops_),
-        "score_bound": bound(nbytes(*score_args) + nbytes(ll, ix), score_ops),
-        "update": cuda_ms(lambda: E.measurement_update_3d(*work, *obs, **kw), reps_k, reset),
-        "update_twin": cuda_ms(lambda: E.measurement_update_3d_reference(*state, *obs, **kw), reps_t),
-        "score": (turns[0] + turns[2]) / 2,
-        "score_twin": (turns[1] + turns[3]) / 2,
-        "score_single": cuda_ms(score, reps_k),
-    }
+    t.update(score=(turns[0] + turns[2]) / 2, score_twin=(turns[1] + turns[3]) / 2,
+             score_single=cuda_ms(score, reps_k))
     print(f"ekf_update_3d {what}: targets={n_upd} max_abs_err={err:.3g} "
-          f"update kernel={t['update']:.4f} ms twin={t['update_twin']:.4f} ms | "
-          f"score_3d kernel={turns[0]:.4f}; {turns[2]:.4f} ms twin={turns[1]:.4f}; "
-          f"{turns[3]:.4f} ms (device time, in turns), single calls kernel="
-          f"{t['score_single']:.4f} ms | bounds "
+          f"update kernel={u_turns[0]:.4f}; {u_turns[2]:.4f} ms twin={u_turns[1]:.4f}; "
+          f"{u_turns[3]:.4f} ms (device time, in turns), single calls kernel="
+          f"{t['update_single']:.4f} ms | score_3d kernel={turns[0]:.4f}; {turns[2]:.4f} ms "
+          f"twin={turns[1]:.4f}; {turns[3]:.4f} ms (device time, in turns), single calls "
+          f"kernel={t['score_single']:.4f} ms | bounds "
           f"update={t['update_bound'][0]:.4f} ms ({t['update_bound'][1]}) "
           f"score={t['score_bound'][0]:.4f} ms ({t['score_bound'][1]})")
     return err, t
 
 
 def phase_kernels_3d(device):
+    from parakeet_slam_tpu_torch.eval import kernel_inputs as KI
+
     res = {}
     for model in ("pinhole_3d", "stereo_3d", "equirect_3d"):
-        res[model] = check_update_3d(model, BENCH_3D, device)
-    res["kitti"] = check_update_3d("stereo_3d", KITTI_3D, device)
+        res[model] = check_update_3d(model, KI.BENCH_3D, device)
+    # KITTI and the panoramic config scoring the frame itself; KITTI and
+    # config 2 fed score_3d's scores, as FastSLAM 2.0 (configs 2, 3, 4) runs it
+    for what, model, shape, ext in KI.UPDATE_3D_CASES:
+        if what != "bench":  # timed above for every model
+            res[what + ("_ext" if ext else "")] = check_update_3d(model, shape, device, ext=ext)
     err = max(r[0] for r in res.values())
     for model, shape, fill, flags in UPDATE_3D_VARIANTS:
         err = max(err, check_update_3d(model, shape, device, fill, timed=False, **flags)[0])
@@ -816,24 +869,12 @@ def phase_bench_rows(device):
 # Slice 3: descriptor matching and the online monocular system
 # --------------------------------------------------------------------------
 
-MATCH_BENCH = (1024, 131072)  # N queries x M database rows (BASELINE.md:141)
 L2_BENCH = (1024, 131072, 128)
 DESK_FRAMES = 120  # two orbits of 60 frames: the second revisits the first
 # L2: float sums in another order than the twin's matmul. best/second within
 # atol=L2_ATOL + rtol=L2_RTOL; idx equal wherever the twin's second - best
 # exceeds L2_GAP (closer pairs may swap under a rounding difference).
 L2_ATOL, L2_RTOL, L2_GAP = 1e-3, 1e-5, 1e-2
-
-
-def _descriptors(rng, shape, pool=0):
-    """Random packed descriptors (int32 words); with `pool`, rows drawn from
-    that many distinct rows, so exact duplicates and ties occur."""
-    import numpy as np
-
-    if pool:
-        base = rng.integers(-2**31, 2**31, (pool, shape[-1]), dtype=np.int64)
-        return base[rng.integers(0, pool, shape[:-1])].astype(np.int32)
-    return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
 
 
 def check_hamming(what, qd, db, valid, timed=False):
@@ -852,14 +893,20 @@ def check_hamming(what, qd, db, valid, timed=False):
     if not timed:
         print(f"hamming_top2 {what}: bit-equal (ties {n_tie})")
         return None, None, None
-    ms = cuda_ms(lambda: match.hamming_top2(qd, db, valid), 20)
-    plain = cuda_ms(lambda: match.hamming_top2_reference(qd, db, valid), 3)
+    # the device's time alone, in turns with the twin (around single calls)
+    kernel = lambda i=0: match.hamming_top2(qd, db, valid)  # noqa: E731
+    twin = lambda i=0: match.hamming_top2_reference(qd, db, valid)  # noqa: E731
+    turns = [queued_ms(kernel, reps=20), cuda_ms(twin, 3), queued_ms(kernel, reps=20),
+             cuda_ms(twin, 3)]
+    ms, plain = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
     # bound: operands read once, three results written; per pair of a query
     # and a valid row the reference's bit-dot count (2 operations a bit) at
     # the int8 tensor-core rate, the fastest unit that can do it
-    pairs = qd.shape[-2] * int(valid.sum())
+    pairs = qd.shape[-2] * int(valid.sum()) * (qd.shape[0] if qd.dim() == 3 and valid.dim() == 1
+                                               else 1)
     bnd = bound(nbytes(qd, db, valid, *got), pairs * 2 * 32 * qd.shape[-1], PEAK_INT8)
-    print(f"hamming_top2 {what}: bit-equal (ties {n_tie}) kernel={ms:.4f} ms twin={plain:.4f} ms "
+    print(f"hamming_top2 {what}: bit-equal (ties {n_tie}) kernel={turns[0]:.4f}; "
+          f"{turns[2]:.4f} ms twin={turns[1]:.4f}; {turns[3]:.4f} ms (device time, in turns) "
           f"bound={bnd[0]:.4f} ms ({bnd[1]})")
     return ms, plain, bnd
 
@@ -920,23 +967,30 @@ def phase_match(device):
     import numpy as np
     import torch
 
+    from parakeet_slam_tpu_torch.eval import kernel_inputs as KI
     from parakeet_slam_tpu_torch.kernels import match
 
-    rng = np.random.default_rng(9)
     T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    N, M = MATCH_BENCH
-    qd, db = T(_descriptors(rng, (N, 8))), T(_descriptors(rng, (M, 8)))
+    N, M = KI.HAMMING_BENCH
+    qd, db, v5 = (T(a) for a in KI.hamming_bench())
     res = {"ham": check_hamming(f"N={N} M={M} all valid", qd, db,
                                 torch.ones(M, dtype=torch.bool, device=device), timed=True)}
-    check_hamming(f"N={N} M={M} 1 in 5 invalid", qd, db, T(rng.random(M) >= 0.2))
-    # the loop-closure shape: one keyframe against the stacked store, both ways
-    F = 256
-    for K in (64, 128):
-        q, qv = T(_descriptors(rng, (F, 8), pool=200)), T(rng.random(F) >= 0.1)
-        store = T(_descriptors(rng, (K, F, 8), pool=200))
-        sv = T((rng.random((K, F)) >= 0.1) & (np.arange(K) < K - 7)[:, None])
-        check_hamming(f"forward F={F} K={K}", q, store, sv)
-        check_hamming(f"reverse F={F} K={K}", store, q, qv)
+    check_hamming(f"N={N} M={M} 1 in 5 invalid", qd, db, v5)
+    # the loop-closure shapes: one keyframe against the stacked store, both
+    # ways: config 2's (F=256, a store of 64) and the panoramic config's
+    # (F=512, a store of 2048 with the first 1025 keyframes eligible: the
+    # forward match skips the ineligible half); untimed, config 2's store
+    # grown to 128
+    for what, F, cap, written, eligible in KI.CLOSURE_SHAPES + (("grown", 256, 128, 128, 121),):
+        q, qv, store, sv = (T(a) for a in KI.closure_match(F, cap, written, eligible, seed=cap))
+        timed = what != "grown"
+        shape = f"F={F} K={cap} written={written} eligible={eligible}"
+        fwd = check_hamming(f"{what} closure forward {shape}", q, store, sv, timed=timed)
+        rev = check_hamming(f"{what} closure reverse {shape}", store, q, qv, timed=timed)
+        if timed:
+            res[f"closure_{what}"] = (fwd, rev)
+        del store, sv
+    rng = np.random.default_rng(9)
     # edge cases
     for what, n, m, vfn, pool in (
         ("all invalid", 50, 300, lambda m: np.zeros(m, bool), 0),
@@ -945,9 +999,11 @@ def phase_match(device):
         ("M=1000 not a tile multiple", 130, 1000, lambda m: rng.random(m) >= 0.5, 0),
         ("N=1", 1, 5000, lambda m: np.ones(m, bool), 0),
         ("N>M", 600, 37, lambda m: np.ones(m, bool), 20),
+        ("rows 128-767 invalid: five whole tiles skipped", 200, 1000,
+         lambda m: (np.arange(m) < 128) | (np.arange(m) >= 768), 10),
     ):
-        check_hamming(what, T(_descriptors(rng, (n, 8), pool)),
-                      T(_descriptors(rng, (m, 8), pool)), T(vfn(m)))
+        check_hamming(what, T(KI.descriptors(rng, (n, 8), pool)),
+                      T(KI.descriptors(rng, (m, 8), pool)), T(vfn(m)))
     # L2: the bench shape, then small edge cases
     N2, M2, D2 = L2_BENCH
     dbf = rng.normal(size=(M2, D2)).astype(np.float32)
@@ -1423,7 +1479,12 @@ def main():
                 "library_ms": library, **more}
 
     ekf, gat = k[("ekf", REAL_SHAPE)], k[("gather", REAL_SHAPE)]
-    t3, eq = k3["kitti"][1], k3["equirect_3d"][1]
+    t3, eq, pan = k3["kitti"][1], k3["equirect_3d"][1], k3["panoramic"][1]
+    # the update as the vision path (FastSLAM 2.0) runs it: fed score_3d's
+    # scores; scoring itself, it runs on FastSLAM 1.0 (the panoramic config)
+    x3, x2 = k3["kitti_ext"][1], k3["config2_ext"][1]
+    c2f, c2r = km["closure_config2"]
+    pnf, pnr = km["closure_panoramic"]
     record = {"kernels": [
         entry("ekf_update_2d", "ekf_update_2d.cu", "parakeet_slam_tpu/kernels/ekf_update.py:443",
               launches[0], ekf_err, ekf[1], ekf[2], ekf[3],
@@ -1442,15 +1503,31 @@ def main():
               plain_ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][5]),
         entry("measurement_update_3d", "ekf_update_3d.cu",
               "parakeet_slam_tpu/kernels/ekf_update_3d.py:664", vision["launches"][1], err3,
-              t3["update"], t3["update_twin"], t3["update_bound"],
-              ms_bench_equirect=eq["update"], plain_ms_bench_equirect=eq["update_twin"]),
+              x3["update"], x3["update_twin"], x3["update_bound"],
+              mode="fed score_3d's scores", ms_single_call=x3["update_single"],
+              ms_config2=x2["update"], plain_ms_config2=x2["update_twin"],
+              bound_ms_config2=x2["update_bound"][0], launches_desk=desk["launches"][1],
+              ms_self_scoring=t3["update"], plain_ms_self_scoring=t3["update_twin"],
+              bound_ms_self_scoring=t3["update_bound"][0],
+              ms_self_scoring_single_call=t3["update_single"],
+              ms_self_scoring_panoramic=pan["update"],
+              plain_ms_self_scoring_panoramic=pan["update_twin"],
+              bound_ms_self_scoring_panoramic=pan["update_bound"][0],
+              ms_self_scoring_bench_equirect=eq["update"],
+              plain_ms_self_scoring_bench_equirect=eq["update_twin"]),
         entry("score_3d", "ekf_update_3d.cu", "parakeet_slam_tpu/kernels/ekf_update_3d.py:920",
               vision["launches"][0], err3, t3["score"], t3["score_twin"], t3["score_bound"],
               ms_single_call=t3["score_single"], ms_bench_equirect=eq["score"],
               plain_ms_bench_equirect=eq["score_twin"], launches_desk=desk["launches"][0]),
         entry("hamming_top2", "match.cu", "parakeet_slam_tpu/kernels/match.py:269",
               desk["launches"][3], 0.0, km["ham"][0], km["ham"][1], km["ham"][2],
-              launches_run_ba=sys_ba["launches"][0]),
+              launches_run_ba=sys_ba["launches"][0],
+              ms_closure_config2_forward=c2f[0], ms_closure_config2_reverse=c2r[0],
+              plain_ms_closure_config2_forward=c2f[1], bound_ms_closure_config2_forward=c2f[2][0],
+              ms_closure_panoramic_forward=pnf[0], ms_closure_panoramic_reverse=pnr[0],
+              plain_ms_closure_panoramic_forward=pnf[1],
+              bound_ms_closure_panoramic_forward=pnf[2][0],
+              bound_ms_closure_panoramic_reverse=pnr[2][0]),
         entry("l2_top2", "match.cu", "parakeet_slam_tpu/kernels/match.py:342", l2_launches,
               l2_err, km["l2"][1], km["l2"][2], km["l2"][3], library=km["l2"][2],
               bound_ms_fp32=km["l2"][4], ms_single_call=km["l2"][5],

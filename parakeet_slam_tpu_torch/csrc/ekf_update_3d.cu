@@ -23,38 +23,44 @@
 // Arithmetic follows the plain PyTorch twins (kernels/ekf_update_3d.py)
 // operation for operation, and the library is built with -fmad=false, so
 // that masks, lanes and counts agree exactly with the twins on the card.
-// score_3d_kernel and the update's own score pass score a pair with the same
-// device functions (residual, maha, the popcount sum), and the best lane does
-// not depend on the order of the reduction, so their scores and lanes are
-// equal bit for bit.
+// score_3d_kernel and the update's own score pass are one device function,
+// score_sweep, so their scores and lanes are equal bit for bit.
 //
 // Design: one block per particle, working straight from device memory in
 // the JAX layout ([P, L, 3] means, [P, L, 3, 3] covariances, [P, L, W]
 // descriptor words); the update writes the state IN PLACE (the Pallas call
 // aliases it the same way). Only lanes below the particle's live
 // high-watermark are swept.
-//   - score_3d_kernel lists each window of 256 lanes' valid lanes in
-//     ascending order and stages their geometry (zhat, Q^-1, log det Q) and
+//   - score_sweep lists each window of 256 lanes' valid lanes in ascending
+//     order and stages their geometry (zhat, Q^-1, log det Q) and
 //     descriptors once per frame as shared-memory records; observations lie
 //     across threads, each sweeping every G-th record with its z and
 //     descriptor in registers (no divergence on invalid lanes, no geometry
-//     redone per chunk of observations).
-//   - The update's own score pass (score_pass) gives each thread a lane and
-//     recomputes its geometry for each chunk of 16 observations. Shared
-//     memory holds the observations, the per-observation best (ll, lane),
-//     the free-slot list, the targets and a bitmap of the lanes matched this
-//     frame. The apply pass runs one thread per distinct target lane, which
-//     walks that lane's observations in order.
+//     redone per observation). The same window ballot lists the free lanes,
+//     so the update needs no second scan over L for its free slots.
+//   - The update keeps the per-observation best (ll, lane), the free-slot
+//     list, the targets and a bitmap of the lanes matched this frame in
+//     shared memory. Fed scores (ext), it skips the sweep and lists the free
+//     lanes by the same ballot, stopping at the first min(Z, 64). The apply
+//     pass runs one thread per distinct target lane, which walks that
+//     lane's observations in order; the cull one thread per lane below the
+//     high-watermark.
 //
 // Bound: a pair costs about 60 instructions (the Mahalanobis form, W
 // popcounts at an eighth of the FP32 rate, the argmax); at P=2048,
 // L=10240, Z=128 with half the lanes valid that is 1.34 G pairs, so both
-// kernels are bound by instruction issue, not by the 1.78 GB state.
+// kernels scoring a frame are bound by instruction issue, not by the 1.78 GB
+// state. Fed scores, the update reads only the flags below the
+// high-watermark, the valid lanes' means and counts for the cull and the
+// targeted lanes: ~0.3 GB at that shape, and its per-lane loops wait on
+// memory (the cull's chain of flag, mean and count loads a lane).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <atomic>
 
 namespace {
 
@@ -63,7 +69,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxZ = 256;
 constexpr int kMaxW = 8;
 constexpr int kMaxFree = 64;
-constexpr int kZChunk = 16;
+constexpr int kMaxL = 1 << 18;
+constexpr int kMaxBitmapBytes = kMaxL / 8;
+static_assert(kMaxZ <= kThreads, "the association gives each observation a thread");
 constexpr float kNegInf = -1e30f;
 constexpr float kMinDepth = 0.1f;
 constexpr int kPinhole = 0, kStereo = 1, kEquirect = 2;
@@ -272,95 +280,6 @@ __device__ __forceinline__ void lane_geometry(const Consts& c, const Cam& cam, c
   g.logdet = logf(clamp_min(det, 1e-12f));
 }
 
-// The score pass shared by both kernels: s_best_ll / s_best_ix [Z] of this
-// block's particle, sweeping lanes [0, hwm) (every lane at or above hwm is
-// invalid and scores -1e30).
-template <int MODEL>
-__device__ void score_pass(const Consts& c, const Flags& f, const Cam& cam, int hwm,
-                           const float* __restrict__ mean, const float* __restrict__ cov,
-                           const int32_t* __restrict__ desc, const uint8_t* __restrict__ valid,
-                           const float (*s_z)[3], const uint32_t (*s_desc)[kMaxW],
-                           float* s_best_ll, int* s_best_ix, float (*s_wll)[kZChunk],
-                           int (*s_wix)[kZChunk]) {
-  constexpr int D = Dims<MODEL>::Dz;
-  const int tid = threadIdx.x, lane_id = tid & 31, warp = tid >> 5;
-  const int Z = f.Z, W = f.W;
-  for (int z0 = 0; z0 < Z; z0 += kZChunk) {
-    float bl[kZChunk];
-    int bi[kZChunk];
-#pragma unroll
-    for (int k = 0; k < kZChunk; ++k) {
-      bl[k] = -CUDART_INF_F;
-      bi[k] = 0x7fffffff;
-    }
-    for (int l = tid; l < hwm; l += kThreads) {
-      const bool ok = valid[l] != 0;
-      LaneGeom g;
-      uint32_t ld[kMaxW];
-      if (ok) {
-        lane_geometry<MODEL>(c, cam, mean + 3 * (size_t)l, cov + 9 * (size_t)l, g);
-#pragma unroll
-        for (int w = 0; w < kMaxW; ++w)
-          if (w < W) ld[w] = (uint32_t)desc[(size_t)l * W + w];
-      }
-#pragma unroll
-      for (int k = 0; k < kZChunk; ++k) {
-        const int i = z0 + k;
-        if (i < Z) {
-          float ll = kNegInf;
-          if (ok) {
-            float nu[3];
-            residual<MODEL>(c, s_z[i], g.zh, nu);
-            ll = -0.5f * ((maha<D>(nu, g.inv) + g.logdet) + c.log2pi_d);
-            if (W > 0) {
-              int ham = 0;
-#pragma unroll
-              for (int w = 0; w < kMaxW; ++w)
-                if (w < W) ham += __popc(ld[w] ^ s_desc[i][w]);
-              ll = ll - c.desc_weight * (float)ham;
-            }
-            if (!isfinite(ll)) ll = kNegInf;
-          }
-          if (ll > bl[k]) {  // lanes rise per thread: keeps the first maximum
-            bl[k] = ll;
-            bi[k] = l;
-          }
-        }
-      }
-    }
-    // block argmax per observation of this chunk
-#pragma unroll
-    for (int k = 0; k < kZChunk; ++k) {
-      float a = bl[k];
-      int ia = bi[k];
-      for (int off = 16; off > 0; off >>= 1) {
-        const float b = __shfl_down_sync(0xffffffffu, a, off);
-        const int ib = __shfl_down_sync(0xffffffffu, ia, off);
-        take_better(a, ia, b, ib);
-      }
-      if (lane_id == 0) {
-        s_wll[warp][k] = a;
-        s_wix[warp][k] = ia;
-      }
-    }
-    __syncthreads();
-    if (tid < kZChunk && z0 + tid < Z) {
-      float a = s_wll[0][tid];
-      int ia = s_wix[0][tid];
-      for (int w = 1; w < kWarps; ++w) take_better(a, ia, s_wll[w][tid], s_wix[w][tid]);
-      // Below -1e30 (nothing swept, or only finite scores under -1e30): the
-      // first unswept lane, invalid, scores -1e30 and wins.
-      if (a < kNegInf && hwm < f.L) {
-        a = kNegInf;
-        ia = hwm;
-      }
-      s_best_ll[z0 + tid] = a;
-      s_best_ix[z0 + tid] = ia;
-    }
-    __syncthreads();
-  }
-}
-
 // One past the last valid lane of this block's particle.
 __device__ int high_watermark(const uint8_t* __restrict__ valid, int L, int* s_red) {
   const int tid = threadIdx.x;
@@ -411,7 +330,7 @@ __device__ __forceinline__ ScoreRec<D> load_score_rec(const ScoreRec<D>* rec, bo
   return R;
 }
 
-// The pair's score, in score_pass's arithmetic (so bit-equal to it).
+// The pair's score, in the twin's arithmetic (`_pair_scores`).
 template <int MODEL>
 __device__ __forceinline__ float score_pair(const Consts& c, int W, const ScoreRec<Dims<MODEL>::Dz>& R,
                                             const float* zt, const uint32_t* zd) {
@@ -435,44 +354,47 @@ __device__ __forceinline__ float score_pair(const Consts& c, int W, const ScoreR
   return isfinite(ll) ? ll : kNegInf;
 }
 
-// score_3d: the best lane and its score per (particle, observation).
-// One block per particle. Lanes below the high-watermark are walked in
-// windows of 256: each window's valid lanes are listed in ascending order
-// (ballot and prefix) and their geometry and descriptors staged as records;
-// then thread t, owning observation t % Z in group t / Z of G = 256 / Z
-// groups, sweeps every G-th record with its z and descriptor in registers
-// and one running (best, lane). The groups merge by the first-lane rule,
-// and the smallest invalid lane enters the merge at -1e30, as the invalid
-// lanes score in the twin.
+// Appends this window's free lanes below hwm to s_free in ascending order
+// while fewer than n_fs are listed; `holes` is the warp's ballot of them and
+// s_hcount [kWarps] the per-warp counts, written and synced by the caller.
+// Returns the new count of free lanes seen (uniform across the block).
+__device__ __forceinline__ int list_holes(int l, unsigned holes, const int* s_hcount, int nfree,
+                                          int n_fs, int* s_free) {
+  const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int rank = nfree + __popc(holes & ((1u << lane_id) - 1u)), total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    rank += w < warp ? s_hcount[w] : 0;
+    total += s_hcount[w];
+  }
+  if (((holes >> lane_id) & 1u) && rank < n_fs) s_free[rank] = l;
+  return nfree + total;
+}
+
+// The score sweep of both kernels: per observation i < Z of this block's
+// particle, the best lane below hwm and its score into best_ll[i] /
+// best_ix[i] (global or shared), every lane at or above hwm being invalid.
+// Lanes below the high-watermark are walked in windows of 256: each
+// window's valid lanes are listed in ascending order (ballot and prefix) and
+// their geometry and descriptors staged as records; then thread t, owning
+// observation t % Z in group t / Z of G = 256 / Z groups, sweeps every G-th
+// record with its z and descriptor in registers and one running (best,
+// lane). The groups merge by the first-lane rule, and the smallest invalid
+// lane enters the merge at -1e30, as the invalid lanes score in the twin.
+// The same ballot lists the first n_fs free lanes below hwm in s_free, in
+// ascending order; returns how many free lanes lie below hwm. Expects s_z
+// and s_desc loaded and synced; ends without a barrier after its writes.
 template <int MODEL>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) score_3d_kernel(
-    const float* __restrict__ cam, const float* __restrict__ lm_mean,
-    const float* __restrict__ lm_cov, const int32_t* __restrict__ lm_desc,
-    const uint8_t* __restrict__ lm_valid, const float* __restrict__ z,
-    const int32_t* __restrict__ desc, float* __restrict__ out_ll, int32_t* __restrict__ out_ix,
-    Consts c, Flags f) {
+__device__ int score_sweep(const Consts& c, const Flags& f, const Cam& cm, int hwm,
+                           const float* __restrict__ mean, const float* __restrict__ cov,
+                           const int32_t* __restrict__ ldesc, const uint8_t* __restrict__ valid,
+                           const float (*s_z)[3], const uint32_t (*s_desc)[kMaxW],
+                           ScoreRec<Dims<MODEL>::Dz>* s_rec, float* s_part_ll, int* s_part_ix,
+                           int* s_wcount, int* s_hcount, int* s_free, int n_fs,
+                           float* best_ll, int* best_ix) {
   constexpr int D = Dims<MODEL>::Dz;
-  __shared__ ScoreRec<D> s_rec[kThreads];
-  __shared__ float s_z[kMaxZ][3];
-  __shared__ uint32_t s_desc[kMaxZ][kMaxW];
-  __shared__ float s_part_ll[kThreads];
-  __shared__ int s_part_ix[kThreads];
-  __shared__ int s_wcount[kWarps];
-  __shared__ int s_red[kWarps];
-  __shared__ int s_first_free;
-  const int p = blockIdx.x;
   const int tid = threadIdx.x, lane_id = tid & 31, warp = tid >> 5;
   const int L = f.L, Z = f.Z, W = f.W;
-  const size_t base = (size_t)p * L;
-  const float* mean = lm_mean + 3 * base;
-  const float* cov = lm_cov + 9 * base;
-  const int32_t* ldesc = lm_desc + base * W;
-  const uint8_t* valid = lm_valid + base;
-  load_obs(f, D, z, desc, s_z, s_desc);
-  if (tid == 0) s_first_free = 0x7fffffff;  // the smallest invalid lane below hwm
-  const Cam cm = load_cam(cam, p);
-  const int hwm = high_watermark(valid, L, s_red);  // syncs the stores above
-
   const int G = kThreads / Z;
   const int my_i = tid % Z, my_g = tid / Z;
   const bool sweeps = my_g < G;
@@ -483,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) score_3d_kernel(
 #pragma unroll
   for (int w = 0; w < kMaxW; ++w) zd[w] = w < W ? s_desc[my_i][w] : 0u;
   float best = -CUDART_INF_F;
-  int bix = 0x7fffffff;
+  int bix = 0x7fffffff, nfree = 0;
 
   for (int l0 = 0; l0 < hwm; l0 += kThreads) {
     const int l = l0 + tid;
@@ -492,9 +414,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) score_3d_kernel(
     const unsigned holes = __ballot_sync(0xffffffffu, l < hwm && !ok);
     if (lane_id == 0) {
       s_wcount[warp] = __popc(ballot);
-      if (holes) atomicMin(&s_first_free, l0 + 32 * warp + __ffs(holes) - 1);
+      s_hcount[warp] = __popc(holes);
     }
     __syncthreads();
+    nfree = list_holes(l, holes, s_hcount, nfree, n_fs, s_free);
     int rank = __popc(ballot & ((1u << lane_id) - 1u)), listed = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
@@ -540,15 +463,46 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) score_3d_kernel(
   s_part_ix[tid] = bix;
   __syncthreads();
   // every lane at or above hwm is invalid: the first of them, if none below
-  const int first_free = s_first_free < hwm ? s_first_free : hwm;
+  const int first_free = nfree > 0 ? s_free[0] : hwm;
   for (int i = tid; i < Z; i += kThreads) {
     float a = s_part_ll[i];
     int ia = s_part_ix[i];
     for (int g = 1; g < G; ++g) take_better(a, ia, s_part_ll[g * Z + i], s_part_ix[g * Z + i]);
     if (first_free < L) take_better(a, ia, kNegInf, first_free);
-    out_ll[(size_t)p * Z + i] = a;
-    out_ix[(size_t)p * Z + i] = ia;
+    best_ll[i] = a;
+    best_ix[i] = ia;
   }
+  return nfree;
+}
+
+// score_3d: the best lane and its score per (particle, observation), one
+// block per particle, by score_sweep.
+template <int MODEL>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) score_3d_kernel(
+    const float* __restrict__ cam, const float* __restrict__ lm_mean,
+    const float* __restrict__ lm_cov, const int32_t* __restrict__ lm_desc,
+    const uint8_t* __restrict__ lm_valid, const float* __restrict__ z,
+    const int32_t* __restrict__ desc, float* __restrict__ out_ll, int32_t* __restrict__ out_ix,
+    Consts c, Flags f) {
+  constexpr int D = Dims<MODEL>::Dz;
+  __shared__ ScoreRec<D> s_rec[kThreads];
+  __shared__ float s_z[kMaxZ][3];
+  __shared__ uint32_t s_desc[kMaxZ][kMaxW];
+  __shared__ float s_part_ll[kThreads];
+  __shared__ int s_part_ix[kThreads];
+  __shared__ int s_wcount[kWarps];
+  __shared__ int s_hcount[kWarps];
+  __shared__ int s_red[kWarps];
+  __shared__ int s_free[1];
+  const int p = blockIdx.x;
+  const size_t base = (size_t)p * f.L;
+  load_obs(f, D, z, desc, s_z, s_desc);
+  const Cam cm = load_cam(cam, p);
+  const uint8_t* valid = lm_valid + base;
+  const int hwm = high_watermark(valid, f.L, s_red);  // syncs the stores above
+  score_sweep<MODEL>(c, f, cm, hwm, lm_mean + 3 * base, lm_cov + 9 * base, lm_desc + base * f.W,
+                     valid, s_z, s_desc, s_rec, s_part_ll, s_part_ix, s_wcount, s_hcount, s_free,
+                     1, out_ll + (size_t)p * f.Z, out_ix + (size_t)p * f.Z);
 }
 
 // A new landmark at observation z: (mean [3], cov [3][3]).
@@ -661,6 +615,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) ekf_update_3d_kerne
     const float* __restrict__ ext_ll, const int32_t* __restrict__ ext_ix,
     float* __restrict__ n_match, int32_t* __restrict__ target, Consts c, Flags f) {
   constexpr int D = Dims<MODEL>::Dz;
+  __shared__ ScoreRec<D> s_rec[kThreads];
   __shared__ float s_z[kMaxZ][3];
   __shared__ uint32_t s_desc[kMaxZ][kMaxW];
   __shared__ uint8_t s_zv[kMaxZ];
@@ -669,11 +624,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) ekf_update_3d_kerne
   __shared__ int s_tgt[kMaxZ];
   __shared__ uint8_t s_new[kMaxZ];
   __shared__ int s_free[kMaxFree];
-  __shared__ float s_wll[kWarps][kZChunk];
-  __shared__ int s_wix[kWarps][kZChunk];
+  __shared__ float s_part_ll[kThreads];
+  __shared__ int s_part_ix[kThreads];
   __shared__ int s_wcount[kWarps];
+  __shared__ int s_hcount[kWarps];
   __shared__ int s_red[kWarps];
-  __shared__ int s_nfree;
   extern __shared__ uint32_t s_matched[];  // one bit per lane
 
   const int p = blockIdx.x;
@@ -698,65 +653,86 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) ekf_update_3d_kerne
   const Cam cm = load_cam(cam, p);
   const int hwm = high_watermark(valid, L, s_red);  // syncs the loads above
 
-  // ---- pass 1: score the pre-frame map (unless scores came in) ----------
-  if (!f.ext)
-    score_pass<MODEL>(c, f, cm, hwm, mean, cov, ldesc, valid, s_z, s_desc, s_best_ll,
-                      s_best_ix, s_wll, s_wix);
-
-  // ---- pass 2: free slots (first n_fs invalid lanes, ascending) ---------
+  // ---- pass 1: score the pre-frame map (unless scores came in), listing
+  // the first n_fs free lanes (ascending) below hwm on the way -----------
   const int n_fs = Z < kMaxFree ? Z : kMaxFree;
-  if (tid == 0) s_nfree = 0;
-  __syncthreads();
-  for (int l0 = 0; l0 < L; l0 += kThreads) {
-    const int nfree = s_nfree;  // uniform: read after the barrier
-    if (nfree >= n_fs) break;
-    const int l = l0 + tid;
-    const bool is_free = l < L && valid[l] == 0;
-    const unsigned ballot = __ballot_sync(0xffffffffu, is_free);
-    if (lane_id == 0) s_wcount[warp] = __popc(ballot);
-    __syncthreads();
-    int rank = nfree + __popc(ballot & ((1u << lane_id) - 1u));
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) rank += s_wcount[w];
-      total += s_wcount[w];
+  int nfree = 0;
+  if (!f.ext) {
+    nfree = score_sweep<MODEL>(c, f, cm, hwm, mean, cov, ldesc, valid, s_z, s_desc, s_rec,
+                               s_part_ll, s_part_ix, s_wcount, s_hcount, s_free, n_fs,
+                               s_best_ll, s_best_ix);
+  } else {
+    // scores came in: the same ballot lists the free lanes, and stops early
+    for (int l0 = 0; l0 < hwm && nfree < n_fs; l0 += kThreads) {
+      const int l = l0 + tid;
+      const unsigned holes = __ballot_sync(0xffffffffu, l < hwm && valid[l] == 0);
+      if (lane_id == 0) s_hcount[warp] = __popc(holes);
+      __syncthreads();
+      nfree = list_holes(l, holes, s_hcount, nfree, n_fs, s_free);
+      __syncthreads();
     }
-    if (is_free && rank < n_fs) s_free[rank] = l;
-    __syncthreads();
-    if (tid == 0) s_nfree = nfree + total;
-    __syncthreads();
   }
+  // every lane at or above hwm is free: they follow in order
+  const int n_below = nfree < n_fs ? nfree : n_fs;
+  for (int k = tid; n_below + k < n_fs && hwm + k < L; k += kThreads) s_free[n_below + k] = hwm + k;
+  __syncthreads();
 
-  // ---- association decisions and the weight increment ---------------
-  if (tid == 0) {
-    const int nfound = s_nfree < n_fs ? s_nfree : n_fs;
+  // ---- association decisions and the weight increment: observation i on
+  // thread i; the new ones take the free slots by their exclusive rank in
+  // observation order (ballot and prefix) -------------------------------
+  {
+    const int above = L - hwm < n_fs ? L - hwm : n_fs;
+    const int nfound = n_below + above < n_fs ? n_below + above : n_fs;
     const bool any_valid = hwm > 0;
-    int arank = 0;
-    float dw = 0.f, nm = 0.f;
-    for (int i = 0; i < Z; ++i) {
-      const bool v = s_zv[i] != 0;
-      const float best_ll = s_best_ll[i];
-      const bool is_new = (best_ll < c.log_p0) || !any_valid;
-      const bool do_new = is_new && v;
-      const bool do_alloc = do_new && arank < nfound;
-      const bool do_upd = !is_new && v;
+    const int i = tid;
+    const bool v = i < Z && s_zv[i] != 0;
+    const float best_ll = i < Z ? s_best_ll[i] : 0.f;
+    const bool is_new = (best_ll < c.log_p0) || !any_valid;
+    const bool do_new = is_new && v;
+    const unsigned news = __ballot_sync(0xffffffffu, do_new);
+    if (lane_id == 0) s_wcount[warp] = __popc(news);
+    __syncthreads();
+    int arank = __popc(news & ((1u << lane_id) - 1u));
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) arank += w < warp ? s_wcount[w] : 0;
+    const bool do_alloc = do_new && arank < nfound;
+    const bool do_upd = !is_new && v;
+    if (i < Z) {
       const int t = do_upd ? s_best_ix[i] : (do_alloc ? s_free[arank] : -1);
-      arank += do_new;
       s_tgt[i] = t;
       s_new[i] = is_new;
       target[(size_t)p * Z + i] = t;
-      nm += (do_upd || do_alloc) ? 1.f : 0.f;
-      if (v) dw = dw + (is_new ? c.log_p0 : best_ll);
     }
-    n_match[p] = nm;
-    if (f.update_weights) log_w[p] = log_w[p] + dw;
+    // n_match and the weight increment: a warp tree, then the warps in order
+    float dw = v ? (is_new ? c.log_p0 : best_ll) : 0.f;
+    float nm = (do_upd || do_alloc) ? 1.f : 0.f;
+    for (int off = 16; off > 0; off >>= 1) {
+      dw = dw + __shfl_down_sync(0xffffffffu, dw, off);
+      nm = nm + __shfl_down_sync(0xffffffffu, nm, off);
+    }
+    if (lane_id == 0) {
+      s_part_ll[warp] = dw;
+      s_part_ll[kWarps + warp] = nm;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float sdw = 0.f, snm = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        sdw = sdw + s_part_ll[w];
+        snm = snm + s_part_ll[kWarps + w];
+      }
+      n_match[p] = snm;
+      if (f.update_weights) log_w[p] = log_w[p] + sdw;
+    }
   }
-  __syncthreads();
 
   // ---- pass 3: apply; one thread per distinct lane, in obs order ------
   for (int i = tid; i < Z; i += kThreads) {
     const int t = s_tgt[i];
     if (t < 0) continue;
+    // the lane's first observation owns it and meets its own at k = i, so
+    // a warp's owners run their first update together (an owner that
+    // started from k = 0 would meet it at k = i: one warp lane at a time)
     bool head = true;
     for (int j = 0; j < i && head; ++j) head = s_tgt[j] != t;
     if (!head) continue;
@@ -805,12 +781,33 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSM) ekf_update_3d_kerne
   }
 }
 
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` once per device
+// (the attribute holds for the process; the launches run every frame).
+template <typename Kernel>
+cudaError_t allow_dynamic_smem(Kernel kernel, int bytes, std::atomic<unsigned>& raised) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (raised.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) raised.fetch_or(bit);
+  return err;
+}
+
 template <int MODEL>
 int launch_update(const float* cam, float* log_w, float* lm_mean, float* lm_cov,
                   int32_t* lm_desc, uint8_t* lm_valid, int32_t* lm_count, const float* z,
                   const int32_t* desc, const uint8_t* zvalid, const float* ext_ll,
                   const int32_t* ext_ix, float* n_match, int32_t* target, const Consts& c,
                   const Flags& f, cudaStream_t stream) {
+  // the matched-lane bitmap: 32 KB at the largest L, past the 48 KB a block
+  // gets without asking beside the 41 KB of static shared memory. The limit
+  // is raised to the largest bitmap once per device.
+  static std::atomic<unsigned> raised{0};
+  const cudaError_t err =
+      allow_dynamic_smem(ekf_update_3d_kernel<MODEL>, kMaxBitmapBytes, raised);
+  if (err != cudaSuccess) return (int)err;
   const size_t smem = (size_t)((f.L + 31) / 32) * sizeof(uint32_t);
   ekf_update_3d_kernel<MODEL><<<f.P, kThreads, smem, stream>>>(
       cam, log_w, lm_mean, lm_cov, lm_desc, lm_valid, lm_count, z, desc, zvalid, ext_ll,
@@ -828,7 +825,7 @@ int launch_score(const float* cam, const float* lm_mean, const float* lm_cov,
 }
 
 bool bad_shape(int P, int L, int Z, int W, int model) {
-  return P < 1 || L < 1 || L > (1 << 18) || Z < 1 || Z > kMaxZ || W < 0 || W > kMaxW ||
+  return P < 1 || L < 1 || L > kMaxL || Z < 1 || Z > kMaxZ || W < 0 || W > kMaxW ||
          model < kPinhole || model > kEquirect;
 }
 

@@ -6,9 +6,9 @@
 //   hamming_top2 (:269, body _hamming_packed_kernel :201) and
 //   l2_top2      (:342, via _dist_top2 :150, body _dist_top2_kernel :107).
 // The TPU runs Hamming through its matrix unit with the bit-dot identity
-// (bf16 bit-planes), because it has no popcount. Hopper has one: here a
-// distance is XOR + __popc over the 8 packed words, read as two 16-byte
-// loads, and the [N, M] distance matrix is never written.
+// (bf16 bit-planes). Here too: with bits as +-1 int8, Hamming = (256 - dot)
+// / 2, exact in int32, on the int8 tensor cores; the [N, M] distance matrix
+// is never written.
 //
 // Contract (the reference's, reproduced exactly):
 //   - invalid database rows count as 2^30 (Hamming) or 1e30 (L2);
@@ -21,14 +21,32 @@
 //     the distances by up to 4e-2 at D=128, and with them the argmins.
 //
 // Design.
-//   Hamming: one thread per query keeps its query's 8 words in registers;
-//   database tiles of 256 rows (8 KB) are staged in shared memory and read
-//   as broadcasts. Each thread folds a running (best, idx, second) in
-//   ascending row order with a strict '<', which is the reference's
-//   first-index rule. N=1024 queries fill only 8 blocks of 128 threads, so
-//   the rows are split into S contiguous chunks over gridDim.y; each chunk
-//   writes a partial top-2 and a second kernel merges the partials in
-//   ascending chunk order with the reference's cross-tile rule
+//   Hamming: a block takes 128 queries and walks its chunk of the database
+//   in tiles of 128 rows. Its queries are expanded once to +-1 int8 (bit 1
+//   -> -1, bit 0 -> +1; word j, byte i of a packed word's 8 output words is
+//   bit 8 i + j: queries and rows alike, so positions pair up) in the
+//   K-major, 128-byte swizzled layout the wgmma descriptor names, 256 bytes
+//   a row in two 128-byte halves. The block is three warpgroups. One is the
+//   producer: thread t loads row t of the next tile and its flag a tile
+//   ahead, the warpgroup skips a tile whose rows are all invalid, and a kept
+//   tile is expanded into the next stage of a ring of three with each row's
+//   fold bias, then signalled with the stage's `full` mbarrier. Two are
+//   consumers, 64 queries each: wgmma.mma_async m64n128k32.s32.s8.s8, 8
+//   k-steps for 256 bits, then the fold in the accumulator fragment. A
+//   thread holds two query rows and 32 interleaved columns; each distance
+//   becomes a key (distance << 22) + (row - chunk start), plus 2^31 for an
+//   invalid row, in one multiply-add from the accumulator (2^29 + bias -
+//   dot * 2^21), and a running (smallest, second smallest) key per row
+//   takes min and max alone: the smaller key is the smaller distance, then
+//   the smaller index, which is the reference's first-index rule, and the
+//   four lanes that share a row merge by shuffles with the index compared
+//   as part of the key. Skipping an all-invalid tile is exact: the fold
+//   starts from the no-valid-row state, and an invalid row's key is above
+//   every valid one. The rows of a chunk are split over gridDim.y (a chunk
+//   holds at most 2^22 rows: the key's index field); each chunk writes a
+//   partial top-2 (one chunk alone writes the result) and a second kernel
+//   merges the partials in ascending chunk order with the reference's
+//   cross-tile rule
 //     b1' = min(b1, t1), idx' = t1 < b1 ? t_idx : idx,
 //     b2' = min(max(b1, t1), min(b2, t2)).
 //   A batch axis on gridDim.z takes the place of the reference's vmap over
@@ -64,9 +82,14 @@
 //   smaller index. Chunks over gridDim.y and the merge kernel are as for
 //   Hamming. A pre-pass kernel writes the squared norms (one warp a row).
 //
-// Bound. Hamming at N=1024, M=131072: 134 M pairs x 8 popcounts = 1.07 G
-// popcounts (quarter-rate on the SM) plus ~3 G integer ops: instruction-bound,
-// ~0.3-0.6 ms at full occupancy; the database (4 MB) sits in L2. L2 at
+// Bound. Hamming at N=1024, M=131072: 134 M pairs x 256 int8 products =
+// 68.7 G operations at 1,979 TOP/s, 0.035 ms, against 0.002 ms for the 4 MB
+// of operands. XOR + __popc on the SM cannot come near it (1.07 G popcounts
+// at 16 a clock per SM need ~0.29 ms). Each consumer warpgroup waits for its
+// products before it folds them, and the fold (four integer operations a
+// distance) and the producer's expansion share the issue slots, so the
+// tensor cores idle while a tile is folded; a block's queries are expanded
+// anew for every chunk. L2 at
 // N=1024, M=131072, D=128 with 1 row in 5 invalid: 3 x 27.5 G TF32
 // operations at 495 TFLOP/s, 0.167 ms, against 0.02 ms for the 67.6 MB of
 // operands. Both operands of a wgmma come from shared memory here (96 bytes
@@ -77,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kBigI = 1 << 30;
@@ -84,70 +109,6 @@ constexpr float kBigF = 1e30f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------- Hamming
-
-constexpr int kHamThreads = 128;  // queries per block
-constexpr int kHamTile = 256;     // database rows per shared tile
-constexpr int kWords = 8;         // 256-bit descriptors
-
-__global__ void __launch_bounds__(kHamThreads) hamming_partial_kernel(
-    const int32_t* __restrict__ qd, const int32_t* __restrict__ db,
-    const uint8_t* __restrict__ valid, int32_t* __restrict__ p_idx,
-    int32_t* __restrict__ p_b1, int32_t* __restrict__ p_b2, int N, int M,
-    long long q_bs, long long db_bs, long long v_bs, int S, int chunk) {
-  __shared__ uint4 tile[kHamTile][2];
-  __shared__ uint8_t tvalid[kHamTile];
-  const int b = blockIdx.z;
-  const int s = blockIdx.y;
-  const int n = blockIdx.x * kHamThreads + threadIdx.x;
-  const int m0 = s * chunk;
-  const int m1 = min(m0 + chunk, M);
-  const int32_t* dbb = db + (long long)b * db_bs;
-  const uint8_t* vb = valid + (long long)b * v_bs;
-
-  uint4 q0 = make_uint4(0, 0, 0, 0), q1 = q0;
-  if (n < N) {
-    const uint4* qrow = reinterpret_cast<const uint4*>(qd + (long long)b * q_bs +
-                                                       (long long)n * kWords);
-    q0 = qrow[0];
-    q1 = qrow[1];
-  }
-  int b1 = kBigI, b2 = kBigI, bi = m0;
-  for (int t0 = m0; t0 < m1; t0 += kHamTile) {
-    const int cnt = min(kHamTile, m1 - t0);
-    __syncthreads();
-    for (int k = threadIdx.x; k < 2 * cnt; k += kHamThreads) {
-      const uint4* src = reinterpret_cast<const uint4*>(dbb + (long long)t0 * kWords);
-      tile[k >> 1][k & 1] = src[k];
-    }
-    for (int k = threadIdx.x; k < cnt; k += kHamThreads) tvalid[k] = vb[t0 + k];
-    __syncthreads();
-    if (n < N) {
-      for (int r = 0; r < cnt; ++r) {
-        const uint4 a = tile[r][0];
-        const uint4 c = tile[r][1];
-        int d = __popc(q0.x ^ a.x) + __popc(q0.y ^ a.y) + __popc(q0.z ^ a.z) +
-                __popc(q0.w ^ a.w) + __popc(q1.x ^ c.x) + __popc(q1.y ^ c.y) +
-                __popc(q1.z ^ c.z) + __popc(q1.w ^ c.w);
-        d = tvalid[r] ? d : kBigI;
-        if (d < b1) {
-          b2 = b1;
-          b1 = d;
-          bi = t0 + r;
-        } else if (d < b2) {
-          b2 = d;
-        }
-      }
-    }
-  }
-  if (n < N) {
-    const long long o = ((long long)b * S + s) * N + n;
-    p_idx[o] = bi;
-    p_b1[o] = b1;
-    p_b2[o] = b2;
-  }
 }
 
 // ---------------------------------------------------------------- L2
@@ -530,6 +491,278 @@ __global__ void __launch_bounds__(kL2Threads, 1) l2_partial_kernel(
   }
 }
 
+// ---------------------------------------------------------------- Hamming
+
+constexpr int kWords = 8;                 // 256-bit descriptors
+constexpr int kHamConsumers = 256;        // two warpgroups, 64 queries each
+constexpr int kHamProducers = 128;        // one warpgroup expands the database
+constexpr int kHamThreads = kHamConsumers + kHamProducers;
+constexpr int kHamQ = 128;                // queries per block
+constexpr int kHamM = 128;                // database rows per tile: the wgmma's n
+constexpr int kHamStages = 3;             // tiles in the ring
+constexpr int kHamPlane = kHamM * 128;    // bytes of one 128-bit half of a tile, +-1 int8
+constexpr int kHamTileBytes = 2 * kHamPlane;
+constexpr int kHamSmem = (1 + kHamStages) * kHamTileBytes + kHamStages * kHamM * 4 +
+                         kHamStages * 4 + 2 * 4 * 4 + 2 * kHamStages * 8;
+// A fold key: (distance << 22) | (row - chunk start), unsigned, with 2^31
+// added for an invalid row; the smallest key is the best row, ties to the
+// smallest index. Rows of a chunk must fit in 22 bits.
+constexpr uint32_t kKeyInvalid = 0x80000000u;
+constexpr int kKeyShift = 22;
+constexpr int kMaxChunk = 1 << kKeyShift;
+
+// Packed bits x -> 8 words of +-1 int8 (bit 1 -> -1, bit 0 -> +1): word j,
+// byte i holds bit 8 i + j. Queries and database rows are expanded alike,
+// so the order of the 256 positions is the same in both, and the dot
+// product of two rows is 256 - 2 Hamming.
+__device__ __forceinline__ void expand8(uint32_t x, uint4& lo, uint4& hi) {
+  uint32_t o[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o[j] = ((x >> j) & 0x01010101u) * 0xfeu + 0x01010101u;
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// Row `row` of a tile of +-1 int8 rows, K-major in the 128-byte swizzle the
+// wgmma descriptor names (16-byte chunk c of a row at c ^ (row % 8)): word
+// w of the packed row fills chunks 2 (w % 4) and 2 (w % 4) + 1 of half w / 4.
+__device__ __forceinline__ void store_expanded(uint8_t* tile, int row, int w, uint32_t x) {
+  uint4 lo, hi;
+  expand8(x, lo, hi);
+  uint8_t* half = tile + (w >> 2) * kHamPlane + row * 128;
+  const int c = 2 * (w & 3);
+  *reinterpret_cast<uint4*>(half + ((c ^ (row & 7)) << 4)) = lo;
+  *reinterpret_cast<uint4*>(half + (((c + 1) ^ (row & 7)) << 4)) = hi;
+}
+
+// d (64 x 128, int32, 64 registers a thread) = a (64 x 32) . b (128 x 32)^T,
+// plus d unless scale_d is 0; both operands int8 in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64], uint64_t a, uint64_t b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void pin(int32_t (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// (best, second) of the keys seen, the smaller first.
+__device__ __forceinline__ void fold_key(uint32_t& k1, uint32_t& k2, uint32_t key) {
+  k2 = min(k2, max(k1, key));
+  k1 = min(k1, key);
+}
+
+__device__ __forceinline__ int32_t key_distance(uint32_t key) {
+  return key >= kKeyInvalid ? kBigI : (int32_t)(key >> kKeyShift);
+}
+
+__global__ void __launch_bounds__(kHamThreads, 1) hamming_partial_kernel(
+    const int32_t* __restrict__ qd, const int32_t* __restrict__ db,
+    const uint8_t* __restrict__ valid, int32_t* __restrict__ p_idx,
+    int32_t* __restrict__ p_b1, int32_t* __restrict__ p_b2, int N, int M,
+    long long q_bs, long long db_bs, long long v_bs, int S, int chunk) {
+  // the swizzle is a function of the address: tiles start at multiples of 1024
+  extern __shared__ __align__(1024) uint8_t ham_smem[];
+  uint8_t* s_q = ham_smem;                                     // the block's queries
+  uint8_t* s_db = s_q + kHamTileBytes;                         // [stage]
+  uint64_t* s_bar = reinterpret_cast<uint64_t*>(s_db + kHamStages * kHamTileBytes);
+  uint32_t* s_bias = reinterpret_cast<uint32_t*>(s_bar + 2 * kHamStages);  // [stage][row]
+  int* s_tile = reinterpret_cast<int*>(s_bias + kHamStages * kHamM);  // [stage]: tile, -1 = done
+  int* s_any = s_tile + kHamStages;                            // [parity][producer warp]
+  const uint32_t full = smem_u32(s_bar);                       // [stage]: the tile is stored
+  const uint32_t empty = full + 8 * kHamStages;                // [stage]: its products are folded
+  if (smem_u32(ham_smem) & 1023) __trap();
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int q0 = blockIdx.x * kHamQ;
+  const int m0 = blockIdx.y * chunk;
+  const int m1 = min(m0 + chunk, M);
+  const int32_t* qb = qd + (long long)b * q_bs;
+  const int32_t* dbb = db + (long long)b * db_bs;
+  const uint8_t* vb = valid + (long long)b * v_bs;
+
+  if (tid == 0) {
+    for (int s = 0; s < kHamStages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(full + 8 * s),
+                   "r"(kHamProducers) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(empty + 8 * s),
+                   "r"(kHamConsumers) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // The producer's thread t owns row t of every tile: it loads the row's 8
+  // words and its flag a tile ahead, the first before the queries' expansion
+  const int t = tid - kHamConsumers;
+  uint4 w0, w1;
+  uint8_t ok;
+  auto load_row = [&](int t0) {
+    const int m = t0 + t;
+    w0 = w1 = make_uint4(0u, 0u, 0u, 0u);
+    ok = 0;
+    if (m < m1) {
+      const uint4* row = reinterpret_cast<const uint4*>(dbb + (long long)m * kWords);
+      w0 = __ldg(row);
+      w1 = __ldg(row + 1);
+      ok = vb[m];
+    }
+  };
+  if (t >= 0) load_row(m0);
+  // the queries, expanded once; rows past N are zeros
+  for (int e = tid; e < kHamQ * kWords; e += kHamThreads) {
+    const int r = e >> 3, w = e & 7;
+    store_expanded(s_q, r, w, q0 + r < N ? (uint32_t)qb[(long long)(q0 + r) * kWords + w] : 0u);
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  if (tid >= kHamConsumers) {
+    // ------------------------------------------------------------ producer
+    // The warpgroup skips a tile whose rows are all invalid (exact: such a
+    // tile cannot change a top-2 that starts from the no-valid-row state).
+    // A kept tile goes to the next stage of the ring once the consumers have
+    // folded what it held, expanded, with each row's fold bias: (row - m0)
+    // plus 2^31 if the row is invalid or past the chunk. After the last
+    // tile a stage with tile -1 ends the walk.
+    const int warp = t >> 5;
+    int stage = 0, k = 0;
+    uint32_t parity = 1;  // the ring starts empty: the first waits pass
+    for (int t0 = m0; t0 < m1; t0 += kHamM, ++k) {
+      const uint4 c0 = w0, c1 = w1;
+      const uint8_t c_ok = ok;
+      if (t0 + kHamM < m1) load_row(t0 + kHamM);  // in flight under the rest
+      const unsigned any = __ballot_sync(0xffffffffu, c_ok != 0);
+      if ((t & 31) == 0) s_any[(k & 1) * 4 + warp] = any != 0;
+      asm volatile("bar.sync 1, %0;" ::"n"(kHamProducers) : "memory");
+      const int* a = s_any + (k & 1) * 4;
+      if (!(a[0] | a[1] | a[2] | a[3])) continue;
+      mbar_wait(empty + 8 * stage, parity);
+      uint8_t* tile = s_db + stage * kHamTileBytes;
+      store_expanded(tile, t, 0, c0.x);
+      store_expanded(tile, t, 1, c0.y);
+      store_expanded(tile, t, 2, c0.z);
+      store_expanded(tile, t, 3, c0.w);
+      store_expanded(tile, t, 4, c1.x);
+      store_expanded(tile, t, 5, c1.y);
+      store_expanded(tile, t, 6, c1.z);
+      store_expanded(tile, t, 7, c1.w);
+      s_bias[stage * kHamM + t] = (uint32_t)(t0 - m0 + t) + (c_ok ? 0u : kKeyInvalid);
+      if (t == 0) s_tile[stage] = t0;
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_arrive(full + 8 * stage);
+      if (++stage == kHamStages) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    mbar_wait(empty + 8 * stage, parity);
+    if (t == 0) s_tile[stage] = -1;
+    mbar_arrive(full + 8 * stage);
+  } else {
+    // ----------------------------------------------------------- consumers
+    // the accumulator fragment: this thread holds rows r_lo and r_lo + 8 of
+    // its warpgroup's 64 queries, columns 8 j + c_lo + {0, 1} for j = 0..15
+    const int lane = tid & 31;
+    const int wg = tid >> 7;
+    const int r_lo = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
+    const int c_lo = (lane & 3) * 2;
+    uint32_t lo1 = 0xffffffffu, lo2 = 0xffffffffu, hi1 = 0xffffffffu, hi2 = 0xffffffffu;
+    int32_t acc[64];
+    const uint32_t a_base = smem_u32(s_q) + wg * 64 * 128;
+    int stage = 0;
+    uint32_t parity = 0;
+    while (true) {
+      mbar_wait(full + 8 * stage, parity);
+      if (s_tile[stage] < 0) break;
+      const uint32_t b_base = smem_u32(s_db + stage * kHamTileBytes);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        // 32 bytes further along every (swizzled) row, then the second half
+        const uint32_t off = (kk >> 2) * kHamPlane + 32 * (kk & 3);
+        wgmma_m64n128k32_s8(acc, smem_desc(a_base + off), smem_desc(b_base + off), kk > 0);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      pin(acc);
+      // key = (distance << 22) + bias, distance = (256 - dot) / 2: dot is
+      // even, so (256 - dot) << 21 = 2^29 - dot * 2^21
+      const uint32_t* bias = s_bias + stage * kHamM;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const uint2 bj = *reinterpret_cast<const uint2*>(bias + 8 * j + c_lo);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t c = (e ? bj.y : bj.x) + (1u << 29);
+          fold_key(lo1, lo2, c - ((uint32_t)acc[4 * j + e] << 21));
+          fold_key(hi1, hi2, c - ((uint32_t)acc[4 * j + 2 + e] << 21));
+        }
+      }
+      mbar_arrive(empty + 8 * stage);
+      if (++stage == kHamStages) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    // the four lanes that share a row hold interleaved columns; the key
+    // holds the index, so the smaller key is the smaller index on a tie
+#pragma unroll
+    for (int w = 1; w <= 2; w <<= 1) {
+      const uint32_t l1 = __shfl_xor_sync(0xffffffffu, lo1, w), l2 = __shfl_xor_sync(0xffffffffu, lo2, w);
+      const uint32_t h1 = __shfl_xor_sync(0xffffffffu, hi1, w), h2 = __shfl_xor_sync(0xffffffffu, hi2, w);
+      lo2 = min(max(lo1, l1), min(lo2, l2));
+      lo1 = min(lo1, l1);
+      hi2 = min(max(hi1, h1), min(hi2, h2));
+      hi1 = min(hi1, h1);
+    }
+    if ((lane & 3) == 0) {
+      const long long o = ((long long)b * S + blockIdx.y) * N + q0 + r_lo;
+      if (q0 + r_lo < N) {
+        p_idx[o] = lo1 >= kKeyInvalid ? m0 : m0 + (int32_t)(lo1 & (kMaxChunk - 1));
+        p_b1[o] = key_distance(lo1);
+        p_b2[o] = key_distance(lo2);
+      }
+      if (q0 + r_lo + 8 < N) {
+        p_idx[o + 8] = hi1 >= kKeyInvalid ? m0 : m0 + (int32_t)(hi1 & (kMaxChunk - 1));
+        p_b1[o + 8] = key_distance(hi1);
+        p_b2[o + 8] = key_distance(hi2);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- merge
 
 template <typename T>
@@ -571,23 +804,45 @@ __global__ void merge_kernel(const int32_t* __restrict__ p_idx, const T* __restr
 
 int blocks_for(long long n, int threads) { return (int)((n + threads - 1) / threads); }
 
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` once per device
+// (the attribute holds for the process; the launches run every frame).
+template <typename Kernel>
+cudaError_t allow_dynamic_smem(Kernel kernel, int bytes, std::atomic<unsigned>& raised) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (raised.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) raised.fetch_or(bit);
+  return err;
+}
+
 }  // namespace
 
+// p_idx, p_b1, p_b2 [B, S, N] are scratch for the chunks' partial results,
+// unused when S is 1.
 extern "C" int hamming_top2_launch(const int32_t* qd, const int32_t* db, const uint8_t* valid,
                                    int32_t* idx, int32_t* b1, int32_t* b2, int32_t* p_idx,
                                    int32_t* p_b1, int32_t* p_b2, int B, int N, int M,
                                    long long q_bs, long long db_bs, long long v_bs, int S,
                                    int chunk, void* stream) {
-  if (B < 1 || N < 1 || M < 1 || S < 1 || chunk < 1 || (long long)S * chunk < M ||
-      (long long)(S - 1) * chunk >= M || S > 65535 || B > 65535) {
+  if (B < 1 || N < 1 || M < 1 || S < 1 || chunk < 1 || chunk % kHamM != 0 ||
+      chunk > kMaxChunk || (long long)S * chunk < M || (long long)(S - 1) * chunk >= M ||
+      S > 65535 || B > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid(blocks_for(N, kHamThreads), S, B);
-  hamming_partial_kernel<<<grid, kHamThreads, 0, st>>>(qd, db, valid, p_idx, p_b1, p_b2, N, M,
-                                                      q_bs, db_bs, v_bs, S, chunk);
-  cudaError_t err = cudaGetLastError();
+  static std::atomic<unsigned> raised{0};
+  cudaError_t err = allow_dynamic_smem(hamming_partial_kernel, kHamSmem, raised);
   if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid(blocks_for(N, kHamQ), S, B);
+  // one chunk: its partial result is the result ([B, N] either way)
+  hamming_partial_kernel<<<grid, kHamThreads, kHamSmem, st>>>(
+      qd, db, valid, S == 1 ? idx : p_idx, S == 1 ? b1 : p_b1, S == 1 ? b2 : p_b2, N, M, q_bs,
+      db_bs, v_bs, S, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return (int)err;
   merge_kernel<int32_t><<<blocks_for((long long)B * N, 256), 256, 0, st>>>(
       p_idx, p_b1, p_b2, idx, b1, b2, B, N, S);
   return (int)cudaGetLastError();
@@ -602,8 +857,8 @@ extern "C" int l2_top2_launch(const float* qd, const float* db, float* qn, float
       (long long)S * chunk < M || (long long)(S - 1) * chunk >= M || S > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(l2_partial_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kL2Smem);
+  static std::atomic<unsigned> raised{0};
+  cudaError_t err = allow_dynamic_smem(l2_partial_kernel, kL2Smem, raised);
   if (err != cudaSuccess) return (int)err;
   // 16-byte loads where every row starts at a multiple of 16 bytes
   const int vec = D % 4 == 0 && (((uintptr_t)qd | (uintptr_t)db) & 15) == 0;

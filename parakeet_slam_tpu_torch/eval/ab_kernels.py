@@ -2,13 +2,15 @@
 them, for comparing trees.
 
     python3 parakeet_slam_tpu_torch/eval/ab_kernels.py [--root DIR] [--twin]
-        [--parts kernels,paths,posegraph]
+        [--parts kernels,update_3d,hamming,paths,posegraph]
 
 Imports `parakeet_slam_tpu_torch` from DIR (default: the checkout that holds
 this file), so that an older tree unpacked beside it (`git archive` of the
 parent commit into a git-ignored directory) is timed by the same code in
 the same call: run it for each tree in turns (parent, change, change,
-parent). The timing itself (`eval/profiling.py`) is always this checkout's.
+parent). The timing (`eval/profiling.py`) and the inputs
+(`eval/kernel_inputs.py`: the shapes and data `chip_smoke.py` checks) are
+always this checkout's.
 The parts (default `kernels`):
   - `kernels`: the device's time alone, on the inputs `chip_smoke.py` uses,
     of `measurement_update_2d` at the corridor shape (P=64, L=192, Z=16,
@@ -18,6 +20,19 @@ The parts (default `kernels`):
     the bench shape (P=1024, L=8192, Z=32, equirect). With `--twin`, each
     plain twin is timed in turns with its kernel, around single calls (its
     thousands of launches overflow the launch queue behind a sleep);
+  - `update_3d`: the device's time alone of `measurement_update_3d`, the
+    state restored before each call outside its events: scoring the frame
+    itself at the KITTI shape (stereo, P=2048, L=10240, Z=128), the bench
+    shape (equirect, P=1024, L=8192, Z=32) and the panoramic config's shape
+    (equirect, P=1024, L=8192, Z=128); fed `score_3d`'s scores (`ext`, as
+    FastSLAM 2.0 runs it) at the KITTI shape, with and without the cull,
+    and config 2's (pinhole, P=512, L=1024, Z=64);
+  - `hamming`: the device's time alone of `hamming_top2` at the bench shape
+    (N=1024, M=131072; all valid, and 1 in 5 invalid), config 2's closure
+    match (F=256 against a store of 64 keyframes, 40 written and 33
+    eligible) and the panoramic config's (F=512 against a store of 2048,
+    1100 written and the first 1025 eligible), each forward (the store as
+    the database) and reverse (the store as the queries);
   - `paths`: the corridor benchmark (`cli.measure_corridor`: config 1, five
     seeds of 500 frames, frames/s on the host clock and ATE) and the
     `fs2_step` bench row (one FastSLAM 2.0 step at P=1024, L=8192, Z=32,
@@ -43,24 +58,27 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 UPDATE_SHAPES = ((64, 192, 16, 3), (2048, 10240, 32, 3))
 SCORE_SHAPES = (("stereo_3d", (2048, 10240, 128)), ("equirect_3d", (1024, 8192, 32)))
 POSEGRAPH_K = (64, 256, 512, 1024, 2048)
-NOISE_3D = {"pinhole_3d": (2.0, 2.0), "stereo_3d": (1.5, 1.5, 1.0), "equirect_3d": (3.0, 3.0)}
 
 
-def _profiling():
-    spec = importlib.util.spec_from_file_location("ab_profiling", os.path.join(HERE, "profiling.py"))
+def _local(name):
+    """This checkout's `eval/<name>.py`, whatever tree `--root` imports:
+    the timing and the inputs are the same for every tree."""
+    spec = importlib.util.spec_from_file_location(f"ab_{name}", os.path.join(HERE, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
+KI = _local("kernel_inputs")  # the shapes and inputs `chip_smoke.py` checks
+
+
 def time_update_2d(shape, device, queued, single, twin):
     import torch
 
-    from parakeet_slam_tpu_torch.eval.kernel_inputs import prefilled_frame
     from parakeet_slam_tpu_torch.kernels import ekf_update
 
     P, L, Z, S = shape
-    fr = prefilled_frame(P, L, Z, S, seed=sum(shape))
+    fr = KI.prefilled_frame(P, L, Z, S, seed=sum(shape))
     T = {k: torch.as_tensor(v, device=device) for k, v in fr.items()}
     keys = ("pose", "log_w", "lm_mean", "lm_cov", "lm_sig", "lm_valid", "lm_count")
     state = [T[k] for k in keys]
@@ -87,19 +105,11 @@ def time_update_2d(shape, device, queued, single, twin):
 
 
 def time_score_3d(model, shape, device, queued, single, twin):
-    import numpy as np
-    import torch
-
-    from parakeet_slam_tpu_torch.eval.kernel_inputs import camera_par, prefilled_frame_3d
     from parakeet_slam_tpu_torch.kernels import ekf_update_3d as E
 
-    P, L, Z = shape
-    fr = prefilled_frame_3d(P, L, Z, model, seed=P + L + Z)
-    T = {k: torch.as_tensor(v.view(np.int32) if v.dtype == np.uint32 else v, device=device)
-         for k, v in fr.items()}
+    T = _frame_3d(model, shape, device)
     args = tuple(T[k] for k in ("pose", "lm_mean", "lm_cov", "lm_desc", "lm_valid", "z", "desc"))
-    kw = dict(model=model, desc_words=8, par=camera_par(model),
-              r_var=tuple(v * v for v in NOISE_3D[model]), desc_weight=0.5)
+    kw = {k: v for k, v in KI.update_3d_kwargs(model).items() if k in KI.SCORE_3D_KEYS}
     kernel = lambda i=0: E.score_3d(*args, **kw)  # noqa: E731
     plain = lambda i=0: E.score_3d_reference(*args, **kw)  # noqa: E731
     out = {"kernel": "score_3d", "model": model, "shape": list(shape)}
@@ -110,6 +120,64 @@ def time_score_3d(model, shape, device, queued, single, twin):
     out["ms"] = turns[0] if not twin else (turns[0] + turns[2]) / 2
     out["turns"] = turns
     return out
+
+
+def _frame_3d(model, shape, device):
+    import numpy as np
+    import torch
+
+    P, L, Z = shape
+    fr = KI.prefilled_frame_3d(P, L, Z, model, seed=P + L + Z)
+    return {k: torch.as_tensor(v.view(np.int32) if v.dtype == np.uint32 else v, device=device)
+            for k, v in fr.items()}
+
+
+def time_update_3d(what, model, shape, ext, cull, device, queued):
+    from parakeet_slam_tpu_torch.kernels import ekf_update_3d as E
+
+    T = _frame_3d(model, shape, device)
+    state = [T[k] for k in ("pose", "log_w", "lm_mean", "lm_cov", "lm_desc", "lm_valid",
+                            "lm_count")]
+    obs = [T["z"], T["desc"], T["valid"]]
+    kw = KI.update_3d_kwargs(model, cull=cull)
+    scores = ()
+    if ext:
+        scores = E.score_3d(*(T[k] for k in ("pose", "lm_mean", "lm_cov", "lm_desc",
+                                              "lm_valid", "z", "desc")),
+                            **{k: kw[k] for k in KI.SCORE_3D_KEYS})
+    work = [t.clone() for t in state]
+
+    def restore(i=0):
+        for w, s in zip(work, state):
+            w.copy_(s)
+
+    kernel = lambda i=0: E.measurement_update_3d(*work, *obs, *scores, **kw)  # noqa: E731
+    return {"kernel": "measurement_update_3d", "what": what, "model": model,
+            "shape": list(shape), "mode": "ext" if ext else "self", "cull": cull,
+            "ms": queued(kernel, reps=10, prepare=restore)}
+
+
+def time_hamming(device, queued):
+    """Rows of (case, device ms) for the bench shape and both closure shapes."""
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import match
+
+    T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    N, M = KI.HAMMING_BENCH
+    qd, db, v5 = (T(a) for a in KI.hamming_bench())
+    cases = [("bench all valid", (N, M), qd, db, torch.ones(M, dtype=torch.bool, device=device)),
+             ("bench 1 in 5 invalid", (N, M), qd, db, v5)]
+    for what, F, cap, written, eligible in KI.CLOSURE_SHAPES:
+        q, qv, store, ok = (T(a) for a in KI.closure_match(F, cap, written, eligible, seed=cap))
+        shape = (F, cap, written, eligible)
+        cases += [(f"{what} closure forward", shape, q, store, ok),
+                  (f"{what} closure reverse", shape, store, q, qv)]
+    rows = []
+    for what, shape, a, b, v in cases:
+        ms = queued(lambda i=0: match.hamming_top2(a, b, v), reps=20)
+        rows.append({"kernel": "hamming_top2", "what": what, "shape": list(shape), "ms": ms})
+    return rows
 
 
 def time_paths(device, single):
@@ -162,7 +230,7 @@ def main(argv=None):
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--twin", action="store_true")
     ap.add_argument("--parts", default="kernels",
-                    help="comma-separated: kernels, paths, posegraph")
+                    help="comma-separated: kernels, update_3d, hamming, paths, posegraph")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -178,7 +246,7 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"root {root}; card: {card}")
-    prof = _profiling()
+    prof = _local("profiling")
     queued = prof.queued
 
     def single(fn, reps, out=False):
@@ -193,6 +261,16 @@ def main(argv=None):
         for model, shape in SCORE_SHAPES:
             print(json.dumps(time_score_3d(model, shape, device, queued, single, args.twin)),
                   flush=True)
+    if "update_3d" in parts:
+        # chip_smoke.py's timed cases, and KITTI fed scores without the cull
+        # (the cull's share)
+        for what, model, shape, ext, cull in (*((*c, True) for c in KI.UPDATE_3D_CASES),
+                                              ("kitti", "stereo_3d", KI.KITTI_3D, True, False)):
+            print(json.dumps(time_update_3d(what, model, shape, ext, cull, device, queued)),
+                  flush=True)
+    if "hamming" in parts:
+        for row in time_hamming(device, queued):
+            print(json.dumps(row), flush=True)
     if "paths" in parts:
         for row in time_paths(device, single):
             print(json.dumps(row), flush=True)

@@ -224,6 +224,83 @@ def bench_frame_3d(P, L, Z, model, seed=0, W=8):
     )
 
 
+# The 3-D update's timed shapes (P particles, L lanes, Z observations) and
+# the options of every frame update: the same for `chip_smoke.py`, which
+# holds the kernels against their twins, and `eval/ab_kernels.py`, which
+# times trees against each other.
+BENCH_3D = (1024, 8192, 32)       # the reference's kernel bench
+KITTI_3D = (2048, 10240, 128)     # configs/kitti_00.yaml: FastSLAM 2.0, stereo_3d
+PANORAMIC_3D = (1024, 8192, 128)  # configs/panoramic.yaml: FastSLAM 1.0, equirect_3d
+CONFIG2_3D = (512, 1024, 64)      # configs/tum_fr1_desk.yaml: FastSLAM 2.0, pinhole_3d
+# (what, model, shape, fed score_3d's scores): scoring the frame itself as
+# FastSLAM 1.0 does, and fed scores as FastSLAM 2.0 does (configs 2, 3, 4)
+UPDATE_3D_CASES = (
+    ("kitti", "stereo_3d", KITTI_3D, False),
+    ("bench", "equirect_3d", BENCH_3D, False),
+    ("panoramic", "equirect_3d", PANORAMIC_3D, False),
+    ("kitti", "stereo_3d", KITTI_3D, True),
+    ("config2", "pinhole_3d", CONFIG2_3D, True),
+)
+NOISE_3D = {"pinhole_3d": (2.0, 2.0), "stereo_3d": (1.5, 1.5, 1.0), "equirect_3d": (3.0, 3.0)}
+SCORE_3D_KEYS = ("model", "desc_words", "par", "r_var", "desc_weight")
+
+
+def update_3d_kwargs(model, **flags):
+    """Keyword arguments of `measurement_update_3d` for `model` (8
+    descriptor words), `flags` overriding the defaults; `score_3d` takes
+    the `SCORE_3D_KEYS` of them."""
+    kw = dict(model=model, desc_words=8, par=camera_par(model),
+              r_var=tuple(v * v for v in NOISE_3D[model]), desc_weight=0.5, log_p0=-30.0,
+              init_infl=1.0, init_range_prior=8.0, init_range_sigma=3.0, max_range=35.0,
+              cull=True)
+    kw.update(flags)
+    return kw
+
+
+# The matcher's timed shapes: the reference's bench (N queries x M rows, 8
+# words) and the loop-closure match of one keyframe against the stacked
+# store (`system._dispatch_loop_closure`): (what, F descriptors a keyframe,
+# store capacity, keyframes written, eligible).
+HAMMING_BENCH = (1024, 131072)
+CLOSURE_SHAPES = (("config2", 256, 64, 40, 33), ("panoramic", 512, 2048, 1100, 1025))
+
+
+def descriptors(rng, shape, pool=0):
+    """Random packed descriptors (int32 words); with `pool`, rows drawn from
+    that many distinct rows, so exact duplicates and ties occur."""
+    if pool:
+        base = rng.integers(-2**31, 2**31, (pool, shape[-1]), dtype=np.int64)
+        return base[rng.integers(0, pool, shape[:-1])].astype(np.int32)
+    return rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+
+
+def hamming_bench(seed=9):
+    """(queries [N, 8], database [M, 8], validity [M] with 1 in 5 rows
+    invalid) at `HAMMING_BENCH`."""
+    rng = np.random.default_rng(seed)
+    N, M = HAMMING_BENCH
+    qd, db = descriptors(rng, (N, 8)), descriptors(rng, (M, 8))
+    return qd, db, rng.random(M) >= 0.2
+
+
+def closure_match(F, cap, written, eligible, seed, pool=200):
+    """One keyframe and the store it is matched against, as the system
+    builds them: (q [F, 8], q_valid [F], store [cap, F, 8], store_valid
+    [cap, F]). The first `written` keyframes hold descriptors drawn from a
+    pool of `pool` rows (ties occur), 1 in 10 invalid; the rest are zero;
+    `store_valid` is masked to the first `eligible`, as the forward match
+    takes it. The reverse match takes the store as the queries and
+    `q_valid`."""
+    rng = np.random.default_rng(seed)
+    q, qv = descriptors(rng, (F, 8), pool), rng.random(F) >= 0.1
+    store = np.zeros((cap, F, 8), np.int32)
+    store[:written] = descriptors(rng, (written, F, 8), pool)
+    sv = np.zeros((cap, F), bool)
+    sv[:written] = rng.random((written, F)) >= 0.1
+    sv &= (np.arange(cap) < eligible)[:, None]
+    return q, qv, store, sv
+
+
 def drive_observations(world, t, Z, W, seed, pixel_noise=(0.75, 0.75, 0.5), max_depth=60.0):
     """One frame of stereo observations [Z, 3] of a drive world at its
     ground-truth pose t: the Z nearest landmarks in view, projected through

@@ -18,7 +18,9 @@ Semantics, as the reference's XLA twins define them: invalid database rows
 count as 2^30 (Hamming) or 1e30 (L2); the best index is the smallest among
 equal distances and the second-best equals the best on a tie; with one
 valid row the second is the sentinel; with none the result is
-(0, sentinel, sentinel). L2 is ||a||^2 + ||b||^2 - 2 a.b with float32
+(0, sentinel, sentinel). On the card a Hamming distance is (256 - dot) / 2
+of the descriptors' bits as +-1 int8, on the int8 tensor cores (exact in
+int32). L2 is ||a||^2 + ||b||^2 - 2 a.b with float32
 accumulation, best and second clamped at >= 0 after the top-2, as the
 reference's kernel does. On the card the cross product a.b runs on the
 tensor cores as 3xTF32: every float is split into big = tf32(x) and
@@ -39,11 +41,14 @@ BIG_F = 1e30
 # The twins bound the [.., N, chunk, W] XOR block to this many bytes.
 _TWIN_BYTES = 1 << 28
 # Split the database into chunks until about this many blocks are in flight:
-# 4 per SM of an H100 for Hamming; one per SM for L2, whose block holds
-# all of an SM's shared memory, and never more than the 132 SMs, so that no
-# block waits for a second wave.
-_HAM_BLOCKS, _L2_BLOCKS = 528, 132
-_HAM_QUERIES, _HAM_TILE = 128, 256
+# one per SM of an H100 for both kernels, whose blocks hold most of an SM's
+# shared memory, and never more than the 132 SMs, so that no block waits for
+# a second wave.
+_HAM_BLOCKS, _L2_BLOCKS = 132, 132
+_HAM_QUERIES, _HAM_TILE = 128, 128
+# The Hamming kernel keeps a row's index within its chunk in 22 bits of the
+# fold key.
+_HAM_MAX_CHUNK = 1 << 22
 _L2_QUERIES, _L2_TILE = 128, 128
 
 
@@ -150,15 +155,17 @@ def l2_top2_reference(qd, db, db_valid):
 # ---------------------------------------------------------------------------
 
 
-def _split(M: int, blocks: int, tile: int, target: int, over: bool) -> tuple[int, int]:
+def _split(M: int, blocks: int, tile: int, target: int,
+           max_chunk: int | None = None) -> tuple[int, int]:
     """(S, chunk): S contiguous database chunks of `chunk` rows (a multiple
-    of the tile), S * chunk >= M > (S - 1) * chunk, so that `blocks` blocks
-    per chunk make about `target` blocks: the first count at or above it
-    (`over`), or the last at or below it."""
+    of the tile, at most `max_chunk`), S * chunk >= M > (S - 1) * chunk, so
+    that `blocks` blocks per chunk make the last count of blocks at or below
+    `target`, or one chunk when `blocks` alone exceed it."""
     n_tiles = -(-M // tile)
-    want = -(-target // blocks) if over else target // blocks
-    s = max(1, min(n_tiles, want))
+    s = max(1, min(n_tiles, target // blocks))
     chunk = -(-n_tiles // s) * tile
+    if max_chunk is not None:
+        chunk = min(chunk, max_chunk)
     return -(-M // chunk), chunk
 
 
@@ -192,10 +199,11 @@ def hamming_top2(qd, db, db_valid):
     qd, db = _aligned(qd), _aligned(db)
     valid = db_valid.to(torch.bool).contiguous()
     nb = max(B, 1)
-    S, chunk = _split(M, -(-N // _HAM_QUERIES) * nb, _HAM_TILE, _HAM_BLOCKS, over=True)
+    S, chunk = _split(M, -(-N // _HAM_QUERIES) * nb, _HAM_TILE, _HAM_BLOCKS, _HAM_MAX_CHUNK)
     i32 = dict(dtype=torch.int32, device=dev)
     out = [torch.empty(nb, N, **i32) for _ in range(3)]
-    part = [torch.empty(nb, S, N, **i32) for _ in range(3)]
+    # the chunks' partial results; one chunk writes the results directly
+    part = [torch.empty(nb, S, N, **i32) for _ in range(3)] if S > 1 else out
     err = _build.library().hamming_top2_launch(
         qd.data_ptr(), db.data_ptr(), valid.data_ptr(), *(t.data_ptr() for t in out),
         *(t.data_ptr() for t in part), nb, N, M,
@@ -223,7 +231,7 @@ def l2_top2(qd, db, db_valid):
                          f"db_valid {tuple(db_valid.shape)}")
     qd, db = qd.float().contiguous(), db.float().contiguous()
     valid = db_valid.to(torch.bool).contiguous()
-    S, chunk = _split(M, -(-N // _L2_QUERIES), _L2_TILE, _L2_BLOCKS, over=False)
+    S, chunk = _split(M, -(-N // _L2_QUERIES), _L2_TILE, _L2_BLOCKS)
     # rows: the results, then S partial results of each, then scratch for
     # the queries' squared norms; dn is scratch for the database's
     ints = torch.empty(1 + S, N, dtype=torch.int32, device=dev)

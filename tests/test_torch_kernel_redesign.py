@@ -232,19 +232,24 @@ def test_plan_gather_rejects_a_chunk_off_16_bytes():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("M", [1, 37, 999, 131072, 131073])
+@pytest.mark.parametrize("M", [1, 37, 999, 131072, 131073, (1 << 22) + 5])
 def test_split_covers_the_database(M):
-    for n in (1, 100, 1024, 5000):
+    for n in (1, 100, 1024, 5000, 20000):
         blocks = -(-n // tm._L2_QUERIES)
-        S, chunk = tm._split(M, blocks, tm._L2_TILE, tm._L2_BLOCKS, over=False)
+        S, chunk = tm._split(M, blocks, tm._L2_TILE, tm._L2_BLOCKS)
         assert S * chunk >= M > (S - 1) * chunk
         assert chunk % tm._L2_TILE == 0 and S >= 1
         # one block per SM: no second wave unless the queries alone need one
         assert S * blocks <= max(tm._L2_BLOCKS, blocks)
         blocks = -(-n // tm._HAM_QUERIES)
-        S, chunk = tm._split(M, blocks, tm._HAM_TILE, tm._HAM_BLOCKS, over=True)
+        S, chunk = tm._split(M, blocks, tm._HAM_TILE, tm._HAM_BLOCKS, tm._HAM_MAX_CHUNK)
         assert S * chunk >= M > (S - 1) * chunk
         assert chunk % tm._HAM_TILE == 0 and S >= 1
+        # the Hamming kernel's fold key holds a row's index in its chunk
+        assert chunk <= tm._HAM_MAX_CHUNK
+        if M <= tm._HAM_MAX_CHUNK:
+            assert S * blocks <= max(tm._HAM_BLOCKS, blocks)
     # the bench shape: 8 query tiles x 16 chunks on 132 SMs
     if M == 131072:
-        assert tm._split(M, 8, tm._L2_TILE, tm._L2_BLOCKS, over=False) == (16, 8192)
+        assert tm._split(M, 8, tm._L2_TILE, tm._L2_BLOCKS) == (16, 8192)
+        assert tm._split(M, 8, tm._HAM_TILE, tm._HAM_BLOCKS, tm._HAM_MAX_CHUNK) == (16, 8192)

@@ -2,7 +2,10 @@
 `hamming_top2_reference` / `l2_top2_reference` against the XLA twins and
 the Pallas kernels (interpret mode), the sentinels and tie rules, the
 Lowe-ratio front doors, and the batched keyframe-store match of the
-system.
+system. Then the tensor-core Hamming kernel emulated on the CPU: the +-1
+int8 identity (256 - dot) / 2 == popcount(a ^ b), the fold keys in the
+accumulator fragment with its interleaved column sets and shuffle merge,
+and the skip of tiles whose rows are all invalid, each equal to the twin.
 
 Tolerances: Hamming results (index, best, second) are integers and must be
 equal, ties included. L2 best and second within rtol=1e-5 + atol=1e-4 of
@@ -180,3 +183,121 @@ def test_wrappers_refuse_mismatched_shapes():
         tm.hamming_top2_reference(torch.zeros(2, 3, 8, dtype=torch.int32),
                                   torch.zeros(4, 5, 8, dtype=torch.int32),
                                   torch.ones(5, dtype=bool))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core Hamming kernel (csrc/match.cu::hamming_partial_kernel),
+# emulated on the CPU: the kernel runs only on the card
+# ---------------------------------------------------------------------------
+
+KEY_SHIFT, KEY_INVALID, UMAX = 22, 1 << 31, 0xFFFFFFFF
+
+
+def expand_pm1(words):
+    """Packed words [.., W] -> [.., 32 W] +-1 int8 as the kernel's expand8
+    lays them out: element 32 w + 4 j + i is bit 8 i + j of word w, bit 1 ->
+    -1 and bit 0 -> +1 (0xFF and 0x01)."""
+    x = np.asarray(words).astype(np.int64) & UMAX
+    j = np.arange(8)[:, None]
+    i = np.arange(4)[None, :]
+    bits = (x[..., None, None] >> (8 * i + j)) & 1          # [.., W, 8 (j), 4 (i)]
+    return (1 - 2 * bits).reshape(*x.shape[:-1], -1).astype(np.int8)
+
+
+def emulate_hamming_kernel(qd, db, valid, nb=1):
+    """The kernel on one batch entry: the int8 products, the fold keys in
+    uint32 arithmetic, the tile skip, the fragment's interleaved column sets
+    merged by shuffles, the chunks over the grid merged in order. Returns
+    ((idx, best, second), tiles skipped)."""
+    N, M = len(qd), len(db)
+    dot = expand_pm1(qd).astype(np.int64) @ expand_pm1(db).astype(np.int64).T
+    zero_dot = expand_pm1(qd).astype(np.int64).sum(1)       # a zero row past the chunk
+    S, chunk = tm._split(M, -(-N // tm._HAM_QUERIES) * nb, tm._HAM_TILE, tm._HAM_BLOCKS,
+                         tm._HAM_MAX_CHUNK)
+    acc, skipped = None, 0
+    for s in range(S):
+        m0, m1 = s * chunk, min(M, (s + 1) * chunk)
+        k1 = np.full((N, 4), UMAX, np.int64)
+        k2 = np.full((N, 4), UMAX, np.int64)
+        for t0 in range(m0, m1, 128):
+            ok = np.array([t0 + c < m1 and bool(valid[t0 + c]) for c in range(128)])
+            if not ok.any():
+                skipped += 1
+                continue
+            for lane in range(4):
+                for j in range(16):
+                    for e in range(2):
+                        c = 8 * j + 2 * lane + e
+                        a = dot[:, t0 + c] if t0 + c < m1 else zero_dot
+                        bias = (t0 - m0 + c) + (0 if ok[c] else KEY_INVALID) + (1 << 29)
+                        key = (bias - (a << 21)) & UMAX
+                        k2[:, lane] = np.minimum(k2[:, lane], np.maximum(k1[:, lane], key))
+                        k1[:, lane] = np.minimum(k1[:, lane], key)
+        for w in (1, 2):  # __shfl_xor_sync over the four lanes of a row
+            o1, o2 = k1[:, np.arange(4) ^ w], k2[:, np.arange(4) ^ w]
+            k2 = np.minimum(np.maximum(k1, o1), np.minimum(k2, o2))
+            k1 = np.minimum(k1, o1)
+        k1, k2 = k1[:, 0], k2[:, 0]
+        dist = lambda k: np.where(k >= KEY_INVALID, tm.BIG, k >> KEY_SHIFT)  # noqa: E731
+        idx = np.where(k1 >= KEY_INVALID, m0, m0 + (k1 & ((1 << KEY_SHIFT) - 1)))
+        part = tuple(torch.as_tensor(a.astype(np.int32)) for a in (idx, dist(k1), dist(k2)))
+        acc = tm._merge(acc, part)
+    return acc, skipped
+
+
+def _pool_desc(rng, n, pool, w=8):
+    base = rng.integers(0, 2**32, (pool, w), dtype=np.uint32)
+    return base[rng.integers(0, pool, n)]
+
+
+def test_pm1_dot_is_256_minus_twice_the_hamming_distance():
+    rng = np.random.default_rng(5)
+    adversarial = np.array([[0] * 8, [UMAX] * 8, [0x80000000] * 8, [0x7FFFFFFF] * 8,
+                            [0xAAAAAAAA, 0x55555555] * 4, [1, 0, 0, 0, 0, 0, 0, 0x80000000]],
+                           np.uint32)
+    words = np.concatenate([adversarial, _desc(rng, 60)])
+    words[-1] = words[-2]  # equal rows
+    dot = expand_pm1(words).astype(np.int64) @ expand_pm1(words).astype(np.int64).T
+    ham = tm.hamming_distance_reference(_t(words), _t(words)).numpy()
+    assert ((256 - dot) % 2 == 0).all()
+    np.testing.assert_array_equal((256 - dot) // 2, ham)
+    assert ham[0, 1] == 256 and ham[2, 3] == 256 and ham[-1, -2] == 0
+    assert expand_pm1(words).dtype == np.int8 and set(np.unique(expand_pm1(words))) == {-1, 1}
+
+
+@pytest.mark.parametrize("n,m,pool,invalid", [(200, 1000, 6, 0.3), (130, 4224, 40, 0.0),
+                                              (5, 300, 3, 0.9), (64, 129, 2, 0.5)])
+def test_fragment_fold_equals_the_twin_on_tie_heavy_pools(n, m, pool, invalid):
+    rng = np.random.default_rng(n + m + pool)
+    qd, db = _pool_desc(rng, n, pool), _pool_desc(rng, m, pool)
+    valid = rng.random(m) >= invalid
+    got, _ = emulate_hamming_kernel(qd, db, valid)
+    ref = tm.hamming_top2_reference(_t(qd), _t(db), torch.as_tensor(valid))
+    _equal(got, [r.numpy() for r in ref])
+    assert (ref[1] == ref[2]).sum() > n // 2  # ties: the index rule decides
+
+
+def test_all_invalid_tiles_are_skipped_exactly():
+    """Batched keyframe stores (both directions of the closure match) with
+    whole ineligible keyframes and an invalid run across a tile: the kernel
+    skips those tiles and still equals the twin."""
+    rng = np.random.default_rng(8)
+    K, F = 6, 300
+    store = np.stack([_pool_desc(rng, F, 30) for _ in range(K)])
+    sv = rng.random((K, F)) >= 0.1
+    sv[3:] = False                  # keyframes past the eligible count
+    sv[1, 100:260] = False          # one whole tile of keyframe 1 (rows 128-255)
+    q, qv = _pool_desc(rng, F, 30), rng.random(F) >= 0.1
+    fwd = tm.hamming_top2_reference(_t(q), _t(store), torch.as_tensor(sv))
+    skipped = 0
+    for k in range(K):
+        got, sk = emulate_hamming_kernel(q, store[k], sv[k], nb=K)
+        _equal(got, [r[k].numpy() for r in fwd])
+        skipped += sk
+    assert skipped == 3 * 3 + 1
+    assert (fwd[0][3:] == 0).all() and (fwd[1][3:] == tm.BIG).all()
+    rev = tm.hamming_top2_reference(_t(store), _t(q), torch.as_tensor(qv))
+    for k in range(K):
+        got, sk = emulate_hamming_kernel(store[k], q, qv, nb=K)
+        _equal(got, [r[k].numpy() for r in rev])
+        assert sk == 0

@@ -11,6 +11,11 @@ JAX package.
   scores above -1e30).
 - `score_3d` (csrc/ekf_update_3d.cu::score_3d_kernel) does the same below
   the high-watermark, in windows of 256.
+- `measurement_update_3d` scores the frame itself by the same device
+  function (`score_sweep`), whose hole ballot also lists the first min(Z,
+  64) free lanes below the high-watermark; the lanes at or above it follow.
+  Observation i then takes its slot by its exclusive rank among the new
+  observations (ballot and prefix; emulated in order).
 - The apply: one thread per distinct target lane walks that lane's
   observations in order; any order that keeps each lane's observations in
   observation order gives the serial apply's state bit for bit.
@@ -294,3 +299,125 @@ def test_score_3d_sweep_matches_jax(model):
     j_best, j_ll = (np.asarray(a) for a in jslam._score_frame(jst, jobs))
     np.testing.assert_array_equal(e_ix, j_best)
     np.testing.assert_allclose(e_ll, j_ll, rtol=1e-5, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# measurement_update_3d's own score pass: score_3d's sweep, with the free
+# slots listed by the same hole ballot
+# ---------------------------------------------------------------------------
+
+MAX_FREE = 64
+UPDATE_KW_3D = dict(log_p0=-30.0, init_infl=1.0, init_range_prior=8.0, init_range_sigma=3.0,
+                    max_range=35.0, cull=True)
+
+
+def emulate_free_slots(valid, Z, window=256):
+    """The update kernel's free slots [P] of lists: each window of 256 lanes
+    below the high-watermark lists its invalid lanes (ballot and prefix) in
+    ascending order while fewer than min(Z, 64) are listed; the lanes at or
+    above the high-watermark, all free, follow in order."""
+    P, L = valid.shape
+    n_fs = min(Z, MAX_FREE)
+    hwm = _hwm(valid)
+    out = []
+    for p in range(P):
+        free = []
+        for l0 in range(0, int(hwm[p]), window):
+            free += [l for l in range(l0, min(l0 + window, int(hwm[p]))) if not valid[p, l]]
+        free = free[:n_fs]
+        free += list(range(int(hwm[p]), min(L, int(hwm[p]) + n_fs - len(free))))
+        out.append(free)
+    return out
+
+
+def emulate_association(valid, best_ll, best_ix, zvalid, free, log_p0):
+    """The kernel's association: observation i's slot is its exclusive rank
+    among the new observations (the kernel takes it by ballot and prefix;
+    here in order). Returns (target [P, Z], n_match [P])."""
+    P, Z = best_ll.shape
+    target = np.full((P, Z), -1, np.int64)
+    n_match = np.zeros(P, np.float32)
+    for p in range(P):
+        any_valid = bool(valid[p].any())
+        arank = 0
+        for i in range(Z):
+            is_new = bool(best_ll[p, i] < np.float32(log_p0)) or not any_valid
+            do_new = is_new and bool(zvalid[i])
+            do_alloc = do_new and arank < len(free[p])
+            do_upd = not is_new and bool(zvalid[i])
+            target[p, i] = best_ix[p, i] if do_upd else (free[p][arank] if do_alloc else -1)
+            arank += do_new
+            n_match[p] += do_upd or do_alloc
+    return target, n_match
+
+
+def _update_reference_3d(fr, model, W):
+    T = {k: torch.as_tensor(a.view(np.int32) if a.dtype == np.uint32 else a) for k, a in fr.items()}
+    state = [T[k] for k in ("pose", "log_w", "lm_mean", "lm_cov")]
+    state += [T["lm_desc"][..., :W].contiguous(), T["lm_valid"], T["lm_count"]]
+    return E3.measurement_update_3d_reference(
+        *state, T["z"], T["desc"][:, :W].contiguous(), T["valid"], model=model, desc_words=W,
+        par=camera_par(model), r_var=tuple(v * v for v in NOISE_3D[model]), desc_weight=0.5,
+        **UPDATE_KW_3D)
+
+
+@pytest.mark.parametrize("model,case,L,Z,W", CASES_3D,
+                         ids=[f"{m}-{c}-L{L}-Z{Z}-W{W}" for m, c, L, Z, W in CASES_3D])
+def test_update_3d_own_sweep_equals_the_twin(model, case, L, Z, W):
+    """The update's own score pass in the shared sweep's order, its free
+    slots from the hole ballot and its association loop: targets and
+    n_match equal to the twin's, bit for bit."""
+    fr = _frame_3d(model, 3, L, Z, seed=L + Z + W + 1, case=case)
+    ll, _, _ = _scores_3d(fr, model, W)
+    e_ll, e_ix = emulate_sweep(ll, fr["lm_valid"], window=256, hwm=_hwm(fr["lm_valid"]))
+    free = emulate_free_slots(fr["lm_valid"], Z)
+    target, n_match = emulate_association(fr["lm_valid"], e_ll, e_ix, fr["valid"], free,
+                                          UPDATE_KW_3D["log_p0"])
+    ref = _update_reference_3d(fr, model, W)
+    np.testing.assert_array_equal(target, ref[7].numpy())
+    np.testing.assert_array_equal(n_match, ref[6].numpy())
+    if case != "full":
+        assert (target >= 0).any()
+
+
+def test_update_3d_free_slots_cover_the_twin_s_free_lanes():
+    """Holes far below the high-watermark, a high-watermark inside the first
+    window and a full map: the listed slots are the first min(Z, 64) free
+    lanes in ascending order, as the twin sorts them."""
+    rng = np.random.default_rng(3)
+    L = 1100
+    valid = rng.random((6, L)) < 0.97
+    valid[1, 700:] = False          # hwm 700, few holes below
+    valid[2, 40:] = False           # hwm in the first window
+    valid[3] = True                 # full: no slot
+    valid[4] = False                # empty: lanes 0..n_fs-1
+    valid[5, L - 1] = True          # hwm at L, holes only below
+    for Z in (8, 64, 128):
+        free = emulate_free_slots(valid, Z)
+        for p in range(valid.shape[0]):
+            np.testing.assert_array_equal(free[p], np.flatnonzero(~valid[p])[:min(Z, MAX_FREE)])
+
+
+def test_update_3d_own_sweep_association_matches_jax():
+    model, L, Z = "stereo_3d", 600, 32
+    fr = _frame_3d(model, 3, L, Z, seed=11, case="holes")
+    ll, _, _ = _scores_3d(fr, model, 8)
+    e_ll, e_ix = emulate_sweep(ll, fr["lm_valid"], window=256, hwm=_hwm(fr["lm_valid"]))
+    target, _ = emulate_association(fr["lm_valid"], e_ll, e_ix, fr["valid"],
+                                    emulate_free_slots(fr["lm_valid"], Z), UPDATE_KW_3D["log_p0"])
+    fx, fy, cx, cy, b, w, h = CAMERAS[model]
+    jcfg = JFilterConfig(num_particles=3, max_landmarks=L, max_observations=Z, lm_dim=3,
+                         obs_dim=3, pose_dim=7, sig_dim=0, desc_words=8, desc_weight=0.5,
+                         measurement_model=model, motion_model="se3_odometry",
+                         meas_noise=NOISE_3D[model], new_landmark_loglik=-30.0,
+                         use_pallas=False)
+    jslam = JFastSLAM(jcfg, JFrontendConfig(camera="stereo", baseline=b,
+                                            intrinsics=(fx, fy, cx, cy),
+                                            image_size=(int(h), int(w))))
+    jst = j_make_state(3, L, 3, 0, 8, 7).replace(
+        **{k: jnp.asarray(fr[k]) for k in ("pose", "log_w", "lm_mean", "lm_cov", "lm_desc",
+                                            "lm_valid", "lm_count")})
+    jobs = JObservation(z=jnp.asarray(fr["z"]), sig=jnp.zeros((Z, 0)),
+                        desc=jnp.asarray(fr["desc"]), valid=jnp.asarray(fr["valid"]))
+    np.testing.assert_array_equal(target, np.asarray(jslam._associate_frame(jst, jobs)[0]))
+    assert (target >= 0).sum() > Z
