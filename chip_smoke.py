@@ -45,13 +45,14 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      alone, in turns with its twin (around single calls), and around single
      calls; the update fed scores against the bound of what that mode reads
      and writes;
-  7. the vision path at full width, benchmark config 3 (configs/kitti_00.yaml:
-     FastSLAM 2.0, stereo_3d, P=2048, L=10240, Z=128) for 30 frames of the
-     synthetic drive world: one score_3d and one measurement_update_3d
+  7. the vision filter at full width, benchmark config 3 (configs/kitti_00.yaml:
+     FastSLAM 2.0, stereo_3d, P=2048, L=10240, Z=128) fed synthetic
+     observations for 10 frames of the drive world (phase 11b runs the same
+     configuration from images): one score_3d and one measurement_update_3d
      launch per frame, one gather per resample, a finite trajectory,
      frames/s, peak device memory, ATE against ground truth and dead
      reckoning (printed, not gated); the kernel path and the twin path
-     give equal masks and counts over the first 3 frames from the same
+     give equal masks and counts over the first 2 frames from the same
      draws;
   8. the ekf_update_3d, fs1_step and fs2_step rows of the kernel bench;
   9. the two matcher kernels (hamming_top2, l2_top2) against their twins:
@@ -85,14 +86,28 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      poses equal bit for bit;
   11. every keyframe-store match of phase 10, replayed through the twin:
      forward and reverse tables equal;
+  11b. the stereo system of benchmark config 3 at full width from images
+     (configs/kitti_00.yaml: FastSLAM 2.0, stereo_3d, P=2048, L=10240,
+     Z=128, 512 FAST + BRIEF features on 376x1241 pairs): 20 frames of the
+     drive world written in the KITTI layout and run through `cli run`'s
+     KITTI loop (loader, stereo frames with the SAD disparity, SE(3) ATE): a
+     finite trajectory, one score_3d and one measurement_update_3d launch
+     per frame, one gather per resample, hamming_top2 twice per closure
+     dispatch, at least one disparity-valid observation a frame on average,
+     landmarks > 0; one frame's keypoint_disparity on the card equal to the
+     CPU's in mask and disparity (within 1e-5), keypoints whose two smallest
+     SADs lie within a relative 1e-6 excused and counted; frames/s (from
+     frame 3), peak device memory, observations, keyframes, closures and
+     the ATEs printed; then 3 more frames under torch.profiler (launches,
+     device busy, idle share) and the frontend's own time;
   12. the landmark-block inverse-apply kernel (apply_cinv) against its twin:
-     the bench shape N=262144, a bucket-sized N=46080, N=1, N=1000, a
-     non-contiguous C with a broadcast u, and blocks with |det| < eps, a
-     negative det and a 1e12 damping diagonal; within rtol=1e-6 (bit-equal
-     is expected and reported); times of kernel, twin and
-     `torch.linalg.solve_ex` (the solve without its host-side error check)
-     with the launches queued behind a sleep kernel and the operands rotated
-     past the L2 cache;
+     the bench shape N=262144, a bucket-sized N=46080, N=262147, 46083, 1,
+     3, 1000 and 1001 (no whole block of threads), a non-contiguous C with
+     a broadcast u, and blocks with |det| < eps, a negative det and a 1e12
+     damping diagonal; within rtol=1e-6 (bit-equal is expected and
+     reported); times of kernel, twin and `torch.linalg.solve_ex` (the
+     solve without its host-side error check) with the launches queued
+     behind a sleep kernel and the operands rotated past the L2 cache;
   13. bundle adjustment at full width: the bench's problem (64 cameras,
      50,000 points, 128,000 observations) solved by `ba.optimize_ba` with
      the backend settings of configs/euroc_mh.yaml (20 LM iterations, 100
@@ -790,7 +805,7 @@ def _twin_path():
     return restore
 
 
-def phase_vision(device, frames=30, config="configs/kitti_00.yaml", check_frames=3):
+def phase_vision(device, frames=10, config="configs/kitti_00.yaml", check_frames=2):
     import torch
 
     from parakeet_slam_tpu_torch.core import geometry
@@ -1089,7 +1104,7 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
         resampled = []
         sys_ = system.SLAMSystem(cfg, device=device)
         sys_.metrics.log = lambda frame, **rec: resampled.append(rec["resampled"])
-        est, fps, wall = cli.run_tum_sequence(sys_, images, odom)
+        est, fps, wall = cli.run_image_sequence(sys_, images, odom)
         sys_.flush_flags()
         sys_.flush_metrics()
         return sys_, est, fps, wall, sum(resampled), sys_.graph.poses.cpu().numpy()
@@ -1115,7 +1130,7 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
           f"{'bit-equal' if same['estimates'] and same['graph poses'] else 'differ'}")
     check(all(same.values()), f"config 2 is not repeatable: {same}")
     del sys2
-    est_opt, ates = cli.tum_ate(sys_, est, world.gt_pose, odom, cfg)
+    est_opt, ates = cli.sequence_ate(sys_, est, world.gt_pose, odom, cfg)
     print(f"desk config 2 (FastSLAM 2.0 pinhole_3d P={fc.num_particles} L={fc.max_landmarks} "
           f"Z={fc.max_observations}, {fe.max_features} features {fe.image_size[1]}x"
           f"{fe.image_size[0]}): {frames} frames fps={fps:.3f} (steady, from frame 3) "
@@ -1164,6 +1179,149 @@ def phase_desk_replay(calls):
 
 
 # --------------------------------------------------------------------------
+# Slice 8: the stereo system of config 3, from images
+# --------------------------------------------------------------------------
+
+STEREO_FRAMES = 20
+STEREO_PROFILE_FRAMES = 3
+STEREO_CHECK_FRAME = 10
+DISP_TIE_GAP = 1e-6   # relative gap of the two smallest SADs that excuses a flip
+DISP_ATOL = 1e-5
+
+
+def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
+    """Benchmark config 3 at full width from images: the drive world written
+    in the KITTI layout and run through `cli run`'s KITTI loop (loader,
+    stereo frames, ATE)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch import cli, system
+    from parakeet_slam_tpu_torch.core.config import load_config
+    from parakeet_slam_tpu_torch.data.synth_vision import make_drive_world, write_kitti_format
+    from parakeet_slam_tpu_torch.frontend.stereo import keypoint_disparity, near_ties
+    from parakeet_slam_tpu_torch.kernels import match
+
+    cfg = load_config(os.path.join(HERE, config))
+    fc, fe = cfg.filter, cfg.frontend
+    check(fc.algorithm == "fastslam2" and fc.measurement_model == "stereo_3d",
+          f"{config}: {fc.algorithm} {fc.measurement_model}")
+    n_all = frames + STEREO_PROFILE_FRAMES
+    out = os.path.join(HERE, "build", "chip_smoke_kitti")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    world = make_drive_world(num_steps=n_all)
+    check(tuple(world.image_size) == tuple(fe.image_size), f"world {world.image_size} vs {fe}")
+    cfg = load_config(os.path.join(HERE, config), {"data.path": write_kitti_format(world, out)})
+    t_write = time.perf_counter() - t0
+    left, right, gt, odom = cli.load_image_dataset(cfg, n_all)
+    check(right is not None and len(odom) == n_all, "the KITTI loader gave no stereo pairs")
+
+    n_valid = []
+    captured = {}
+
+    def counting_disparity(img_l, img_r, xy, valid, *a, **kw):
+        disp, ok = keypoint_disparity(img_l, img_r, xy, valid, *a, **kw)
+        n_valid.append(ok.sum())
+        if len(n_valid) == STEREO_CHECK_FRAME + 1:
+            captured.update(args=(img_l, img_r, xy, valid), out=(disp, ok))
+        return disp, ok
+
+    dispatches = []
+    kf_match = system._batched_kf_match
+
+    def counting_match(*a):
+        dispatches.append(1)
+        return kf_match(*a)
+
+    resampled = []
+    sys_ = system.SLAMSystem(cfg, device=device)
+    sys_.metrics.log = lambda frame, **rec: resampled.append(rec["resampled"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts_3d()
+    match.hamming_top2.launches = 0
+    system.keypoint_disparity, system._batched_kf_match = counting_disparity, counting_match
+    try:
+        est, fps, wall = cli.run_image_sequence(sys_, left, odom[:frames], right=right)
+        sys_.flush_flags()
+        sys_.flush_metrics()
+        launches = _counts_3d() + (match.hamming_top2.launches,)
+    finally:
+        system.keypoint_disparity, system._batched_kf_match = keypoint_disparity, kf_match
+    peak = torch.cuda.max_memory_allocated()
+    n_res = sum(resampled)
+    obs_per_frame = float(torch.stack(n_valid).float().mean())
+    lm = float(sys_.state.lm_valid.sum(dim=1).float().mean())
+    est_opt, ates = cli.sequence_ate(sys_, est, gt, odom[:frames], cfg)
+    print(f"stereo config 3 from images (FastSLAM 2.0 stereo_3d P={fc.num_particles} "
+          f"L={fc.max_landmarks} Z={fc.max_observations}, {fe.max_features} features "
+          f"{fe.image_size[1]}x{fe.image_size[0]}): {frames} frames written in the KITTI layout "
+          f"in {t_write:.2f}s, fps={fps:.3f} (steady, from frame 3) wall={wall:.2f}s "
+          f"peak_mem={peak / 2**30:.3f} GiB")
+    print(f"stereo config 3: disparity-valid observations {obs_per_frame:.2f} per frame, "
+          f"landmarks/particle={lm:.1f} keyframes={len(sys_.keyframes)} "
+          f"dispatches={len(dispatches)} loop_closures={len(sys_.loop_closures)} "
+          f"resamples={n_res} launches score_3d={launches[0]} update_3d={launches[1]} "
+          f"gather={launches[2]} hamming_top2={launches[3]}")
+    print(f"stereo config 3: ate corrected={ates[0]:.4f} m online={ates[1]:.4f} m "
+          f"dead_reckoning={ates[2]:.4f} m (SE(3), not gated)")
+    check(bool(np.isfinite(est).all()) and bool(np.isfinite(est_opt).all()),
+          "stereo trajectory not finite")
+    check(launches[0] == frames and launches[1] == frames,
+          f"stereo launches score_3d={launches[0]} update_3d={launches[1]}, frames {frames}")
+    check(launches[2] == n_res, f"stereo gather launches {launches[2]}, resamples {n_res}")
+    check(launches[3] == system.MATCH_LAUNCHES_PER_DISPATCH * len(dispatches),
+          f"stereo hamming_top2 launches {launches[3]}, dispatches {len(dispatches)}")
+    check(obs_per_frame >= 1.0, f"stereo: {obs_per_frame} disparity-valid observations a frame")
+    check(lm > 0, "stereo: no landmarks")
+
+    # one frame's disparity on the card against the same on the CPU
+    img_l, img_r, xy, valid = captured["args"]
+    disp, ok = (t.cpu().numpy() for t in captured["out"])
+    c_disp, c_ok = (t.numpy() for t in keypoint_disparity(*(t.cpu() for t in captured["args"])))
+    same = (ok == c_ok) & (np.abs(disp - c_disp) <= DISP_ATOL)
+    ties = near_ties(img_l.cpu().numpy(), img_r.cpu().numpy(), xy.cpu().numpy(),
+                     gap=DISP_TIE_GAP)
+    print(f"stereo keypoint_disparity frame {STEREO_CHECK_FRAME}, card against CPU: "
+          f"{int(ok.sum())} of {len(ok)} valid, masks and disparities (within {DISP_ATOL}) equal "
+          f"but {int((~same).sum())}, near-ties (SAD gap <= {DISP_TIE_GAP}) {int(ties.sum())}, "
+          f"max |diff| {float(np.abs(disp - c_disp).max()):.3g}")
+    check(bool((same | ties).all()), f"stereo disparity: keypoints {np.where(~(same | ties))[0]} "
+          "differ between card and CPU and are no near-ties")
+
+    # where a frame's time goes: the next frames under the profiler, and
+    # the frontend (detect, describe, disparity) alone on the same frames
+    def more():
+        for i in range(frames, n_all):
+            sys_.process_stereo_frame(left(i), right(i), odom[i])
+
+    n_launch, busy, wall_p, top = _profile(more)
+    fe_ms = []
+    for i in range(frames, n_all):
+        img_l = torch.as_tensor(left(i), device=device)
+        img_r = torch.as_tensor(right(i), device=device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        xy, _, valid = sys_._frontend(img_l)
+        keypoint_disparity(img_l, img_r, xy[:fc.max_observations], valid[:fc.max_observations])
+        torch.cuda.synchronize()
+        fe_ms.append((time.perf_counter() - t1) * 1e3)
+    k = STEREO_PROFILE_FRAMES
+    print(f"stereo profile, {k} frames: {n_launch / k:.0f} device launches, device busy "
+          f"{busy / k:.2f} ms, wall {wall_p / k:.1f} ms per frame with the profiler on; idle "
+          f"share {1 - busy / wall_p:.3f}; frontend alone {np.mean(fe_ms):.2f} ms a frame "
+          f"(host clock), the rest {wall_p / k - np.mean(fe_ms):.1f} ms")
+    for name, ms, n in top:
+        print(f"stereo profile:   {ms / k:8.2f} ms {n / k:7.0f} launches per frame  {name[:90]}")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"fps": fps, "launches": launches, "ates": ates, "peak_gib": peak / 2**30,
+            "obs_per_frame": obs_per_frame}
+
+
+# --------------------------------------------------------------------------
 # Slice 4: bundle adjustment
 # --------------------------------------------------------------------------
 
@@ -1186,9 +1344,11 @@ def check_cinv(what, C, u):
 
     from parakeet_slam_tpu_torch.kernels import schur
 
+    n0 = schur.apply_cinv.launches
     got = schur.apply_cinv(C, u)
     ref = schur.apply_cinv_reference(C, u)
     torch.cuda.synchronize()
+    check(schur.apply_cinv.launches == n0 + 1, f"apply_cinv {what}: the kernel was not launched")
     check(got.shape == ref.shape and got.is_contiguous(), f"apply_cinv {what}: shape {got.shape}")
     check(bool(torch.isfinite(ref).all()), f"apply_cinv {what}: the twin is not finite")
     n_diff = int((got != ref).sum())
@@ -1210,7 +1370,8 @@ def phase_cinv(device):
 
     T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
     err = 0.0
-    for n in (CINV_BENCH, CINV_BUCKET, 1, 1000):
+    # the bench shape, a bucket, and Ns that fill no whole block of threads
+    for n in (CINV_BENCH, CINV_BENCH + 3, CINV_BUCKET, CINV_BUCKET + 3, 1, 3, 1000, 1001):
         C, u = schur_blocks(n, seed=n)
         err = max(err, check_cinv(f"N={n}", T(C), T(u)))
     # the blocks the solver makes: an invalid point (1e12 damping on a tiny
@@ -1247,6 +1408,8 @@ def phase_cinv(device):
     # bound with all of C as it lies in memory.
     bnd = bound(nbytes(C) * 2 // 3 + nbytes(u, u), CINV_OPS * CINV_BENCH)
     bnd_laid_out = bound(nbytes(C, u, u), CINV_OPS * CINV_BENCH)
+    # a bucket of the solver: one operand set, which stays in L2 as the
+    # solver's bucket does across its PCG iterations
     small = tuple(T(a) for a in schur_blocks(CINV_BUCKET, seed=5))
     ms_bucket = queued_ms(lambda i: schur.apply_cinv(*small))
     print(f"apply_cinv N={CINV_BENCH}: kernel={ms:.5f} ms ({nbytes(C, u, u) / ms / 1e9:.3f} TB/s "
@@ -1260,12 +1423,15 @@ def phase_cinv(device):
 
 def _profile(fn):
     """(launches, device busy ms, wall ms, the five device activities with
-    the most time as (name, ms, count)) of fn() under torch.profiler."""
+    the most time as (name, ms, count)) of fn() under torch.profiler,
+    recording the device's activity only (with the host's ops recorded as
+    well, the stereo phase took 117.9 s in one call; with the device's
+    alone, 51.8 s in the next)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1361,8 +1527,8 @@ def phase_ba(device):
         print(f"ba profile:   {ms / n_prof:8.2f} ms {n / n_prof:7.0f} launches per iteration  "
               f"{name[:90]}")
     bench_kernels.run(["schur", "ba_iteration"], device)
-    return {"launches": launches, "per_iter_ms": dt / be.gn_iters * 1e3, "costs": costs.tolist(),
-            "peak_gib": peak / 2**30}
+    return {"launches": launches, "per_iter_ms": dt / be.gn_iters * 1e3,
+            "costs": costs.tolist(), "peak_gib": peak / 2**30}
 
 
 def phase_run_ba(desk):
@@ -1455,20 +1621,30 @@ def main():
     check(len(sys.argv) == 1, f"chip_smoke.py takes no arguments, got {sys.argv[1:]}")
     card = phase_environment()
     device = torch.device("cuda", 0)
-    phase_build()
-    phase_wrap(device)
-    k, ekf_err = phase_kernels(device)
-    launches = phase_corridor(device)
-    phase_real_size(device)
-    k3, err3 = phase_kernels_3d(device)
-    vision = phase_vision(device)
-    phase_bench_rows(device)
-    km, l2_err, l2_launches = phase_match(device)
-    desk = phase_desk(device)
-    phase_desk_replay(desk["calls"])
-    cinv = phase_cinv(device)
-    ba_run = phase_ba(device)
-    sys_ba = phase_run_ba(desk)
+
+    def run(phase, *args):
+        """One phase, with its wall-clock seconds (the script must stay well
+        inside its time limit; the host's speed varies from call to call)."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    run(phase_build)
+    run(phase_wrap, device)
+    k, ekf_err = run(phase_kernels, device)
+    launches = run(phase_corridor, device)
+    run(phase_real_size, device)
+    k3, err3 = run(phase_kernels_3d, device)
+    vision = run(phase_vision, device)
+    run(phase_bench_rows, device)
+    km, l2_err, l2_launches = run(phase_match, device)
+    desk = run(phase_desk, device)
+    run(phase_desk_replay, desk["calls"])
+    stereo = run(phase_stereo, device)
+    cinv = run(phase_cinv, device)
+    ba_run = run(phase_ba, device)
+    sys_ba = run(phase_run_ba, desk)
 
     pkg = "parakeet_slam_tpu_torch"
 
@@ -1500,13 +1676,15 @@ def main():
               plain_ms_corridor=k[("gather", CORRIDOR_SHAPE)][2],
               ms_single_call=gat[4], plain_ms_single_call=gat[5],
               ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][4],
-              plain_ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][5]),
+              plain_ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][5],
+              launches_stereo=stereo["launches"][2]),
         entry("measurement_update_3d", "ekf_update_3d.cu",
-              "parakeet_slam_tpu/kernels/ekf_update_3d.py:664", vision["launches"][1], err3,
+              "parakeet_slam_tpu/kernels/ekf_update_3d.py:664", stereo["launches"][1], err3,
               x3["update"], x3["update_twin"], x3["update_bound"],
               mode="fed score_3d's scores", ms_single_call=x3["update_single"],
               ms_config2=x2["update"], plain_ms_config2=x2["update_twin"],
               bound_ms_config2=x2["update_bound"][0], launches_desk=desk["launches"][1],
+              launches_vision=vision["launches"][1],
               ms_self_scoring=t3["update"], plain_ms_self_scoring=t3["update_twin"],
               bound_ms_self_scoring=t3["update_bound"][0],
               ms_self_scoring_single_call=t3["update_single"],
@@ -1516,12 +1694,13 @@ def main():
               ms_self_scoring_bench_equirect=eq["update"],
               plain_ms_self_scoring_bench_equirect=eq["update_twin"]),
         entry("score_3d", "ekf_update_3d.cu", "parakeet_slam_tpu/kernels/ekf_update_3d.py:920",
-              vision["launches"][0], err3, t3["score"], t3["score_twin"], t3["score_bound"],
+              stereo["launches"][0], err3, t3["score"], t3["score_twin"], t3["score_bound"],
               ms_single_call=t3["score_single"], ms_bench_equirect=eq["score"],
-              plain_ms_bench_equirect=eq["score_twin"], launches_desk=desk["launches"][0]),
+              plain_ms_bench_equirect=eq["score_twin"], launches_desk=desk["launches"][0],
+              launches_vision=vision["launches"][0]),
         entry("hamming_top2", "match.cu", "parakeet_slam_tpu/kernels/match.py:269",
               desk["launches"][3], 0.0, km["ham"][0], km["ham"][1], km["ham"][2],
-              launches_run_ba=sys_ba["launches"][0],
+              launches_run_ba=sys_ba["launches"][0], launches_stereo=stereo["launches"][3],
               ms_closure_config2_forward=c2f[0], ms_closure_config2_reverse=c2r[0],
               plain_ms_closure_config2_forward=c2f[1], bound_ms_closure_config2_forward=c2f[2][0],
               ms_closure_panoramic_forward=pnf[0], ms_closure_panoramic_reverse=pnr[0],

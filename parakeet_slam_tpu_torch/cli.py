@@ -1,12 +1,15 @@
-"""Command-line interface of the port: run on the corridor, a TUM sequence
-or the panoramic world, write a synthetic TUM dataset, the corridor
-benchmark, and the per-kernel benchmarks.
+"""Command-line interface of the port: run on the corridor, a TUM or KITTI
+sequence or the panoramic world, write a synthetic TUM or KITTI dataset,
+the corridor benchmark, and the per-kernel benchmarks.
 
   python -m parakeet_slam_tpu_torch.cli run --config configs/corridor.yaml
   python -m parakeet_slam_tpu_torch.cli run --config configs/corridor.yaml --device cpu
   python -m parakeet_slam_tpu_torch.cli synth --kind tum --out data_synth/tum
   python -m parakeet_slam_tpu_torch.cli run --config configs/tum_fr1_desk.yaml \\
       --set data.path=data_synth/tum
+  python -m parakeet_slam_tpu_torch.cli synth --kind kitti --out data_synth/kitti --steps 20
+  python -m parakeet_slam_tpu_torch.cli run --config configs/kitti_00.yaml \\
+      --set data.path=data_synth/kitti/sequences/00
   python -m parakeet_slam_tpu_torch.cli run --config configs/panoramic.yaml
   python -m parakeet_slam_tpu_torch.cli bench
   python -m parakeet_slam_tpu_torch.cli bench --kernel fs2_step
@@ -130,8 +133,8 @@ def cmd_run(args):
     cfg = load_config(args.config, _parse_overrides(args.set))
     if cfg.data.dataset == "panoramic":
         return _run_panoramic(cfg, args, device)
-    if cfg.data.dataset == "tum":
-        return _run_tum(cfg, args, device)
+    if cfg.data.dataset in ("tum", "kitti"):
+        return _run_image_sequence(cfg, args, device)
     if cfg.data.dataset != "corridor":
         raise NotImplementedError(
             f"dataset {cfg.data.dataset!r} is not ported yet (ROADMAP Queue 1)"
@@ -181,19 +184,25 @@ def _run_panoramic(cfg, args, device):
         export_trajectory(args.out, est.numpy())
 
 
-def run_tum_sequence(sys_, frames, odom, warm: int = 3):
+def run_image_sequence(sys_, frames, odom, warm: int = 3, right=None):
     """Drive an online system over `frames` (a sequence of [H, W] images,
     or a callable i -> image) with odometry [n, 6], as `cli run` drives a
-    TUM sequence. Returns (online estimates [n, 7] on the host, steady-state
-    frames/s from frame `warm` on, wall seconds)."""
+    TUM or KITTI sequence; with `right` (the same for the right camera) as
+    stereo pairs through `process_stereo_frame`. Returns (online estimates
+    [n, 7] on the host, steady-state frames/s from frame `warm` on, wall
+    seconds)."""
     image = frames if callable(frames) else frames.__getitem__
+    image_r = right if right is None or callable(right) else right.__getitem__
     n = len(odom)
     warm = min(warm, max(0, n - 1))
     sync = torch.cuda.synchronize if sys_.device.type == "cuda" else (lambda: None)
     est = []
     t_loop = t_warm = time.perf_counter()
     for i in range(n):
-        est.append(sys_.process_frame(image(i), odom[i]))
+        if image_r is None:
+            est.append(sys_.process_frame(image(i), odom[i]))
+        else:
+            est.append(sys_.process_stereo_frame(image(i), image_r(i), odom[i]))
         if i + 1 == warm:
             sync()
             t_warm = time.perf_counter()
@@ -203,12 +212,12 @@ def run_tum_sequence(sys_, frames, odom, warm: int = 3):
     return est, (n - warm) / max(t_end - t_warm, 1e-9), t_end - t_loop
 
 
-def tum_ate(sys_, est, gt, odom, cfg):
+def sequence_ate(sys_, est, gt, odom, cfg):
     """(corrected trajectory [n, 7], ATEs): the online estimates re-anchored
     to the optimized keyframe graph (this drains the system's last window),
     and the (corrected, online, dead-reckoning) ATE RMSE in m over the
-    frames with ground truth, Sim(3)-aligned for a monocular pinhole run;
-    ATEs is None with fewer than 3 such frames."""
+    frames with ground truth, Sim(3)-aligned for a monocular pinhole run
+    and SE(3) otherwise; ATEs is None with fewer than 3 such frames."""
     from parakeet_slam_tpu_torch.eval import ate_rmse
 
     n = len(est)
@@ -223,18 +232,49 @@ def tum_ate(sys_, est, gt, odom, cfg):
     return est_opt, ates
 
 
-def _run_tum(cfg, args, device):
-    """A TUM RGB-D sequence (benchmark config 2) through the online system."""
-    from parakeet_slam_tpu_torch.data.tum import load_tum
+def _kitti_gt_to_quat(gt34):
+    """KITTI [T, 3, 4] world-from-cam0 matrices -> [T, 7] (t, qxyzw)."""
+    from parakeet_slam_tpu_torch.core import geometry
+
+    out = np.zeros((len(gt34), 7), np.float32)
+    out[:, :3] = gt34[:, :, 3]
+    out[:, 3:] = geometry.matrix_to_quat(torch.as_tensor(gt34[:, :, :3])).numpy()
+    return out
+
+
+def load_image_dataset(cfg, frames: int = 0):
+    """The first `frames` frames (all for 0) of the config's TUM or KITTI
+    sequence, as `cli run` reads them: (left images, right images or None,
+    ground truth [T, 7] (t, qxyzw) or None, odometry [n, 6]). Images are
+    callables i -> [H, W] float32; a KITTI sequence is read as stereo pairs
+    when obs_dim is 3."""
+    right = None
+    if cfg.data.dataset == "tum":
+        from parakeet_slam_tpu_torch.data.tum import load_tum
+
+        seq = load_tum(cfg.data.path)
+        gt = seq.gt_pose  # [T, 7] (t, qxyzw), NaN rows possible
+    else:
+        from parakeet_slam_tpu_torch.data.kitti import load_kitti
+
+        seq = load_kitti(cfg.data.path)
+        gt = _kitti_gt_to_quat(seq.gt_pose) if seq.gt_pose is not None else None
+        if cfg.filter.obs_dim == 3:
+            right = lambda i: seq.image(i, right=True)  # noqa: E731
+    n = len(seq) if frames <= 0 else min(frames, len(seq))
+    return seq.image, right, gt, _make_odometry(cfg.data, gt, n)
+
+
+def _run_image_sequence(cfg, args, device):
+    """A TUM RGB-D sequence (benchmark config 2) or a KITTI stereo sequence
+    (benchmark config 3) through the online system."""
     from parakeet_slam_tpu_torch.system import SLAMSystem
     from parakeet_slam_tpu_torch.utils.metrics_log import export_trajectory
 
-    seq = load_tum(cfg.data.path)
-    gt = seq.gt_pose  # [T, 7] (t, qxyzw), NaN rows possible
-    n = len(seq) if args.frames <= 0 else min(args.frames, len(seq))
-    odom = _make_odometry(cfg.data, gt, n)
+    left, right, gt, odom = load_image_dataset(cfg, args.frames)
+    n = len(odom)
     sys_ = SLAMSystem(cfg, device=device)
-    est, fps, wall = run_tum_sequence(sys_, seq.image, odom)
+    est, fps, wall = run_image_sequence(sys_, left, odom, right=right)
     sys_.flush_flags()
     sys_.flush_metrics()
     line = (f"frames={n} keyframes={len(sys_.keyframes)} "
@@ -242,10 +282,13 @@ def _run_tum(cfg, args, device):
             f"fps={fps:.2f} (steady-state; incl-build {n / wall:.2f}) wall={wall:.1f}s")
     # Evaluation trajectory: the online estimates re-anchored to the
     # optimized keyframe graph (loop closures fix past drift only there).
-    est_opt, ates = tum_ate(sys_, est, gt, odom, cfg)
-    if ates is not None:
-        line += (f" ate_rmse={ates[0]:.4f} m (sim3={cfg.frontend.camera == 'pinhole'};"
-                 f" online {ates[1]:.4f}; dead-reckoning {ates[2]:.4f})")
+    if gt is None:
+        est_opt = sys_.corrected_trajectory(est)
+    else:
+        est_opt, ates = sequence_ate(sys_, est, gt, odom, cfg)
+        if ates is not None:
+            line += (f" ate_rmse={ates[0]:.4f} m (sim3={cfg.frontend.camera == 'pinhole'};"
+                     f" online {ates[1]:.4f}; dead-reckoning {ates[2]:.4f})")
     print(line)
     if args.out:
         export_trajectory(args.out, est_opt)
@@ -289,20 +332,25 @@ def _make_odometry(data_cfg, gt, n):
 
 
 def cmd_synth(args):
-    """Write a synthetic dataset in the TUM on-disk format (no dataset
-    download is needed; see data/synth_vision.py)."""
+    """Write a synthetic dataset in the TUM or KITTI on-disk format (no
+    dataset download is needed; see data/synth_vision.py)."""
     from parakeet_slam_tpu_torch.data import synth_vision as sv
 
     if args.sessions is not None:
         raise NotImplementedError(
             "synth --sessions (EuRoC multi-session worlds) is not ported yet "
             "(ROADMAP Queue 1 item 2)")
-    if args.kind != "tum":
-        raise NotImplementedError(f"synth --kind {args.kind} is not ported yet (ROADMAP Queue 1)")
     t0 = time.time()
-    world = sv.make_desk_world(num_landmarks=args.landmarks or 1000,
-                               num_steps=args.steps or 600, seed=args.seed)
-    sv.write_tum_format(world, args.out)
+    if args.kind == "tum":
+        world = sv.make_desk_world(num_landmarks=args.landmarks or 1000,
+                                   num_steps=args.steps or 600, seed=args.seed)
+        sv.write_tum_format(world, args.out)
+    elif args.kind == "kitti":
+        world = sv.make_drive_world(num_landmarks=args.landmarks or 10000,
+                                    num_steps=args.steps or 700, seed=args.seed)
+        sv.write_kitti_format(world, args.out)
+    else:
+        raise NotImplementedError(f"synth --kind {args.kind} is not ported yet (ROADMAP Queue 1)")
     print(f"wrote {args.kind} dataset: {len(world)} frames, {len(world.landmarks)} landmarks "
           f"-> {args.out} ({time.time() - t0:.1f}s)")
 
@@ -354,13 +402,14 @@ def main(argv=None):
     )
     p_run.add_argument("--out", default="",
                        help="trajectory output (corridor: x y theta rows; vision: TUM format)")
-    p_run.add_argument("--frames", type=int, default=0, help="first N frames of a TUM sequence")
+    p_run.add_argument("--frames", type=int, default=0,
+                       help="first N frames of a TUM or KITTI sequence")
     p_run.add_argument("--ba", type=int, default=0,
                        help="joint-BA LM iterations after a EuRoC multi-session run (not ported)")
     p_run.add_argument("--device", default="cuda")
     p_run.set_defaults(fn=cmd_run)
 
-    p_synth = sub.add_parser("synth", help="write a synthetic TUM-format dataset")
+    p_synth = sub.add_parser("synth", help="write a synthetic TUM- or KITTI-format dataset")
     p_synth.add_argument("--kind", required=True, choices=("tum", "kitti", "euroc"))
     p_synth.add_argument("--out", required=True)
     p_synth.add_argument("--steps", type=int, default=0)

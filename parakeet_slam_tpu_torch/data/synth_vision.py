@@ -1,7 +1,7 @@
 """Synthetic vision worlds (port of `parakeet_slam_tpu.data.synth_vision`):
 a TUM fr1/desk-class monocular world (benchmark config 2) and a KITTI
 00-class stereo world (benchmark config 3), rendered as Gaussian-blob images
-through a real camera, and the TUM on-disk writer.
+through a real camera, and the TUM and KITTI on-disk writers.
 
 The numpy random streams are the reference's, so the landmarks, poses,
 odometry and textures equal the JAX package's (the geometry runs in
@@ -272,3 +272,36 @@ def write_tum_format(world: VisionWorld, out_dir: str, fps: float = 30.0):
         gt_lines.append(f"{ts:.6f} " + " ".join(f"{x:.6f}" for x in world.gt_pose[i]))
     (out / "rgb.txt").write_text("\n".join(rgb_lines) + "\n")
     (out / "groundtruth.txt").write_text("\n".join(gt_lines) + "\n")
+
+
+def write_kitti_format(world: VisionWorld, out_dir: str, sequence: str = "00"):
+    """Write sequences/NN/{image_0,image_1,calib.txt,times.txt} and
+    poses/NN.txt (the KITTI odometry layout that `data/kitti.py` reads).
+    Returns the sequence directory."""
+    import cv2
+
+    out = Path(out_dir)
+    seq = out / "sequences" / sequence
+    (seq / "image_0").mkdir(parents=True, exist_ok=True)
+    (seq / "image_1").mkdir(parents=True, exist_ok=True)
+    (out / "poses").mkdir(parents=True, exist_ok=True)
+    fx, fy, cx, cy = world.intrinsics
+    P0 = np.array([[fx, 0, cx, 0], [0, fy, cy, 0], [0, 0, 1, 0]])
+    P1 = P0.copy()
+    P1[0, 3] = -fx * world.baseline
+    with open(seq / "calib.txt", "w") as f:
+        for name, P in (("P0", P0), ("P1", P1), ("P2", P0), ("P3", P1)):
+            f.write(name + ": " + " ".join(f"{x:.12e}" for x in P.ravel()) + "\n")
+    times, pose_rows = [], []
+    for i in range(len(world)):
+        left, right = world.render_stereo(i)
+        cv2.imwrite(str(seq / "image_0" / f"{i:06d}.png"), (left * 255).astype(np.uint8))
+        cv2.imwrite(str(seq / "image_1" / f"{i:06d}.png"), (right * 255).astype(np.uint8))
+        times.append(f"{i * 0.1:.6e}")
+        p = world.gt_pose[i]
+        R = geometry.quat_to_matrix(torch.as_tensor(p[3:])).numpy()
+        M = np.concatenate([R, p[:3, None]], axis=1)  # world-from-cam0 3x4
+        pose_rows.append(" ".join(f"{x:.9e}" for x in M.ravel()))
+    (seq / "times.txt").write_text("\n".join(times) + "\n")
+    (out / "poses" / f"{sequence}.txt").write_text("\n".join(pose_rows) + "\n")
+    return str(seq)

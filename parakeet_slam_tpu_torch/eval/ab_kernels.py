@@ -2,7 +2,7 @@
 them, for comparing trees.
 
     python3 parakeet_slam_tpu_torch/eval/ab_kernels.py [--root DIR] [--twin]
-        [--parts kernels,update_3d,hamming,paths,posegraph]
+        [--parts kernels,update_3d,hamming,cinv,paths,posegraph]
 
 Imports `parakeet_slam_tpu_torch` from DIR (default: the checkout that holds
 this file), so that an older tree unpacked beside it (`git archive` of the
@@ -33,6 +33,15 @@ The parts (default `kernels`):
     eligible) and the panoramic config's (F=512 against a store of 2048,
     1100 written and the first 1025 eligible), each forward (the store as
     the database) and reverse (the store as the queries);
+  - `cinv`: the device's time alone of `apply_cinv` (and the kernel's own
+    duration from torch.profiler's records, without the gaps between
+    launches) at the kernel bench's N=262144, at N=131072, 524288 and
+    1048576 (eight operand sets in turn, so that no launch finds its
+    operands in the L2), at a bucket of the full-width BA problem, N=46,080
+    (one operand set, which stays in the L2 as a bucket does across the
+    solver's PCG iterations) and at N=1 (the launch floor); then one
+    `Tensor.copy_` moving the bytes of N=262144, the card's own copy as a
+    yardstick;
   - `paths`: the corridor benchmark (`cli.measure_corridor`: config 1, five
     seeds of 500 frames, frames/s on the host clock and ATE) and the
     `fs2_step` bench row (one FastSLAM 2.0 step at P=1024, L=8192, Z=32,
@@ -180,6 +189,48 @@ def time_hamming(device, queued):
     return rows
 
 
+def _kernel_ms(call, name, reps=20):
+    """Median device duration of the kernels whose name holds `name` over
+    `reps` calls, from torch.profiler's activity records: the kernel alone,
+    without the gaps between launches that `queued` counts."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            call(i)
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return statistics.median(durs) if durs else None
+
+
+def time_cinv(device, queued):
+    """Rows of (N, device ms) of `apply_cinv` on contiguous operands."""
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import schur
+
+    T = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    rows = []
+    for N, n_sets in ((262144, 8), (46080, 1), (1, 1), (131072, 8), (524288, 8), (1048576, 8)):
+        sets = [tuple(T(a) for a in KI.schur_blocks(N, seed=100 + i)) for i in range(n_sets)]
+        call = lambda i: schur.apply_cinv(*sets[i % n_sets])  # noqa: E731
+        rows.append({"kernel": "apply_cinv", "N": N, "ms": queued(call, reps=20),
+                     "kernel_ms": _kernel_ms(call, "apply_cinv")})
+    # the yardstick: one copy kernel moving the same bytes as N=262144 (C, u
+    # and y as laid out, half read and half written), eight sets in turn
+    n = 262144 * (9 + 3 + 3) // 2
+    bufs = [(torch.randn(n, device=device), torch.empty(n, device=device)) for _ in range(8)]
+    copy = lambda i: bufs[i % 8][1].copy_(bufs[i % 8][0])  # noqa: E731
+    rows.append({"kernel": "Tensor.copy_", "bytes": 2 * 4 * n, "ms": queued(copy, reps=20),
+                 "kernel_ms": _kernel_ms(copy, "")})
+    return rows
+
+
 def time_paths(device, single):
     from parakeet_slam_tpu_torch import cli
     from parakeet_slam_tpu_torch.eval import bench_kernels
@@ -230,7 +281,7 @@ def main(argv=None):
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--twin", action="store_true")
     ap.add_argument("--parts", default="kernels",
-                    help="comma-separated: kernels, update_3d, hamming, paths, posegraph")
+                    help="comma-separated: kernels, update_3d, hamming, cinv, paths, posegraph")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -270,6 +321,9 @@ def main(argv=None):
                   flush=True)
     if "hamming" in parts:
         for row in time_hamming(device, queued):
+            print(json.dumps(row), flush=True)
+    if "cinv" in parts:
+        for row in time_cinv(device, queued):
             print(json.dumps(row), flush=True)
     if "paths" in parts:
         for row in time_paths(device, single):

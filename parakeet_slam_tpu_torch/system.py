@@ -1,11 +1,12 @@
-"""Online monocular visual SLAM: frontend -> particle filter -> keyframe
-backend (port of the single-device monocular part of
-`parakeet_slam_tpu.system`).
+"""Online visual SLAM: frontend -> particle filter -> keyframe backend
+(port of the single-device part of `parakeet_slam_tpu.system`).
 
-Per frame (`process_frame`):
-  1. detect + describe on the grayscale image (frontend),
+Per frame (`process_frame`, or `process_stereo_frame` for a stereo pair):
+  1. detect + describe on the grayscale (left) image (frontend; on an image
+     pyramid when `frontend.pyramid_levels > 1`),
   2. assemble a fixed-capacity Observation (pixel measurement + packed
-     BRIEF descriptor per keypoint),
+     BRIEF descriptor per keypoint; for a stereo pair [u, v, d] with the
+     SAD disparity against the right image, `frontend/stereo.py`),
   3. one FastSLAM step (motion or proposal + fused measurement update),
   4. the keyframe-motion test against a device-side reference, and the
      flagged frame's own best-particle map snapshot;
@@ -34,11 +35,9 @@ keyframe's own measured local points are the observations, and the pose
 graph's edges are fused into the solve when `backend.ba_fuse_pose_graph` is
 set.
 
-Not ported (each raises NotImplementedError): stereo frames
-(`process_stereo_frame`, which needs `frontend/stereo.py`), the image
-pyramid, checkpoints, distributed bundle adjustment
-(`run_ba(distributed=True)`, which needs `dist/dist_ba.py`) and the sharded
-filter.
+Not ported (each raises NotImplementedError): checkpoints, distributed
+bundle adjustment (`run_ba(distributed=True)`, which needs
+`dist/dist_ba.py`) and the sharded filter.
 """
 
 from __future__ import annotations
@@ -60,6 +59,8 @@ from parakeet_slam_tpu_torch.filter.runner import draw_noise
 from parakeet_slam_tpu_torch.frontend import camera as camera_mod
 from parakeet_slam_tpu_torch.frontend.describe import describe
 from parakeet_slam_tpu_torch.frontend.detect import detect, top_k_stable
+from parakeet_slam_tpu_torch.frontend.pyramid import detect_pyramid
+from parakeet_slam_tpu_torch.frontend.stereo import keypoint_disparity
 from parakeet_slam_tpu_torch.kernels import match as match_mod
 from parakeet_slam_tpu_torch.utils.metrics_log import MetricsLogger
 
@@ -228,13 +229,12 @@ class SLAMSystem:
 
     def _frontend(self, img: torch.Tensor):
         fe = self.cfg.frontend
+        kw = dict(max_features=fe.max_features, detector=fe.detector,
+                  threshold=fe.fast_threshold, nms_radius=fe.nms_radius, wrap_x=self.wrap_x)
         if fe.pyramid_levels > 1:
-            raise NotImplementedError("frontend.pyramid_levels > 1 (frontend/pyramid.py) is "
-                                      "not ported (ROADMAP Queue 1)")
-        xy, _, valid = detect(
-            img, max_features=fe.max_features, detector=fe.detector,
-            threshold=fe.fast_threshold, nms_radius=fe.nms_radius, wrap_x=self.wrap_x,
-        )
+            xy, _, _, valid = detect_pyramid(img, levels=fe.pyramid_levels, **kw)
+        else:
+            xy, _, valid = detect(img, **kw)
         return xy, describe(img, xy, valid, wrap_x=self.wrap_x), valid
 
     def _to_observation(self, z, desc, valid) -> Observation:
@@ -673,9 +673,25 @@ class SLAMSystem:
         """Bypass the image frontend with a ready Observation."""
         return self._step(obs, odom_u, motion_noise, resample_u0)
 
-    def process_stereo_frame(self, img_left, img_right, odom_u):
-        raise NotImplementedError("stereo frames need frontend/stereo.py, which is not "
-                                  "ported (ROADMAP Queue 1)")
+    def process_stereo_frame(self, img_left, img_right, odom_u, motion_noise=None,
+                             resample_u0=None):
+        """One rectified stereo pair [H, W] in [0, 1] + odometry increment
+        (KITTI, benchmark config 3): detect and describe on the left image,
+        the SAD disparity of the first Z = max_observations keypoints against
+        the right one, and [u, v, d] observations (valid where the keypoint
+        and its disparity are) for the stereo_3d model. Returns the pose
+        estimate [7] as a device tensor; the draws as in `process_frame`."""
+        if self.cfg.filter.obs_dim != 3:
+            raise ValueError("stereo frames need obs_dim=3 (stereo_3d model)")
+        left, right = (torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+                       for a in (img_left, img_right))
+        xy, desc, valid = self._frontend(left)
+        Z = self.cfg.filter.max_observations
+        xy, desc, valid = xy[:Z], desc[:Z], valid[:Z]
+        disp, dvalid = keypoint_disparity(left, right, xy, valid)
+        uvd = torch.cat([xy, disp[:, None]], dim=1)
+        return self._step(self._to_observation(uvd, desc, valid & dvalid), odom_u, motion_noise,
+                          resample_u0)
 
     def _post_step(self, est, kf_flag, snap, metrics):
         self.frame_idx += 1

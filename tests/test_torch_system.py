@@ -545,7 +545,7 @@ def test_run_ba_low_damping_rejections_match_jax():
     world = make_desk_world(num_steps=frames)
     odom = cli._make_odometry(cfg.data, world.gt_pose, frames)
     p_sys = system.SLAMSystem(cfg, device="cpu")
-    cli.run_tum_sequence(p_sys, [world.render(i) for i in range(frames)], odom)
+    cli.run_image_sequence(p_sys, [world.render(i) for i in range(frames)], odom)
     be = cfg.backend
     assert be.lm_damping_init == 1e-4 and be.ba_fuse_pose_graph
     prob = p_sys.build_ba_problem()
@@ -634,17 +634,19 @@ def test_cli_synth_and_run_tum(tmp_path, capsys):
 
 def test_unported_paths_raise(pano):
     world, images = pano
-    p_sys = system.SLAMSystem(_pano_cfg(pcm, pyramid_levels=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="pyramid"):
-        p_sys.process_frame(images[0], world.odom[0])
     p_sys = system.SLAMSystem(_pano_cfg(pcm), device="cpu")
-    for call in (lambda: p_sys.process_stereo_frame(images[0], images[0], world.odom[0]),
-                 lambda: p_sys.save_checkpoint("x"), lambda: p_sys.load_checkpoint("x"),
+    for call in (lambda: p_sys.save_checkpoint("x"), lambda: p_sys.load_checkpoint("x"),
                  lambda: p_sys.run_ba(distributed=True)):
         with pytest.raises(NotImplementedError):
             call()
-    with pytest.raises(NotImplementedError, match="kitti"):
-        cli.main(["run", "--config", "configs/kitti_00.yaml", "--device", "cpu"])
+    # stereo frames are ported (tests/test_torch_stereo.py); a monocular
+    # configuration refuses them, as the reference's does
+    with pytest.raises(ValueError, match="obs_dim=3"):
+        p_sys.process_stereo_frame(images[0], images[0], world.odom[0])
+    with pytest.raises(NotImplementedError, match="euroc"):
+        cli.main(["run", "--config", "configs/euroc_mh.yaml", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="euroc"):
+        cli.main(["synth", "--kind", "euroc", "--out", "unused"])
     # the matcher kernel is picked by the device: on the CPU no launch counts
     before = match.hamming_top2.launches
     system._batched_kf_match(torch.zeros(4, 8, dtype=torch.int32), torch.ones(4, dtype=torch.bool),
