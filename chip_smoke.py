@@ -33,7 +33,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      the KITTI shape (P=2048, L=10240, Z=128) and equirect at the panoramic
      config's shape (P=1024, L=8192, Z=128), the update scoring the frame
      itself; the update fed score_3d's scores, as FastSLAM 2.0 runs it, at
-     the KITTI shape and config 2's (pinhole, P=512, L=1024, Z=64); then
+     the KITTI shape, config 2's (pinhole, P=512, L=1024, Z=64) and config
+     4's (pinhole, P=512, L=4096, Z=64); then
      the options (external scores, no weight update, freeze, cull_unseen,
      no cull, full and empty maps, L=1100, Z=128 past the 64-slot cap,
      L=2^18) at small shapes. Masks, counts, target lanes, n_match,
@@ -75,8 +76,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
   10. the online monocular system at full width, benchmark config 2
      (configs/tum_fr1_desk.yaml: FastSLAM 2.0, pinhole_3d, P=512, L=1024,
      Z=64, 256 FAST + BRIEF features, 640x480), `cli run`'s TUM loop over
-     120 frames of the in-memory desk world (two orbits, the second revisits
-     the first): a finite trajectory, >= 2 keyframes, hamming_top2 launched
+     the first 90 frames of the in-memory desk world's 120 (two orbits, the
+     second revisits the first; 90, not 120, to keep the script
+     near 600 s): a finite trajectory, >= 2 keyframes, >= 1 accepted
+     closure, so that the repeat below covers one, hamming_top2 launched
      twice per closure dispatch (forward and reverse) and at least once,
      one score_3d and one measurement_update_3d launch per frame, one gather
      per resample; frames/s (from frame 3), keyframes, dispatches, accepted
@@ -124,7 +127,40 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      through the twin on the same snapshots gives equal point ids, store,
      count and dropped count; apply_cinv launched, finite keyframe poses,
      final cost <= first cost; points, observations, dropped points,
-     seconds, and the corrected ATE before and after (printed, not gated).
+     seconds, and the corrected ATE before and after (printed, not gated);
+  15. the multi-session run of benchmark config 4 at full width
+     (configs/euroc_mh.yaml: FastSLAM 2.0, pinhole_3d, P=512, L=4096, Z=64,
+     W=8, 512 FAST + BRIEF features on 480x752; the backend's caps of 1024
+     keyframes, 51,200 points and 262,144 observations, LM from a damping of
+     1.0, 20 LM x 100 PCG): two sessions of the machine hall (8,000
+     landmarks, the first 30 frames of each session's 400), written in the
+     ASL layout and run through `cli run`'s multi-session runner (loader,
+     the checkpoint round trip into a fresh system at the boundary, the
+     relocalization prior, the joint BA solved twice and timed warm): a
+     finite trajectory over both sessions, >= 2 keyframes in each, a finite
+     joint-BA cost whose last value is <= its first; one score_3d and one
+     measurement_update_3d launch per frame, one gather per resample,
+     hamming_top2 twice per closure dispatch plus once per keyframe of the
+     BA's point dedup, apply_cinv 2 x gn_iters x buckets x (pcg_iters + 3);
+     the kernels against their twins at config 4's shapes and data: every
+     closure dispatch (forward and reverse tables) and the BA's dedup
+     (store, point ids, counts) replayed through hamming_top2's twin equal,
+     the last resample's gather of the 512 x 4096-lane state equal to the
+     twin's, and the kernel path and the twin path giving equal masks and
+     counts over session one's first 3 frames from the same draws;
+     frames/s from frame 3 of each session, keyframes, closures within and
+     across sessions, BA points, observations and seconds per LM iteration,
+     peak device memory, the boundary snapshot's save and load seconds and
+     MB, and the SE(3) and Sim(3) ATE online, corrected, after BA and of
+     dead reckoning (printed, not gated); then session one resumed: its
+     first 17 frames (inside a flag window), a snapshot, a fresh system that
+     loads it and runs frames 17-29, whose estimates equal the run's and
+     whose snapshot after frame 29 equals the run's boundary snapshot in
+     every array (filter state, graph and cursors, generator, keyframes,
+     closures, the pending flag window and closure matches), bit for bit,
+     and the same from a second cut inside a flag window with closure
+     matches pending, where session one has one; the first resume's last 3
+     frames run under torch.profiler (launches, device busy, idle share).
 Every kernel's record carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and its
 operations over the card's peak for their type (67 TFLOP/s float32, 1,979
@@ -137,7 +173,8 @@ is no CUDA device or no package beside the script. The last line is
 {"ok": true, "device": {...}}, the line before it the kernels' JSON record
 (the seven kernels: ekf_update_2d, gather_rows, measurement_update_3d,
 score_3d, hamming_top2, l2_top2, apply_cinv) and the line before that the
-card's name and power limit.
+card's name and power limit. The records of the five kernels on config 4's
+path carry its launches as `launches_config4`.
 """
 
 from __future__ import annotations
@@ -885,7 +922,8 @@ def phase_bench_rows(device):
 # --------------------------------------------------------------------------
 
 L2_BENCH = (1024, 131072, 128)
-DESK_FRAMES = 120  # two orbits of 60 frames: the second revisits the first
+DESK_WORLD_STEPS = 120  # two orbits of 60 frames: the second revisits the first
+DESK_FRAMES = 90  # one and a half orbits: closures from frame ~40, the revisit from 60
 # L2: float sums in another order than the twin's matmul. best/second within
 # atol=L2_ATOL + rtol=L2_RTOL; idx equal wherever the twin's second - best
 # exceeds L2_GAP (closer pairs may swap under a rounding difference).
@@ -1086,7 +1124,7 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
 
     cfg = load_config(os.path.join(HERE, config))
     fc, fe = cfg.filter, cfg.frontend
-    world = make_desk_world(num_steps=frames)
+    world = make_desk_world(num_steps=DESK_WORLD_STEPS)
     check(tuple(world.image_size) == tuple(fe.image_size), f"world {world.image_size} vs {fe}")
     t0 = time.perf_counter()
     images = [world.render(i) for i in range(frames)]
@@ -1144,6 +1182,7 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
     check(bool(np.isfinite(est).all()) and bool(np.isfinite(est_opt).all()),
           "desk trajectory not finite")
     check(len(sys_.keyframes) >= 2, f"desk keyframes {len(sys_.keyframes)}")
+    check(len(sys_.loop_closures) >= 1, "desk run accepted no closure: the repeat covers none")
     per = system.MATCH_LAUNCHES_PER_DISPATCH
     check(len(calls) >= 1 and launches[3] == per * len(calls),
           f"hamming_top2 launches {launches[3]}, dispatches {len(calls)} x {per}")
@@ -1155,9 +1194,9 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
             "system": sys_, "est": est, "gt": world.gt_pose, "cfg": cfg}
 
 
-def phase_desk_replay(calls):
-    """Every keyframe-store match of phase 10 replayed through the twin:
-    forward and reverse tables equal."""
+def phase_desk_replay(calls, what="desk"):
+    """Every keyframe-store match of phase 10 (or of another run, named
+    `what`) replayed through the twin: forward and reverse tables equal."""
     import torch
 
     from parakeet_slam_tpu_torch import system
@@ -1169,12 +1208,12 @@ def phase_desk_replay(calls):
         for i, (qd, qv, db, dbv, fwd, rev, ratio) in enumerate(calls):
             t_fwd, t_rev = system._batched_kf_match(qd, qv, db, dbv, ratio)
             for name, a, b in (("forward", fwd, t_fwd), ("reverse", rev, t_rev)):
-                check(torch.equal(a, b), f"replay {i} (K={db.shape[0]}): {name} table "
+                check(torch.equal(a, b), f"{what} replay {i} (K={db.shape[0]}): {name} table "
                       f"differs in {int((a != b).sum())} entries")
     finally:
         match.hamming_top2 = kernel
     n_match = sum(int((c[4] >= 0).sum()) + int((c[5] >= 0).sum()) for c in calls)
-    print(f"desk replay: {len(calls)} keyframe-store matches, forward and reverse tables "
+    print(f"{what} replay: {len(calls)} keyframe-store matches, forward and reverse tables "
           f"equal to the twin's ({n_match} matched entries)")
 
 
@@ -1232,9 +1271,9 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
     dispatches = []
     kf_match = system._batched_kf_match
 
-    def counting_match(*a):
+    def counting_match(*a, **kw):
         dispatches.append(1)
-        return kf_match(*a)
+        return kf_match(*a, **kw)
 
     resampled = []
     sys_ = system.SLAMSystem(cfg, device=device)
@@ -1612,6 +1651,304 @@ def phase_run_ba(desk):
     return {"launches": launches, "seconds": dt, "ate": ate}
 
 
+# --------------------------------------------------------------------------
+# Slice 9: checkpoints and the multi-session run of config 4
+# --------------------------------------------------------------------------
+
+EUROC_SESSIONS = 2
+EUROC_FRAMES = 30        # of each session (the world's trajectory is 400)
+EUROC_WORLD_STEPS = 400  # the hall world's own length, so a frame moves as far
+RESUME_CUT = 17          # inside a flag window (kf_flag_lag = 4)
+EUROC_CHECK_FRAMES = 3   # session one's first frames, kernel path against the twin path
+EUROC_PROFILE_FRAMES = 3  # the resumed run's last frames, profiled
+
+
+def _snapshot_diff(a, b):
+    """Names of the arrays that differ between two snapshots (prefixes)."""
+    import numpy as np
+
+    out = []
+    for ext in (".state.npz", ".kf.npz"):
+        with np.load(a + ext) as x, np.load(b + ext) as y:
+            if sorted(x.files) != sorted(y.files):
+                out.append(f"{ext} keys")
+                continue
+            keys = [str(k) for k in x["__keys__"]] if ext == ".state.npz" else None
+            for f in x.files:
+                if not np.array_equal(x[f], y[f]):
+                    name = keys[int(f[5:])] if keys and f.startswith("leaf_") else f
+                    out.append(f"{ext}:{name}")
+    return out
+
+
+def phase_config4(device):
+    """Benchmark config 4 at full width: two sessions of the machine hall
+    written in the ASL layout and run through `cli run`'s multi-session
+    runner (checkpoint round trip at the boundary, joint BA); then session
+    one resumed from a snapshot at frame RESUME_CUT, bit for bit."""
+    import argparse
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch import cli, system
+    from parakeet_slam_tpu_torch.backend import graph
+    from parakeet_slam_tpu_torch.core.config import load_config
+    from parakeet_slam_tpu_torch.data.euroc import load_multi_session
+    from parakeet_slam_tpu_torch.data.synth_vision import make_hall_world, write_euroc_format
+    from parakeet_slam_tpu_torch.eval import ate_rmse
+    from parakeet_slam_tpu_torch.filter.runner import draw_noise
+    from parakeet_slam_tpu_torch.kernels import match, resample, schur
+    from parakeet_slam_tpu_torch.utils import metrics_log
+
+    config = "configs/euroc_mh.yaml"
+    out = os.path.join(HERE, "build", "chip_smoke_euroc")
+    ckpt_dir = os.path.join(out, "ckpt")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = load_config(os.path.join(HERE, config), {"data.path": out, "checkpoint_dir": ckpt_dir})
+    fc, fe, be = cfg.filter, cfg.frontend, cfg.backend
+    check((fc.algorithm, fc.measurement_model, fc.num_particles, fc.max_landmarks,
+           fc.max_observations, fc.desc_words) == ("fastslam2", "pinhole_3d", 512, 4096, 64, 8)
+          and tuple(fe.image_size) == (480, 752) and fe.max_features == 512
+          and (be.max_keyframes, be.max_landmarks, be.max_observations) == (1024, 51200, 262144)
+          and (be.gn_iters, be.pcg_iters, be.lm_damping_init) == (20, 100, 1.0),
+          f"{config} is not config 4 at full width: {fc} {fe} {be}")
+    t0 = time.perf_counter()
+    for s in range(EUROC_SESSIONS):
+        w = make_hall_world(num_steps=EUROC_WORLD_STEPS, session=s)
+        w = dataclasses.replace(w, gt_pose=w.gt_pose[:EUROC_FRAMES], odom=w.odom[:EUROC_FRAMES])
+        check(tuple(w.image_size) == tuple(fe.image_size), f"world {w.image_size} vs {fe}")
+        write_euroc_format(w, os.path.join(out, f"MH{s + 1:02d}"))
+    t_write = time.perf_counter() - t0
+    os.makedirs(ckpt_dir)
+    roots = cli.euroc_sessions(out)
+    check(len(roots) == EUROC_SESSIONS, f"sessions found: {roots}")
+
+    # the multi-session run, counted; every closure dispatch, the BA's dedup
+    # and the last resample captured for the replays through the twins below
+    dispatches, dedups, gathers, resampled = [], [], [], []
+    kf_match, assign, log = system._batched_kf_match, system._assign_point_ids, \
+        metrics_log.MetricsLogger.log
+    gather = resample.gather_particles
+
+    def counting_match(qd, qv, db, dbv, ratio):
+        fwd, rev = kf_match(qd, qv, db, dbv, ratio)
+        dispatches.append(tuple(t.clone() for t in (qd, qv, db, dbv, fwd, rev)) + (ratio,))
+        return fwd, rev
+
+    def counting_assign(desc, valid, world, **kw):
+        out = assign(desc, valid, world, **kw)
+        dedups.append(((desc.clone(), valid.clone(), world.clone()), kw, out))
+        return out
+
+    def capturing_gather(st, idx):
+        gathers[:] = [(dataclasses.replace(
+            st, **{f.name: getattr(st, f.name).clone() for f in dataclasses.fields(st)}),
+            idx.clone())]
+        return gather(st, idx)
+
+    def logging(self, frame, **rec):
+        if "resampled" in rec:
+            resampled.append(rec["resampled"])
+
+    args = argparse.Namespace(frames=0, ba=0, out="")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts_3d()
+    match.hamming_top2.launches = 0
+    schur.apply_cinv.launches = 0
+    system._batched_kf_match, system._assign_point_ids = counting_match, counting_assign
+    resample.gather_particles = capturing_gather
+    metrics_log.MetricsLogger.log = logging
+    t0 = time.perf_counter()
+    try:
+        run = cli._run_euroc_multisession(cfg, args, roots, device)
+        torch.cuda.synchronize()
+        launches = _counts_3d() + (match.hamming_top2.launches, schur.apply_cinv.launches)
+    finally:
+        system._batched_kf_match, system._assign_point_ids = kf_match, assign
+        resample.gather_particles = gather
+        metrics_log.MetricsLogger.log = log
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    sys_, est, gt = run["system"], run["est"], run["gt"]
+    res, prob, ba_s = run["ba"]
+    costs = res.costs.cpu()
+    n_frames = EUROC_SESSIONS * EUROC_FRAMES
+    per = run["sessions"]
+    n_kf1 = per[0]["keyframes"]
+    lc = sys_.loop_closures
+    within = (sum(1 for a, b in lc if b < n_kf1), sum(1 for a, b in lc if a >= n_kf1))
+    across = sum(1 for a, b in lc if a < n_kf1 <= b)
+    nb = len(graph.pack_buckets(prob).p_cam)
+    n_res = sum(resampled)
+    want_cinv = 2 * be.gn_iters * nb * (be.pcg_iters + 3)  # joint_ba solves twice
+    bd = per[1]["boundary"]
+    print(f"euroc config 4 (FastSLAM 2.0 pinhole_3d P={fc.num_particles} L={fc.max_landmarks} "
+          f"Z={fc.max_observations}, {fe.max_features} features {fe.image_size[1]}x"
+          f"{fe.image_size[0]}; {EUROC_SESSIONS} sessions x {EUROC_FRAMES} frames of the hall "
+          f"world written in the ASL layout in {t_write:.2f}s): fps "
+          f"{' / '.join(f'{r['fps']:.3f}' for r in per)} (steady, from frame 3 of each session) "
+          f"wall={wall:.2f}s peak_mem={peak / 2**30:.3f} GiB")
+    print(f"euroc config 4: keyframes {' / '.join(str(r['keyframes']) for r in per)} (at each "
+          f"session's end), dispatches={len(dispatches)} loop_closures={len(lc)} (within "
+          f"sessions {within[0]} / {within[1]}, across {across}) resamples={n_res}; snapshot at "
+          f"the boundary: save {bd['save_s']:.3f} s, load {bd['load_s']:.3f} s, "
+          f"{bd['bytes'] / 1e6:.1f} MB")
+    print(f"euroc config 4 joint BA: {len(sys_.keyframes)} keyframes, "
+          f"{int(prob.pt_valid.sum())} points, {int(prob.obs_valid.sum())} observations, "
+          f"{nb} buckets; {len(costs)} LM iterations warm in {ba_s:.3f} s "
+          f"({ba_s / len(costs):.4f} s per iteration); cost {float(costs[0]):.1f} -> "
+          f"{float(costs[-1]):.1f}")
+    print(f"euroc config 4 launches: score_3d={launches[0]} update_3d={launches[1]} "
+          f"gather={launches[2]} hamming_top2={launches[3]} (2 x {len(dispatches)} dispatches + "
+          f"{sum(len(d[0][0]) for d in dedups)} keyframes deduplicated) apply_cinv={launches[4]} "
+          f"(2 solves x {be.gn_iters} x {nb} x ({be.pcg_iters} + 3))")
+    ok = ~np.isnan(gt[:, :3]).any(axis=1)
+    dr = cli._dead_reckoning(gt[ok][0], run["odom"])
+    trajs = {"online": est, "corrected": run["est_corrected"], "after BA": run["est_ba"],
+             "dead reckoning": dr}
+    for scale, name in ((False, "SE(3)"), (True, "Sim(3)")):
+        ates = {k: float(ate_rmse(v[ok, :3], gt[ok, :3], with_scale=scale))
+                for k, v in trajs.items()}
+        print(f"euroc config 4 ate {name} (not gated): "
+              + " ".join(f"{k}={v:.4f} m" for k, v in ates.items()))
+    check(all(bool(np.isfinite(v).all()) for v in trajs.values()), "config 4 trajectory not finite")
+    check(len(est) == n_frames, f"config 4 estimated {len(est)} of {n_frames} frames")
+    check(n_kf1 >= 2 and per[1]["keyframes"] - n_kf1 >= 2,
+          f"config 4 keyframes per session: {n_kf1}, {per[1]['keyframes'] - n_kf1}")
+    check(bool(torch.isfinite(costs).all()) and float(costs[-1]) <= float(costs[0]),
+          f"config 4 joint BA costs {costs}")
+    check(launches[0] == n_frames and launches[1] == n_frames,
+          f"config 4 launches score_3d={launches[0]} update_3d={launches[1]}, frames {n_frames}")
+    check(launches[2] == n_res, f"config 4 gather launches {launches[2]}, resamples {n_res}")
+    dedup_rows = [len(d[0][0]) for d in dedups]
+    check(dedup_rows == [len(sys_.keyframes)],
+          f"config 4 dedup rows {dedup_rows}, keyframes {len(sys_.keyframes)}")
+    check(launches[3] == system.MATCH_LAUNCHES_PER_DISPATCH * len(dispatches) + dedup_rows[0],
+          f"config 4 hamming_top2 launches {launches[3]}, dispatches {len(dispatches)}, "
+          f"dedup {dedup_rows}")
+    check(launches[4] == want_cinv, f"config 4 apply_cinv launches {launches[4]} != {want_cinv}")
+
+    # The kernels against their twins at config 4's own shapes and data:
+    # every closure dispatch (forward and reverse tables) and the BA's dedup
+    # (store, point ids, counts) replayed through hamming_top2's twin; the
+    # last resample's gather (the 512 x 4096 state with its descriptor
+    # rows) against gather_state's twin; and session one's first frames run
+    # on the kernel path and on the twin path from the same draws.
+    phase_desk_replay(dispatches, "config 4 closure")
+    ham = match.hamming_top2
+    match.hamming_top2 = match.hamming_top2_reference
+    try:
+        for i, (args_, kw, out_) in enumerate(dedups):
+            twin_out = assign(*args_, **kw)
+            for name, a, b in zip(("store_desc", "store_valid", "store_pos", "count", "dropped",
+                                   "pid"), (*out_[0], out_[1]), (*twin_out[0], twin_out[1])):
+                check(torch.equal(a, b), f"config 4 dedup {i}: {name} differs from the twin's "
+                      f"in {int((a != b).sum())}")
+    finally:
+        match.hamming_top2 = ham
+    print(f"config 4 dedup replay: {dedup_rows[0]} keyframes against the point store, store, "
+          f"point ids and counts equal to the twin's ({int(dedups[0][2][0][3])} points)")
+    check(n_res > 0 and len(gathers) == 1,
+          f"config 4 ran {n_res} resamples, {len(gathers)} captured")
+    st, idx = gathers[0]
+    check_gather_equal(f"config 4 state P={st.num_particles} L={st.lm_valid.shape[1]}", st, idx)
+    print(f"gather_rows config 4 last resample (P={st.num_particles} L={st.lm_valid.shape[1]} "
+          f"W={st.lm_desc.shape[-1]}, {len(set(idx.tolist()))} distinct rows): bit-equal")
+    del st, idx, gathers[:]
+
+    # Resume on the card: session one's first RESUME_CUT frames, a snapshot,
+    # a fresh system that loads it and runs the rest of the session; its
+    # snapshot after the last frame equals the boundary snapshot of the
+    # uninterrupted run above in every array (filter state, graph and
+    # cursors, generator, keyframes and anchors, closures, the pending flag
+    # window and closure matches), and its estimates equal the run's. The
+    # first system runs on to a second cut inside a flag window with closure
+    # matches pending, where the session has one, resumed the same way.
+    seq = load_multi_session(roots[:1])[0]
+    odom = cli._make_odometry(cfg.data, seq.gt_pose, EUROC_FRAMES)
+    gen = torch.Generator(device=device).manual_seed(0)
+    noise, u0 = draw_noise(EUROC_CHECK_FRAMES, fc.num_particles, sys_.slam.noise_dim, gen, device)
+    draws = list(zip(noise, u0))
+
+    def short_run():
+        s = system.SLAMSystem(cfg, device=device)
+        e, _, _ = cli.run_image_sequence(s, seq.image, odom[:EUROC_CHECK_FRAMES], draws=draws)
+        return s.state, e
+
+    kernel_state, kernel_est = short_run()
+    restore = _twin_path()
+    try:
+        twin_state, twin_est = short_run()
+    finally:
+        restore()
+    for k in ("lm_valid", "lm_count"):
+        a, b = getattr(kernel_state, k), getattr(twin_state, k)
+        check(torch.equal(a, b), f"config 4 kernel vs twin path: {k} differs in "
+              f"{int((a != b).sum())}")
+    print(f"config 4 kernel vs twin path, {EUROC_CHECK_FRAMES} frames of session one: lm_valid "
+          f"and lm_count equal ({int(kernel_state.lm_valid.sum())} live lanes), est max |diff| "
+          f"{float(abs(kernel_est - twin_est).max()):.3g}")
+    del kernel_state, twin_state
+    first = system.SLAMSystem(cfg, device=device)
+    cli.run_image_sequence(first, seq.image, odom[:RESUME_CUT])
+    cuts = {}
+
+    def snapshot(s):
+        prefix = os.path.join(ckpt_dir, f"resume_{s.frame_idx:02d}")
+        s.save_checkpoint(prefix)
+        cuts[s.frame_idx] = (prefix, len(s._flag_pending), len(s._closure_pending))
+
+    snapshot(first)
+    for i in range(RESUME_CUT, EUROC_FRAMES - 1):
+        first.process_frame(seq.image(i), odom[i])
+        if first._closure_pending and first.frame_idx % first.kf_flag_lag:
+            snapshot(first)
+            break
+    del first
+    prof = None
+    for c, (prefix, n_flags, n_matches) in cuts.items():
+        resumed = system.SLAMSystem(cfg, device=device)
+        resumed.load_checkpoint(prefix)
+        k = EUROC_FRAMES - EUROC_PROFILE_FRAMES if prof is None else EUROC_FRAMES
+        est_r, _, _ = cli.run_image_sequence(resumed, lambda i: seq.image(c + i), odom[c:k])
+        if prof is None:  # the session's last frames under the profiler
+            tail = []
+            prof = k, _profile(lambda: tail.extend(
+                resumed.process_frame(seq.image(i), odom[i]) for i in range(k, EUROC_FRAMES)))
+            est_r = np.concatenate([est_r, torch.stack(tail).cpu().numpy()])
+        end = prefix + "_end"
+        resumed.save_checkpoint(end)
+        differ = _snapshot_diff(end, os.path.join(ckpt_dir, "session_01"))
+        same_est = np.array_equal(est_r, est[c:EUROC_FRAMES])
+        verdict = "equal in every array" if not differ else f"differs: {differ}"
+        print(f"euroc config 4 resume: snapshot at frame {c} (pending flags {n_flags}, closure "
+              f"matches {n_matches}), frames {c}-{EUROC_FRAMES - 1} in a fresh system: estimates "
+              f"{'bit-equal' if same_est else 'differ'}, snapshot after frame "
+              f"{EUROC_FRAMES - 1} {verdict} to the uninterrupted run's "
+              f"({len(resumed.keyframes)} keyframes, {len(resumed.loop_closures)} closures)")
+        check(same_est and not differ, f"config 4 resume from frame {c} is not bit-identical: "
+              f"estimates {'equal' if same_est else 'differ'}, {differ}")
+        del resumed
+    if len(cuts) == 1:
+        print("euroc config 4 resume: session one has no closure matches pending inside a flag "
+              f"window after frame {RESUME_CUT}")
+    k, (n_launch, busy, wall_p, top) = prof
+    n = EUROC_PROFILE_FRAMES
+    print(f"euroc config 4 profile, frames {k}-{EUROC_FRAMES - 1}: {n_launch / n:.0f} device "
+          f"launches, device busy {busy / n:.2f} ms, wall {wall_p / n:.1f} ms per frame with the "
+          f"profiler on; idle share {1 - busy / wall_p:.3f}")
+    for name, ms, count in top:
+        print(f"euroc config 4 profile:   {ms / n:8.2f} ms {count / n:7.0f} launches per frame  "
+              f"{name[:90]}")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"launches": launches, "fps": [r["fps"] for r in per], "peak_gib": peak / 2**30,
+            "ba_s_per_iter": ba_s / len(costs)}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "parakeet_slam_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke FAILED: run from a checkout of the repository")
@@ -1645,6 +1982,7 @@ def main():
     cinv = run(phase_cinv, device)
     ba_run = run(phase_ba, device)
     sys_ba = run(phase_run_ba, desk)
+    config4 = run(phase_config4, device)
 
     pkg = "parakeet_slam_tpu_torch"
 
@@ -1658,7 +1996,7 @@ def main():
     t3, eq, pan = k3["kitti"][1], k3["equirect_3d"][1], k3["panoramic"][1]
     # the update as the vision path (FastSLAM 2.0) runs it: fed score_3d's
     # scores; scoring itself, it runs on FastSLAM 1.0 (the panoramic config)
-    x3, x2 = k3["kitti_ext"][1], k3["config2_ext"][1]
+    x3, x2, x4 = k3["kitti_ext"][1], k3["config2_ext"][1], k3["config4_ext"][1]
     c2f, c2r = km["closure_config2"]
     pnf, pnr = km["closure_panoramic"]
     record = {"kernels": [
@@ -1677,14 +2015,16 @@ def main():
               ms_single_call=gat[4], plain_ms_single_call=gat[5],
               ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][4],
               plain_ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][5],
-              launches_stereo=stereo["launches"][2]),
+              launches_stereo=stereo["launches"][2], launches_config4=config4["launches"][2]),
         entry("measurement_update_3d", "ekf_update_3d.cu",
               "parakeet_slam_tpu/kernels/ekf_update_3d.py:664", stereo["launches"][1], err3,
               x3["update"], x3["update_twin"], x3["update_bound"],
               mode="fed score_3d's scores", ms_single_call=x3["update_single"],
               ms_config2=x2["update"], plain_ms_config2=x2["update_twin"],
-              bound_ms_config2=x2["update_bound"][0], launches_desk=desk["launches"][1],
-              launches_vision=vision["launches"][1],
+              bound_ms_config2=x2["update_bound"][0], ms_config4=x4["update"],
+              plain_ms_config4=x4["update_twin"], bound_ms_config4=x4["update_bound"][0],
+              launches_desk=desk["launches"][1],
+              launches_vision=vision["launches"][1], launches_config4=config4["launches"][1],
               ms_self_scoring=t3["update"], plain_ms_self_scoring=t3["update_twin"],
               bound_ms_self_scoring=t3["update_bound"][0],
               ms_self_scoring_single_call=t3["update_single"],
@@ -1697,10 +2037,11 @@ def main():
               stereo["launches"][0], err3, t3["score"], t3["score_twin"], t3["score_bound"],
               ms_single_call=t3["score_single"], ms_bench_equirect=eq["score"],
               plain_ms_bench_equirect=eq["score_twin"], launches_desk=desk["launches"][0],
-              launches_vision=vision["launches"][0]),
+              launches_vision=vision["launches"][0], launches_config4=config4["launches"][0]),
         entry("hamming_top2", "match.cu", "parakeet_slam_tpu/kernels/match.py:269",
               desk["launches"][3], 0.0, km["ham"][0], km["ham"][1], km["ham"][2],
               launches_run_ba=sys_ba["launches"][0], launches_stereo=stereo["launches"][3],
+              launches_config4=config4["launches"][3],
               ms_closure_config2_forward=c2f[0], ms_closure_config2_reverse=c2r[0],
               plain_ms_closure_config2_forward=c2f[1], bound_ms_closure_config2_forward=c2f[2][0],
               ms_closure_panoramic_forward=pnf[0], ms_closure_panoramic_reverse=pnr[0],
@@ -1715,7 +2056,7 @@ def main():
               ba_run["launches"], cinv["err"], cinv["ms"], cinv["plain"], cinv["bound"],
               library=cinv["library"], ms_bucket=cinv["ms_bucket"],
               bound_ms_all_of_c=cinv["bound_laid_out"],
-              launches_run_ba=sys_ba["launches"][1]),
+              launches_run_ba=sys_ba["launches"][1], launches_config4=config4["launches"][4]),
     ]}
     print(card)
     print(json.dumps(record))

@@ -1,6 +1,7 @@
-"""Command-line interface of the port: run on the corridor, a TUM or KITTI
-sequence or the panoramic world, write a synthetic TUM or KITTI dataset,
-the corridor benchmark, and the per-kernel benchmarks.
+"""Command-line interface of the port: run on the corridor, a TUM, KITTI or
+EuRoC sequence (or several EuRoC sessions, ending in one joint bundle
+adjustment) or the panoramic world, write a synthetic TUM, KITTI or EuRoC
+dataset, the corridor benchmark, and the per-kernel benchmarks.
 
   python -m parakeet_slam_tpu_torch.cli run --config configs/corridor.yaml
   python -m parakeet_slam_tpu_torch.cli run --config configs/corridor.yaml --device cpu
@@ -10,6 +11,9 @@ the corridor benchmark, and the per-kernel benchmarks.
   python -m parakeet_slam_tpu_torch.cli synth --kind kitti --out data_synth/kitti --steps 20
   python -m parakeet_slam_tpu_torch.cli run --config configs/kitti_00.yaml \\
       --set data.path=data_synth/kitti/sequences/00
+  python -m parakeet_slam_tpu_torch.cli synth --kind euroc --sessions 2 --out data_synth/euroc
+  python -m parakeet_slam_tpu_torch.cli run --config configs/euroc_mh.yaml \\
+      --set data.path=data_synth/euroc --ba 20
   python -m parakeet_slam_tpu_torch.cli run --config configs/panoramic.yaml
   python -m parakeet_slam_tpu_torch.cli bench
   python -m parakeet_slam_tpu_torch.cli bench --kernel fs2_step
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -125,20 +130,18 @@ def measure_corridor(device, num_steps: int = 500, seeds=range(5), cfg=None) -> 
 def cmd_run(args):
     from parakeet_slam_tpu_torch.core.config import load_config
 
-    if args.ba:
-        raise NotImplementedError(
-            "run --ba (joint BA after the EuRoC multi-session run) is not ported yet "
-            "(ROADMAP Queue 1 item 2)")
     device = resolve_device(args.device)
     cfg = load_config(args.config, _parse_overrides(args.set))
     if cfg.data.dataset == "panoramic":
         return _run_panoramic(cfg, args, device)
-    if cfg.data.dataset in ("tum", "kitti"):
+    if cfg.data.dataset == "euroc":
+        roots = euroc_sessions(cfg.data.path)
+        if roots:
+            return _run_euroc_multisession(cfg, args, roots, device)
+    if cfg.data.dataset in ("tum", "kitti", "euroc"):
         return _run_image_sequence(cfg, args, device)
     if cfg.data.dataset != "corridor":
-        raise NotImplementedError(
-            f"dataset {cfg.data.dataset!r} is not ported yet (ROADMAP Queue 1)"
-        )
+        raise SystemExit(f"unknown dataset {cfg.data.dataset!r}")
     from parakeet_slam_tpu_torch.data import make_corridor
     from parakeet_slam_tpu_torch.filter import make_filter
 
@@ -184,13 +187,14 @@ def _run_panoramic(cfg, args, device):
         export_trajectory(args.out, est.numpy())
 
 
-def run_image_sequence(sys_, frames, odom, warm: int = 3, right=None):
+def run_image_sequence(sys_, frames, odom, warm: int = 3, right=None, draws=None):
     """Drive an online system over `frames` (a sequence of [H, W] images,
     or a callable i -> image) with odometry [n, 6], as `cli run` drives a
-    TUM or KITTI sequence; with `right` (the same for the right camera) as
-    stereo pairs through `process_stereo_frame`. Returns (online estimates
-    [n, 7] on the host, steady-state frames/s from frame `warm` on, wall
-    seconds)."""
+    TUM, KITTI or EuRoC sequence; with `right` (the same for the right
+    camera) as stereo pairs through `process_stereo_frame`. `draws`, when
+    given, holds each frame's (motion_noise, resample_u0) in place of the
+    system's own. Returns (online estimates [n, 7] on the host, steady-state
+    frames/s from frame `warm` on, wall seconds)."""
     image = frames if callable(frames) else frames.__getitem__
     image_r = right if right is None or callable(right) else right.__getitem__
     n = len(odom)
@@ -199,10 +203,11 @@ def run_image_sequence(sys_, frames, odom, warm: int = 3, right=None):
     est = []
     t_loop = t_warm = time.perf_counter()
     for i in range(n):
+        kw = {} if draws is None else dict(zip(("motion_noise", "resample_u0"), draws[i]))
         if image_r is None:
-            est.append(sys_.process_frame(image(i), odom[i]))
+            est.append(sys_.process_frame(image(i), odom[i], **kw))
         else:
-            est.append(sys_.process_stereo_frame(image(i), image_r(i), odom[i]))
+            est.append(sys_.process_stereo_frame(image(i), image_r(i), odom[i], **kw))
         if i + 1 == warm:
             sync()
             t_warm = time.perf_counter()
@@ -243,17 +248,22 @@ def _kitti_gt_to_quat(gt34):
 
 
 def load_image_dataset(cfg, frames: int = 0):
-    """The first `frames` frames (all for 0) of the config's TUM or KITTI
-    sequence, as `cli run` reads them: (left images, right images or None,
-    ground truth [T, 7] (t, qxyzw) or None, odometry [n, 6]). Images are
-    callables i -> [H, W] float32; a KITTI sequence is read as stereo pairs
-    when obs_dim is 3."""
+    """The first `frames` frames (all for 0) of the config's TUM, KITTI or
+    EuRoC sequence, as `cli run` reads them: (left images, right images or
+    None, ground truth [T, 7] (t, qxyzw) or None, odometry [n, 6]). Images
+    are callables i -> [H, W] float32; a KITTI sequence is read as stereo
+    pairs when obs_dim is 3."""
     right = None
     if cfg.data.dataset == "tum":
         from parakeet_slam_tpu_torch.data.tum import load_tum
 
         seq = load_tum(cfg.data.path)
         gt = seq.gt_pose  # [T, 7] (t, qxyzw), NaN rows possible
+    elif cfg.data.dataset == "euroc":
+        from parakeet_slam_tpu_torch.data.euroc import load_euroc
+
+        seq = load_euroc(cfg.data.path)
+        gt = seq.gt_pose
     else:
         from parakeet_slam_tpu_torch.data.kitti import load_kitti
 
@@ -266,8 +276,8 @@ def load_image_dataset(cfg, frames: int = 0):
 
 
 def _run_image_sequence(cfg, args, device):
-    """A TUM RGB-D sequence (benchmark config 2) or a KITTI stereo sequence
-    (benchmark config 3) through the online system."""
+    """A TUM RGB-D sequence (benchmark config 2), a KITTI stereo sequence
+    (benchmark config 3) or one EuRoC session through the online system."""
     from parakeet_slam_tpu_torch.system import SLAMSystem
     from parakeet_slam_tpu_torch.utils.metrics_log import export_trajectory
 
@@ -292,6 +302,149 @@ def _run_image_sequence(cfg, args, device):
     print(line)
     if args.out:
         export_trajectory(args.out, est_opt)
+
+
+def euroc_sessions(path: str) -> list[str]:
+    """The session directories (MH*, each holding mav0/) under a EuRoC
+    multi-session directory, in name order; empty for one sequence."""
+    import os
+
+    if not os.path.isdir(path):
+        return []
+    return [os.path.join(path, d) for d in sorted(os.listdir(path))
+            if d.startswith("MH") and os.path.isdir(os.path.join(path, d, "mav0"))]
+
+
+def run_sessions(cfg, sessions, device, ckpt_dir: str, frames: int = 0, draws=None,
+                 warm: int = 3):
+    """Benchmark config 4's online part: EuRoC sessions (`EuRoCSequence`s)
+    in sequence through one system. At each session boundary the run goes
+    through a snapshot (`save_checkpoint` to `<ckpt_dir>/session_NN`), a
+    fresh `SLAMSystem` and `load_checkpoint`, and the first odometry row of
+    the new session becomes the relocalization prior from the last
+    ground-truth pose of the session before to the first of this one.
+    `frames` cuts each session to its first frames (0: all); `draws` holds
+    each frame's (motion_noise, resample_u0) over all sessions in order, in
+    place of the system's own. Returns a dict: the final `system`, the
+    online estimates `est` [N, 7], ground truth `gt` [N, 7] and odometry
+    `odom` [N, 6] over all sessions, and per session (`sessions`) its
+    frames, frames/s from frame `warm`, wall seconds, keyframes and
+    closures at its end, and the seconds and bytes of the snapshot that
+    began it (None for the first)."""
+    from parakeet_slam_tpu_torch.core import geometry
+    from parakeet_slam_tpu_torch.system import SLAMSystem
+
+    sys_ = SLAMSystem(cfg, device=device)
+    est_all, gt_all, odom_all, per = [], [], [], []
+    prev_gt_last = None
+    for si, seq in enumerate(sessions):
+        n = len(seq) if frames <= 0 else min(frames, len(seq))
+        gt = seq.gt_pose
+        odom = _make_odometry(cfg.data, gt, n)
+        boundary = None
+        if si > 0:
+            prefix = f"{ckpt_dir}/session_{si:02d}"
+            t0 = time.perf_counter()
+            sys_.save_checkpoint(prefix)
+            t_save = time.perf_counter() - t0
+            sys_ = SLAMSystem(cfg, device=device)
+            t0 = time.perf_counter()
+            sys_.load_checkpoint(prefix)
+            if sys_.device.type == "cuda":
+                torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            n_bytes = sum(os.path.getsize(prefix + ext) for ext in (".state.npz", ".kf.npz"))
+            boundary = {"save_s": t_save, "load_s": t_load, "bytes": n_bytes}
+            if prev_gt_last is not None and not np.isnan(gt[0, :3]).any():
+                # coarse relocalization prior across the jump between sessions
+                # (from the ground truth, as the odometry itself is)
+                odom[0] = geometry.se3_log(geometry.se3_between(
+                    torch.as_tensor(prev_gt_last), torch.as_tensor(gt[0]))).numpy()
+        start = sum(len(e) for e in est_all)
+        est, fps, wall = run_image_sequence(
+            sys_, seq.image, odom, warm=warm,
+            draws=None if draws is None else draws[start:start + n])
+        est_all.append(est)
+        gt_all.append(gt[:n])
+        odom_all.append(odom)
+        ok = ~np.isnan(gt[:n, :3]).any(axis=1)
+        prev_gt_last = gt[:n][ok][-1] if ok.any() else prev_gt_last
+        per.append({"frames": n, "fps": fps, "wall": wall, "keyframes": len(sys_.keyframes),
+                    "closures": len(sys_.loop_closures), "boundary": boundary})
+    return {"system": sys_, "est": np.concatenate(est_all), "gt": np.concatenate(gt_all),
+            "odom": np.concatenate(odom_all), "sessions": per}
+
+
+def joint_ba(sys_, iters: int = 0):
+    """Benchmark config 4's joint bundle adjustment over all keyframes of a
+    multi-session run (`SLAMSystem.ba_problem`, then `solve_ba`), solved
+    twice: the second, warm solve is timed. Returns (result, problem, warm
+    seconds), or None with fewer than two keyframes; the keyframes are left
+    as they are. iters=0 means backend.gn_iters."""
+    prob = sys_.ba_problem()
+    if prob is None:
+        return None
+    iters = iters or sys_.cfg.backend.gn_iters
+    sync = torch.cuda.synchronize if sys_.device.type == "cuda" else (lambda: None)
+    sys_.solve_ba(prob, iters)
+    sync()
+    t0 = time.perf_counter()
+    res = sys_.solve_ba(prob, iters)
+    res.costs.cpu()
+    return res, prob, time.perf_counter() - t0
+
+
+def _run_euroc_multisession(cfg, args, roots, device, draws=None):
+    """Benchmark config 4: EuRoC MH sessions in sequence with the checkpoint
+    round trip at each boundary (`run_sessions`, `draws` as there), then one
+    joint bundle adjustment over all sessions' keyframes (`joint_ba`, `--ba`
+    LM iterations, timed warm). Prints the sessions and one summary line,
+    exports the trajectory re-anchored to the adjusted keyframes, and
+    returns the run: `run_sessions`'s dict with `est_corrected` and `ates`
+    (`sequence_ate`'s), `ba` (`joint_ba`'s result) and `est_ba` (the online
+    estimates re-anchored to the adjusted keyframes)."""
+    import tempfile
+
+    from parakeet_slam_tpu_torch.data.euroc import load_multi_session
+    from parakeet_slam_tpu_torch.utils.metrics_log import export_trajectory
+
+    sessions = load_multi_session(roots)
+    ckpt_dir = cfg.checkpoint_dir or tempfile.mkdtemp(prefix="euroc_ms_")
+    t0 = time.perf_counter()
+    run = run_sessions(cfg, sessions, device, ckpt_dir, frames=args.frames, draws=draws)
+    wall = time.perf_counter() - t0
+    sys_, est, gt, odom = run["system"], run["est"], run["gt"], run["odom"]
+    for si, r in enumerate(run["sessions"]):
+        print(f"session {si + 1}/{len(sessions)}: frames={r['frames']} "
+              f"keyframes={r['keyframes']} closures={r['closures']}")
+    sys_.flush_flags()
+    sys_.flush_metrics()
+    n = len(est)
+    line = (f"sessions={len(sessions)} frames={n} keyframes={len(sys_.keyframes)} "
+            f"loop_closures={len(sys_.loop_closures)} fps={n / wall:.2f} (incl-build)")
+    est_opt, ates = run["est_corrected"], run["ates"] = sequence_ate(sys_, est, gt, odom, cfg)
+    if ates is not None:
+        line += (f" ate_rmse={ates[0]:.4f} m (sim3={cfg.frontend.camera == 'pinhole'}; "
+                 f"online {ates[1]:.4f}; dead-reckoning {ates[2]:.4f})")
+    out = run["ba"] = joint_ba(sys_, args.ba)
+    if out is not None:
+        from parakeet_slam_tpu_torch.eval import ate_rmse
+
+        res, prob, dt = out
+        iters = len(res.costs)
+        poses = res.problem.cam_pose.cpu().numpy()
+        for i, kf in enumerate(sys_.keyframes):
+            kf.pose = poses[i]
+        est_opt = run["est_ba"] = sys_.corrected_trajectory(est, final_optimize=False)
+        line += (f" | BA: points={int(prob.pt_valid.sum())} obs={int(prob.obs_valid.sum())} "
+                 f"iters/s={iters / dt:.2f} cost={float(res.costs[-1]):.1f}")
+        ok = ~np.isnan(gt[:, :3]).any(axis=1)
+        if ok.sum() >= 3:
+            line += f" ate_ba={float(ate_rmse(est_opt[ok, :3], gt[ok, :3], with_scale=True)):.4f} m"
+    print(line)
+    if args.out:
+        export_trajectory(args.out, est_opt)
+    return run
 
 
 def _dead_reckoning(start_pose, odom):
@@ -332,14 +485,11 @@ def _make_odometry(data_cfg, gt, n):
 
 
 def cmd_synth(args):
-    """Write a synthetic dataset in the TUM or KITTI on-disk format (no
-    dataset download is needed; see data/synth_vision.py)."""
+    """Write a synthetic dataset in the TUM, KITTI or EuRoC on-disk format
+    (no dataset download is needed; see data/synth_vision.py). EuRoC writes
+    `--sessions` sessions MH01..MH0N of one machine hall."""
     from parakeet_slam_tpu_torch.data import synth_vision as sv
 
-    if args.sessions is not None:
-        raise NotImplementedError(
-            "synth --sessions (EuRoC multi-session worlds) is not ported yet "
-            "(ROADMAP Queue 1 item 2)")
     t0 = time.time()
     if args.kind == "tum":
         world = sv.make_desk_world(num_landmarks=args.landmarks or 1000,
@@ -350,7 +500,11 @@ def cmd_synth(args):
                                     num_steps=args.steps or 700, seed=args.seed)
         sv.write_kitti_format(world, args.out)
     else:
-        raise NotImplementedError(f"synth --kind {args.kind} is not ported yet (ROADMAP Queue 1)")
+        for s in range(args.sessions):
+            world = sv.make_hall_world(num_landmarks=args.landmarks or 8000,
+                                       num_steps=args.steps or 400, session=s, seed=args.seed)
+            sv.write_euroc_format(world, f"{args.out}/MH{s + 1:02d}")
+            print(f"  session MH{s + 1:02d}: {len(world)} frames")
     print(f"wrote {args.kind} dataset: {len(world)} frames, {len(world.landmarks)} landmarks "
           f"-> {args.out} ({time.time() - t0:.1f}s)")
 
@@ -403,20 +557,21 @@ def main(argv=None):
     p_run.add_argument("--out", default="",
                        help="trajectory output (corridor: x y theta rows; vision: TUM format)")
     p_run.add_argument("--frames", type=int, default=0,
-                       help="first N frames of a TUM or KITTI sequence")
+                       help="first N frames of a TUM, KITTI or EuRoC sequence (of each session)")
     p_run.add_argument("--ba", type=int, default=0,
-                       help="joint-BA LM iterations after a EuRoC multi-session run (not ported)")
+                       help="joint-BA LM iterations after a EuRoC multi-session run "
+                            "(0: backend.gn_iters)")
     p_run.add_argument("--device", default="cuda")
     p_run.set_defaults(fn=cmd_run)
 
-    p_synth = sub.add_parser("synth", help="write a synthetic TUM- or KITTI-format dataset")
+    p_synth = sub.add_parser("synth", help="write a synthetic TUM-, KITTI- or EuRoC-format dataset")
     p_synth.add_argument("--kind", required=True, choices=("tum", "kitti", "euroc"))
     p_synth.add_argument("--out", required=True)
     p_synth.add_argument("--steps", type=int, default=0)
     p_synth.add_argument("--landmarks", type=int, default=0)
     p_synth.add_argument("--seed", type=int, default=20)
-    p_synth.add_argument("--sessions", type=int, default=None,
-                         help="euroc: number of sessions sharing one world (not ported)")
+    p_synth.add_argument("--sessions", type=int, default=3,
+                         help="euroc: number of MH sessions sharing one world")
     p_synth.set_defaults(fn=cmd_synth)
 
     p_eval = sub.add_parser("eval", help="ATE between two TUM trajectories")

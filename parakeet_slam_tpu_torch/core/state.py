@@ -11,7 +11,7 @@ reference's uint32 words; the 2-D path keeps W=0.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -40,7 +40,8 @@ class ParticleState:
     lm_mean: torch.Tensor
     lm_cov: torch.Tensor
     lm_sig: torch.Tensor
-    lm_desc: torch.Tensor
+    # uint32 on disk, as the reference stores the words (utils/checkpoint.py)
+    lm_desc: torch.Tensor = field(metadata={"npz_view": np.uint32})
     lm_valid: torch.Tensor
     lm_count: torch.Tensor
 

@@ -1,7 +1,8 @@
 """Synthetic vision worlds (port of `parakeet_slam_tpu.data.synth_vision`):
-a TUM fr1/desk-class monocular world (benchmark config 2) and a KITTI
-00-class stereo world (benchmark config 3), rendered as Gaussian-blob images
-through a real camera, and the TUM and KITTI on-disk writers.
+a TUM fr1/desk-class monocular world (benchmark config 2), a KITTI
+00-class stereo world (benchmark config 3) and a EuRoC machine-hall world
+of several sessions (benchmark config 4), rendered as Gaussian-blob images
+through a real camera, and the TUM, EuRoC and KITTI on-disk writers.
 
 The numpy random streams are the reference's, so the landmarks, poses,
 odometry and textures equal the JAX package's (the geometry runs in
@@ -255,6 +256,59 @@ def make_drive_world(
     )
 
 
+def make_hall_world(
+    num_landmarks: int = 8000,
+    num_steps: int = 400,
+    session: int = 0,
+    image_size: tuple[int, int] = (480, 752),
+    intrinsics: tuple[float, ...] = (458.654, 457.296, 367.215, 248.375),
+    odom_noise: tuple[float, float] = (0.01, 0.004),
+    seed: int = 30,
+) -> VisionWorld:
+    """EuRoC MH-class multi-session world (benchmark config 4): a machine
+    hall (points on its four walls and around 12 interior structures) flown
+    in an oval loop, two laps. `session` varies the loop's radius, height
+    and phase; the landmarks depend on `seed` alone, so every session
+    revisits the same structure and the cross-session closures and the
+    joint BA of config 4 have real overlap to work on."""
+    rng = np.random.default_rng(seed)  # session-independent: one shared world
+    hx, hy, hz = 9.0, 6.0, 3.0  # hall half-extents (z: 0..2*hz)
+    n_wall = int(num_landmarks * 0.6)
+    n_struct = num_landmarks - n_wall
+    side = rng.integers(0, 4, n_wall)
+    u = rng.uniform(-1, 1, n_wall)
+    z = rng.uniform(0.0, 2 * hz, n_wall)
+    wx = np.where(side == 0, hx, np.where(side == 1, -hx, u * hx))
+    wy = np.where(side < 2, u * hy, np.where(side == 2, hy, -hy))
+    walls = np.stack([wx, wy, z], axis=1)
+    n_clusters = 12
+    centers = np.stack([
+        rng.uniform(-hx * 0.7, hx * 0.7, n_clusters),
+        rng.uniform(-hy * 0.7, hy * 0.7, n_clusters),
+        rng.uniform(0.2, 2 * hz * 0.7, n_clusters),
+    ], axis=1)
+    ci = rng.integers(0, n_clusters, n_struct)
+    struct = centers[ci] + rng.normal(0, 0.6, (n_struct, 3))
+    landmarks = np.concatenate([walls, struct]).astype(np.float32)
+
+    srng = np.random.default_rng(seed + 1000 + session)
+    rx = 4.5 + 0.6 * session
+    ry = 2.8 + 0.35 * session
+    h0 = 1.0 + 0.45 * session
+    th = np.linspace(0, 4 * np.pi, num_steps, endpoint=False) + session * 1.1
+    wob = 0.15 * np.sin(2.7 * th) + 0.06 * np.sin(6.1 * th)
+    xy = np.stack([(rx + wob) * np.cos(th), (ry + wob) * np.sin(th)], axis=1)
+    # facing along the direction of travel
+    yaw = np.arctan2((ry + wob) * np.cos(th), -(rx + wob) * np.sin(th))
+    height = h0 + 0.25 * np.sin(1.7 * th)
+    poses, odom = _poses_from_track(xy, yaw, height, srng, odom_noise)
+    return VisionWorld(
+        landmarks=landmarks, gt_pose=poses, odom=odom, image_size=image_size,
+        intrinsics=tuple(float(x) for x in intrinsics[:4]), baseline=0.0,
+        max_render_range=14.0, seed=seed,
+    )
+
+
 def write_tum_format(world: VisionWorld, out_dir: str, fps: float = 30.0):
     """Write rgb/*.png + rgb.txt + groundtruth.txt (the TUM RGB-D layout
     that `data/tum.py` reads)."""
@@ -272,6 +326,34 @@ def write_tum_format(world: VisionWorld, out_dir: str, fps: float = 30.0):
         gt_lines.append(f"{ts:.6f} " + " ".join(f"{x:.6f}" for x in world.gt_pose[i]))
     (out / "rgb.txt").write_text("\n".join(rgb_lines) + "\n")
     (out / "groundtruth.txt").write_text("\n".join(gt_lines) + "\n")
+
+
+def write_euroc_format(world: VisionWorld, out_dir: str, fps: float = 20.0):
+    """Write mav0/cam0/{data.csv,data/*.png} and
+    mav0/state_groundtruth_estimate0/data.csv (the ASL layout that
+    `data/euroc.py` reads; the ground-truth quaternion is stored qw first).
+    Returns out_dir."""
+    import cv2
+
+    out = Path(out_dir)
+    cam = out / "mav0" / "cam0"
+    (cam / "data").mkdir(parents=True, exist_ok=True)
+    gt_dir = out / "mav0" / "state_groundtruth_estimate0"
+    gt_dir.mkdir(parents=True, exist_ok=True)
+    cam_rows = ["#timestamp [ns],filename"]
+    gt_rows = ["#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], "
+               "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z []"]
+    for i in range(len(world)):
+        ts_ns = int(i / fps * 1e9)
+        name = f"{ts_ns}.png"
+        cv2.imwrite(str(cam / "data" / name), (world.render(i) * 255).astype(np.uint8))
+        cam_rows.append(f"{ts_ns},{name}")
+        p = world.gt_pose[i]
+        gt_rows.append(f"{ts_ns},{p[0]:.6f},{p[1]:.6f},{p[2]:.6f},"
+                       f"{p[6]:.6f},{p[3]:.6f},{p[4]:.6f},{p[5]:.6f}")  # qw first
+    (cam / "data.csv").write_text("\n".join(cam_rows) + "\n")
+    (gt_dir / "data.csv").write_text("\n".join(gt_rows) + "\n")
+    return str(out)
 
 
 def write_kitti_format(world: VisionWorld, out_dir: str, sequence: str = "00"):

@@ -232,6 +232,7 @@ BENCH_3D = (1024, 8192, 32)       # the reference's kernel bench
 KITTI_3D = (2048, 10240, 128)     # configs/kitti_00.yaml: FastSLAM 2.0, stereo_3d
 PANORAMIC_3D = (1024, 8192, 128)  # configs/panoramic.yaml: FastSLAM 1.0, equirect_3d
 CONFIG2_3D = (512, 1024, 64)      # configs/tum_fr1_desk.yaml: FastSLAM 2.0, pinhole_3d
+CONFIG4_3D = (512, 4096, 64)      # configs/euroc_mh.yaml: FastSLAM 2.0, pinhole_3d
 # (what, model, shape, fed score_3d's scores): scoring the frame itself as
 # FastSLAM 1.0 does, and fed scores as FastSLAM 2.0 does (configs 2, 3, 4)
 UPDATE_3D_CASES = (
@@ -240,6 +241,7 @@ UPDATE_3D_CASES = (
     ("panoramic", "equirect_3d", PANORAMIC_3D, False),
     ("kitti", "stereo_3d", KITTI_3D, True),
     ("config2", "pinhole_3d", CONFIG2_3D, True),
+    ("config4", "pinhole_3d", CONFIG4_3D, True),
 )
 NOISE_3D = {"pinhole_3d": (2.0, 2.0), "stereo_3d": (1.5, 1.5, 1.0), "equirect_3d": (3.0, 3.0)}
 SCORE_3D_KEYS = ("model", "desc_words", "par", "r_var", "desc_weight")

@@ -35,9 +35,15 @@ keyframe's own measured local points are the observations, and the pose
 graph's edges are fused into the solve when `backend.ba_fuse_pose_graph` is
 set.
 
-Not ported (each raises NotImplementedError): checkpoints, distributed
-bundle adjustment (`run_ba(distributed=True)`, which needs
-`dist/dist_ba.py`) and the sharded filter.
+`save_checkpoint` / `load_checkpoint` snapshot and restore the whole run
+(filter state, pose graph, generator, keyframes, the un-flushed flag window
+and the dispatched closure matches) in the reference's two files, so that a
+resumed run equals an uninterrupted one bit for bit; `checkpoint_every`
+snapshots automatically every that many keyframes.
+
+Not ported (each raises NotImplementedError): distributed bundle adjustment
+(`run_ba(distributed=True)`, which needs `dist/dist_ba.py`) and the sharded
+filter.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from parakeet_slam_tpu_torch.frontend.detect import detect, top_k_stable
 from parakeet_slam_tpu_torch.frontend.pyramid import detect_pyramid
 from parakeet_slam_tpu_torch.frontend.stereo import keypoint_disparity
 from parakeet_slam_tpu_torch.kernels import match as match_mod
+from parakeet_slam_tpu_torch.utils import checkpoint as ckpt
 from parakeet_slam_tpu_torch.utils.metrics_log import MetricsLogger
 
 # hamming_top2 launches per closure dispatch: the forward and the reverse
@@ -163,6 +170,19 @@ class Keyframe:
         return self.anchors[-1][1]
 
 
+# rows of the stacked keyframe store before its first doubling
+KF_STORE_ROWS = 64
+
+
+def _store_capacity(n: int) -> int:
+    """Rows of the stacked keyframe store holding n keyframes:
+    KF_STORE_ROWS, doubled as needed."""
+    cap = KF_STORE_ROWS
+    while cap < n:
+        cap *= 2
+    return cap
+
+
 def _identity_pose(device) -> torch.Tensor:
     p = torch.zeros(7, device=device)
     p[6] = 1.0
@@ -191,10 +211,8 @@ class SLAMSystem:
                 d.particle_axis * d.map_axis <= torch.cuda.device_count()):
             raise NotImplementedError(
                 "the sharded filter (dist.particle_axis/map_axis > 1 on enough cards) is "
-                "not ported (ROADMAP Queue 1); on fewer cards the reference runs on one "
+                "not ported (ROADMAP Queue 1 item 3); on fewer cards the reference runs on one "
                 "device, as this port does")
-        if cfg.checkpoint_every > 0 and cfg.checkpoint_dir:
-            raise NotImplementedError("checkpoints are not ported (ROADMAP Queue 1)")
         self.slam = make_filter(cfg.filter, fe)
         self.camera = camera_mod.from_config(fe)
         self.wrap_x = fe.camera == "equirect"
@@ -206,6 +224,8 @@ class SLAMSystem:
         self.frame_idx = 0
         self.metrics = MetricsLogger(cfg.metrics_path or None)
         self.loop_closures: list[tuple[int, int]] = []
+        # the latest keyframe's pose when it was made (kept by snapshots)
+        self.last_kf_pose: np.ndarray | None = None
         # Device-side keyframe-motion reference: a flagged frame's estimate
         # becomes the reference for the next frame's test inside the step,
         # so the keyframe cadence is a function of the frame sequence alone.
@@ -309,13 +329,11 @@ class SLAMSystem:
 
     def _kf_store_append(self, kf: Keyframe):
         """Write a keyframe's descriptors into the stacked device store,
-        doubling its capacity (from 64) as needed."""
+        doubling its capacity as needed (`_store_capacity`)."""
         F, W = kf.desc.shape
         cap = 0 if self._kf_desc_dev is None else self._kf_desc_dev.shape[0]
         if kf.index + 1 > cap:
-            new_cap = 64 if cap == 0 else cap * 2
-            while new_cap < kf.index + 1:
-                new_cap *= 2
+            new_cap = _store_capacity(kf.index + 1)
             desc = torch.zeros(new_cap, F, W, dtype=torch.int32, device=self.device)
             val = torch.zeros(new_cap, F, dtype=torch.bool, device=self.device)
             if cap:
@@ -330,9 +348,7 @@ class SLAMSystem:
         self._kf_desc_dev = self._kf_valid_dev = None
         if not self.keyframes:
             return
-        cap = 64
-        while cap < len(self.keyframes):
-            cap *= 2
+        cap = _store_capacity(len(self.keyframes))
         F, W = self.keyframes[0].desc.shape
         desc = np.zeros((cap, F, W), np.int32)
         val = np.zeros((cap, F), bool)
@@ -732,8 +748,12 @@ class SLAMSystem:
                 # rows already emitted are relative to the raw estimate; rows
                 # after the flush live in the corrected frame
                 kf.anchors.append((self.frame_idx + 1, est.cpu().numpy().astype(np.float32)))
+            self.last_kf_pose = kf.pose
             self._has_kf = True
             self._dispatch_loop_closure(kf)
+        ce = self.cfg.checkpoint_every
+        if ce > 0 and self.cfg.checkpoint_dir and len(self.keyframes) % ce == 0:
+            self.save_checkpoint(f"{self.cfg.checkpoint_dir}/ckpt_{self.frame_idx:08d}")
 
     def flush_metrics(self):
         """Drain the device-side metrics buffer into the JSONL logger (one
@@ -748,13 +768,135 @@ class SLAMSystem:
             self.metrics.log(fi, ess=float(ess), landmarks=float(lms), match_frac=float(mf),
                              resampled=bool(rs), keyframes=nkf)
 
-    # -- not ported -------------------------------------------------------
+    # -- checkpoint / resume ----------------------------------------------
+
+    def _ckpt_tree(self):
+        return {"state": self.state, "graph": self.graph, "key": self.generator.get_state()}
 
     def save_checkpoint(self, path_prefix: str):
-        raise NotImplementedError("checkpoints are not ported (ROADMAP Queue 1)")
+        """Snapshot the run so that a fresh system resumes it bit for bit.
+
+        `<path_prefix>.state.npz` holds the filter state, the pose graph and
+        the generator under the reference's keys (`utils/checkpoint.py`); the
+        `['key']` leaf is `generator.get_state()`, a uint8 array, where the
+        reference keeps a threefry key. `<path_prefix>.kf.npz` holds, under
+        the reference's keys: the frame counter, the latest keyframe's pose,
+        the device keyframe reference and its latch, the closures, the
+        keyframes with their anchor segments, the un-flushed flag window
+        (`p_*`) and the dispatched but unresolved closure matches (`cp_*`,
+        padded to the largest store with -1 rows, which never match).
+        Descriptor words are stored as uint32. The flag window is persisted,
+        not flushed: a flush here would make keyframes at this frame instead
+        of at the next window boundary, and the resumed run would part from
+        the uninterrupted one."""
+        self.flush_metrics()
+        ckpt.save_checkpoint(path_prefix + ".state.npz", self._ckpt_tree(), step=self.frame_idx)
+        host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+        kfs = self.keyframes
+        pend = [(fi, host(est), host(flag), [host(a) for a in snap])
+                for fi, est, flag, snap in self._flag_pending]
+        cp = [(kidx, n_old, host(f), host(r)) for kidx, n_old, f, r in self._closure_pending]
+        if cp:
+            kmax = max(f.shape[0] for _, _, f, _ in cp)
+
+            def padk(a):
+                return np.pad(a, ((0, kmax - a.shape[0]), (0, 0)), constant_values=-1)
+
+            cp_fwd = np.stack([padk(c[2]) for c in cp])
+            cp_rev = np.stack([padk(c[3]) for c in cp])
+        else:
+            cp_fwd = cp_rev = np.zeros((0, 0, 0), np.int32)
+        F = self.cfg.frontend.max_features
+        W = self.cfg.filter.desc_words
+        words = lambda arrays, empty: (np.stack(arrays).view(np.uint32)  # noqa: E731
+                                       if arrays else np.zeros(empty, np.uint32))
+        np.savez(
+            path_prefix + ".kf.npz",
+            n=np.int32(len(kfs)),
+            frame_idx=np.int32(self.frame_idx),
+            last_kf_pose=(self.last_kf_pose if self.last_kf_pose is not None
+                          else np.full((7,), np.nan, np.float32)),
+            kf_ref=host(self._last_kf_dev).astype(np.float32),
+            has_kf=np.bool_(self._has_kf),
+            loop_closures=np.asarray(self.loop_closures, np.int32).reshape(-1, 2),
+            pose=np.stack([k.pose for k in kfs]) if kfs else np.zeros((0, 7), np.float32),
+            points=(np.stack([k.points_kf for k in kfs]) if kfs
+                    else np.zeros((0, 0, 3), np.float32)),
+            desc=words([k.desc for k in kfs], (0, 0, 1)),
+            valid=np.stack([k.valid for k in kfs]) if kfs else np.zeros((0, 0), bool),
+            kf_frame=np.asarray([k.frame for k in kfs], np.int32),
+            anchor_kf=np.asarray([k.index for k in kfs for _ in k.anchors], np.int32),
+            anchor_start=np.asarray([st for k in kfs for st, _ in k.anchors], np.int64),
+            anchor_val=(np.stack([a for k in kfs for _, a in k.anchors]) if kfs
+                        else np.zeros((0, 7), np.float32)),
+            p_frame=np.asarray([p[0] for p in pend], np.int32),
+            p_est=np.stack([p[1] for p in pend]) if pend else np.zeros((0, 7), np.float32),
+            p_flag=np.asarray([p[2] for p in pend], bool),
+            p_pts=np.stack([p[3][0] for p in pend]) if pend else np.zeros((0, F, 3), np.float32),
+            p_desc=words([p[3][1] for p in pend], (0, F, max(W, 1))),
+            p_valid=np.stack([p[3][2] for p in pend]) if pend else np.zeros((0, F), bool),
+            cp_kidx=np.asarray([c[0] for c in cp], np.int32),
+            cp_nold=np.asarray([c[1] for c in cp], np.int32),
+            cp_fwd=cp_fwd, cp_rev=cp_rev,
+        )
 
     def load_checkpoint(self, path_prefix: str):
-        raise NotImplementedError("checkpoints are not ported (ROADMAP Queue 1)")
+        """Restore a `save_checkpoint` snapshot into this system, replacing
+        any pending work of its own; the reference's older layouts (no
+        `has_kf`, `anchor_kf`, `kf_frame` or `cp_kidx`) are read as the
+        reference reads them. Raises ValueError when the state layout or the
+        generator does not fit this system."""
+        tree, _ = ckpt.load_checkpoint(path_prefix + ".state.npz", self._ckpt_tree())
+        self.state, self.graph = tree["state"], tree["graph"]
+        self.generator.set_state(tree["key"])
+        T = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
+        data = np.load(path_prefix + ".kf.npz")
+        self.frame_idx = int(data["frame_idx"])
+        lkp = data["last_kf_pose"]
+        self.last_kf_pose = None if np.isnan(lkp).any() else lkp
+        self._metrics_pending = []
+        if "has_kf" in data:
+            self._has_kf = bool(data["has_kf"])
+            self._last_kf_dev = T(data["kf_ref"])
+        else:  # the reference's round-3 layout
+            self._has_kf = self.last_kf_pose is not None
+            self._last_kf_dev = (T(self.last_kf_pose) if self._has_kf
+                                 else _identity_pose(self.device))
+        self._flag_pending = []
+        if "p_est" in data:
+            for i in range(len(data["p_est"])):
+                snap = (T(data["p_pts"][i]), T(data["p_desc"][i].view(np.int32)),
+                        T(data["p_valid"][i]))
+                self._flag_pending.append((int(data["p_frame"][i]), T(data["p_est"][i]),
+                                           T(data["p_flag"][i]), snap))
+        self.loop_closures = [tuple(int(x) for x in r) for r in data["loop_closures"]]
+        # Each match table goes back to the store capacity it was launched
+        # against (the padding past it is -1 rows), so the resolution sees
+        # the tables of the uninterrupted run.
+        self._closure_pending = []
+        if "cp_kidx" in data:
+            for i, (kidx, n_old) in enumerate(zip(data["cp_kidx"], data["cp_nold"])):
+                k = min(data["cp_fwd"].shape[1], _store_capacity(int(kidx) + 1))
+                self._closure_pending.append((int(kidx), int(n_old), T(data["cp_fwd"][i, :k]),
+                                              T(data["cp_rev"][i, :k])))
+        n_kf = int(data["n"])
+        kf_frame = (data["kf_frame"] if "kf_frame" in data
+                    else np.arange(n_kf, dtype=np.int32))
+        if "anchor_kf" in data:
+            segs: list[list] = [[] for _ in range(n_kf)]
+            for ki, st, av in zip(data["anchor_kf"], data["anchor_start"], data["anchor_val"]):
+                segs[int(ki)].append((int(st), av.copy()))
+        else:  # the reference's single mutable anchor per keyframe
+            legacy = data["anchor"] if "anchor" in data else data["pose"]
+            segs = [[(int(kf_frame[i]), legacy[i].copy())] for i in range(n_kf)]
+        desc = data["desc"].view(np.int32)
+        self.keyframes = [
+            Keyframe(index=i, pose=data["pose"][i], points_kf=data["points"][i], desc=desc[i],
+                     valid=data["valid"][i], frame=int(kf_frame[i]), anchors=segs[i],
+                     gdesc=_global_descriptor(desc[i], data["valid"][i]))
+            for i in range(n_kf)
+        ]
+        self._rebuild_kf_store()
 
     # -- offline refinement ----------------------------------------------
 
@@ -824,6 +966,37 @@ class SLAMSystem:
         g = self.graph
         return g.edge_ij[:ne], g.edge_rel[:ne], g.edge_info[:ne] * weight, g.edge_valid[:ne]
 
+    def ba_problem(self) -> graph_mod.BAProblem | None:
+        """`build_ba_problem` with the backend's observation gates applied
+        (reprojection outliers, observations per point): the problem
+        `run_ba` and the multi-session joint BA solve."""
+        prob = self.build_ba_problem()
+        if prob is None:
+            return None
+        be = self.cfg.backend
+        if be.ba_outlier_px > 0:
+            prob = graph_mod.gate_outlier_obs(self.camera, prob, be.ba_outlier_px)
+        if be.ba_max_obs_per_point > 0:
+            prob = graph_mod.cap_obs_per_point(prob, be.ba_max_obs_per_point)
+        return prob
+
+    def solve_ba(self, prob, iters: int | None = None):
+        """One single-device LM solve of `prob` with the backend's settings
+        (the pose graph's edges fused when `backend.ba_fuse_pose_graph`);
+        the keyframes are left as they are."""
+        be = self.cfg.backend
+        return ba_mod.optimize_ba(
+            self.camera, prob,
+            iters=iters or be.gn_iters,
+            lam=be.lm_damping_init,
+            pcg_iters=be.pcg_iters,
+            huber_delta=be.huber_delta,
+            solver=be.solver if be.solver in ("pcg", "dense") else "pcg",
+            step_clamp=(be.ba_step_clamp_cam, be.ba_step_clamp_pt),
+            pose_edges=(self.graph_pose_edges(be.ba_pose_edge_weight)
+                        if be.ba_fuse_pose_graph else None),
+        )
+
     def run_ba(self, iters: int | None = None, distributed: bool | None = None):
         """Refine the keyframe poses and the deduped points by bundle
         adjustment with the single-device bucketed solver; returns its
@@ -836,26 +1009,11 @@ class SLAMSystem:
             distributed = 1 < d.map_axis <= n_dev
         if distributed:
             raise NotImplementedError("distributed bundle adjustment (dist/dist_ba.py) is not "
-                                      "ported (ROADMAP Queue 1)")
-        prob = self.build_ba_problem()
+                                      "ported (ROADMAP Queue 1 item 3)")
+        prob = self.ba_problem()
         if prob is None:
             return None
-        be = self.cfg.backend
-        if be.ba_outlier_px > 0:
-            prob = graph_mod.gate_outlier_obs(self.camera, prob, be.ba_outlier_px)
-        if be.ba_max_obs_per_point > 0:
-            prob = graph_mod.cap_obs_per_point(prob, be.ba_max_obs_per_point)
-        res = ba_mod.optimize_ba(
-            self.camera, prob,
-            iters=iters or be.gn_iters,
-            lam=be.lm_damping_init,
-            pcg_iters=be.pcg_iters,
-            huber_delta=be.huber_delta,
-            solver=be.solver if be.solver in ("pcg", "dense") else "pcg",
-            step_clamp=(be.ba_step_clamp_cam, be.ba_step_clamp_pt),
-            pose_edges=(self.graph_pose_edges(be.ba_pose_edge_weight)
-                        if be.ba_fuse_pose_graph else None),
-        )
+        res = self.solve_ba(prob, iters)
         poses_np = res.problem.cam_pose.cpu().numpy()
         for i, kf in enumerate(self.keyframes):
             kf.pose = poses_np[i]
