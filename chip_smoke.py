@@ -160,7 +160,28 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      closures, the pending flag window and closure matches), bit for bit,
      and the same from a second cut inside a flag window with closure
      matches pending, where session one has one; the first resume's last 3
-     frames run under torch.profiler (launches, device busy, idle share).
+     frames run under torch.profiler (launches, device busy, idle share);
+  16. benchmark config 5's distributed layer at world size 1, inside a
+     one-rank NCCL process group that the phase starts on a free local port
+     and destroys (no fallback when NCCL or the card is missing): the
+     sharded filter (`dist.ShardedFastSLAM` on a 1 x 1 mesh) at the full
+     width of configs/panoramic.yaml (FastSLAM 1.0, equirect_3d, P=1024,
+     L=8192, Z=128, W=8) for 10 frames fed from the panoramic world's
+     projection (`kernel_inputs.panoramic_observations`, >= 100 valid
+     observations a frame): every state leaf and every estimate bit-equal
+     to `FastSLAM.step` on the same draws, one measurement_update_3d launch
+     a frame and one gather a resample (>= 1), its first 2 frames replayed
+     on the twin path (lm_valid and lm_count equal, estimates within 1e-5),
+     frames/s, launches a frame, idle share and peak memory; the snapshot
+     of the gathered state after frame 5 resumed through
+     `multihost.resume_or_init` and frames 6-10 bit-equal; the ring match at
+     the config-5 demo's shape (M=131,072, N=256, W=8) against the dense
+     twin (b1 and b2 equal, idx equal off ties) and timed beside
+     hamming_top2 alone on the whole database; the distributed BA at the
+     demo's size (64 cameras, 110,000 points, 128,000 observations, 3 LM x
+     15 PCG, S=1) with costs within rtol=1e-4 of the same solver through
+     apply_cinv's twin, ms per LM iteration beside `ba.optimize_ba` on the
+     same problem.
 Every kernel's record carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and its
 operations over the card's peak for their type (67 TFLOP/s float32, 1,979
@@ -174,7 +195,8 @@ is no CUDA device or no package beside the script. The last line is
 (the seven kernels: ekf_update_2d, gather_rows, measurement_update_3d,
 score_3d, hamming_top2, l2_top2, apply_cinv) and the line before that the
 card's name and power limit. The records of the five kernels on config 4's
-path carry its launches as `launches_config4`.
+path carry its launches as `launches_config4`, those of the four on config
+5's distributed path as `launches_config5`.
 """
 
 from __future__ import annotations
@@ -1949,6 +1971,264 @@ def phase_config4(device):
             "ba_s_per_iter": ba_s / len(costs)}
 
 
+CONFIG5_FRAMES = 10
+CONFIG5_CUT = 5          # the snapshot after frame 5, resumed for frames 6-10
+CONFIG5_TWIN_FRAMES = 2  # the first frames replayed on the twin path
+CONFIG5_PROFILE_FRAMES = 2  # the run's last frames, profiled
+CONFIG5_MIN_OBS = 100    # valid observations a frame
+CONFIG5_BA = dict(C=64, Pts=110000, obs_per_cam=2000)  # eval/config5_demo's problem
+CONFIG5_BA_ITERS, CONFIG5_BA_PCG = 3, 15
+CONFIG5_RING = (131072, 256)  # eval/config5_demo's database rows and queries
+
+
+def phase_config5(device, card):
+    """Benchmark config 5's distributed layer at world size 1 under NCCL:
+    the sharded filter at full width against the one-device step, a resume,
+    the ring match and the distributed BA."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from parakeet_slam_tpu_torch.backend import ba
+    from parakeet_slam_tpu_torch.core.config import load_config
+    from parakeet_slam_tpu_torch.core.state import Observation
+    from parakeet_slam_tpu_torch.data.panoramic import make_panoramic_world
+    from parakeet_slam_tpu_torch.dist import dist_ba, mesh as mesh_mod
+    from parakeet_slam_tpu_torch.dist.multihost import (
+        free_local_port, resume_or_init, snapshot_every,
+    )
+    from parakeet_slam_tpu_torch.dist.ring_match import ring_hamming_top2
+    from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
+    from parakeet_slam_tpu_torch.eval import config5_demo
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import descriptors, panoramic_observations
+    from parakeet_slam_tpu_torch.filter import make_filter
+    from parakeet_slam_tpu_torch.filter.runner import draw_noise
+    from parakeet_slam_tpu_torch.kernels import match, schur
+
+    check(tdist.is_available() and tdist.is_nccl_available(), "torch.distributed has no NCCL")
+    torch.cuda.set_device(device)
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_local_port()}",
+                             world_size=1, rank=0, device_id=device)
+    out = {}
+    try:
+        check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+              f"process group {tdist.get_backend()} x {tdist.get_world_size()}")
+        mesh = mesh_mod.make_mesh(map_axis=1)
+        print(f"config 5: process group {tdist.get_backend()}, world size "
+              f"{tdist.get_world_size()}, mesh {mesh.shape}")
+
+        # -- the sharded filter at full width --------------------------------
+        cfg = load_config(os.path.join(HERE, "configs/panoramic.yaml"))
+        fc = cfg.filter
+        check((fc.algorithm, fc.measurement_model, fc.num_particles, fc.max_landmarks,
+               fc.max_observations, fc.desc_words) == ("fastslam1", "equirect_3d", 1024, 8192,
+                                                       128, 8),
+              f"configs/panoramic.yaml is not config 5 at full width: {fc}")
+        P, L, Z, W = fc.num_particles, fc.max_landmarks, fc.max_observations, fc.desc_words
+        slam = make_filter(fc, cfg.frontend)
+        sharded = ShardedFastSLAM(slam, mesh)
+        T = CONFIG5_FRAMES
+        world = make_panoramic_world(num_landmarks=300, num_steps=T,
+                                     image_size=tuple(cfg.frontend.image_size))
+        frames = []
+        for t in range(T):
+            z, desc, valid = panoramic_observations(world, t, Z, W, seed=0)
+            frames.append((torch.as_tensor(world.odom[t], device=device), Observation(
+                z=torch.as_tensor(z, device=device), sig=torch.zeros(Z, 0, device=device),
+                desc=torch.as_tensor(desc.view(np.int32), device=device),
+                valid=torch.as_tensor(valid, device=device))))
+        n_valid = [int(o.valid.sum()) for _, o in frames]
+        check(min(n_valid) >= CONFIG5_MIN_OBS, f"config 5 valid observations a frame {n_valid}")
+        gen = torch.Generator(device=device).manual_seed(0)
+        noise, u0 = draw_noise(T, P, slam.noise_dim, gen, device)
+        pose0 = world.gt_pose[0]
+
+        def run_sharded(st, t0, t1, keep=None):
+            est, res = [], []
+            for t in range(t0, t1):
+                u, obs = frames[t]
+                st, m = sharded.step(st, u, obs, sharded.local_draws(noise[t]), u0[t])
+                est.append(sharded.estimate_pose(st))
+                res.append(m.resampled)
+                if keep is not None and t + 1 in keep:
+                    keep[t + 1] = sharded.gather_state(st).clone()
+            return st, est, res
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts_3d()
+        st = sharded.init_state(init_pose=pose0, device=device)
+        keep = {CONFIG5_CUT: None}
+        st, est, res = run_sharded(st, 0, 1, keep)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, more, more_res = run_sharded(st, 1, T - CONFIG5_PROFILE_FRAMES, keep)
+        torch.cuda.synchronize()
+        n_timed = T - CONFIG5_PROFILE_FRAMES - 1
+        fps = n_timed / (time.perf_counter() - t0)
+        est, res = est + more, res + more_res
+        box = {}
+
+        def profiled():
+            box["out"] = run_sharded(st, T - CONFIG5_PROFILE_FRAMES, T)
+
+        n_dev, busy, wall, top = _profile(profiled)
+        st, more, more_res = box["out"]
+        est, res = est + more, res + more_res
+        launches = _counts_3d()
+        peak = torch.cuda.max_memory_allocated()
+        n_res = sum(res)
+        state_mb = sum(getattr(st, f).numel() * getattr(st, f).element_size()
+                       for f in STATE_KEYS + ("lm_desc",)) / 1e6
+        print(f"config 5 sharded filter (FastSLAM 1.0 equirect_3d P={P} L={L} Z={Z} W={W}, "
+              f"{state_mb:.1f} MB of state): {T} frames, fps={fps:.3f} (frames 2-"
+              f"{T - CONFIG5_PROFILE_FRAMES}) valid obs {min(n_valid)}-{max(n_valid)} a frame "
+              f"resamples={n_res} peak_mem={peak / 2**30:.3f} GiB launches score_3d={launches[0]} "
+              f"update_3d={launches[1]} gather={launches[2]} "
+              f"landmarks/particle={float(st.num_landmarks().float().mean()):.1f}")
+        print(f"config 5 profile, {CONFIG5_PROFILE_FRAMES} frames: "
+              f"{n_dev / CONFIG5_PROFILE_FRAMES:.0f} launches a frame, device busy "
+              f"{busy / CONFIG5_PROFILE_FRAMES:.2f} of {wall / CONFIG5_PROFILE_FRAMES:.2f} ms a "
+              f"frame, idle share {1 - busy / wall:.3f}; top {top}")
+        check(bool(torch.isfinite(torch.stack(est)).all()), "config 5 estimates not finite")
+        check(launches[1] == T and launches[0] == 0,
+              f"config 5 launches update_3d={launches[1]} score_3d={launches[0]}, frames {T}")
+        check(n_res >= 1 and launches[2] == n_res,
+              f"config 5 gather launches {launches[2]}, resamples {n_res}")
+        out.update(fps=fps, launches=launches, peak_gib=peak / 2**30,
+                   idle=1 - busy / wall, launches_frame=n_dev / CONFIG5_PROFILE_FRAMES)
+
+        # the one-device step on the same draws: every leaf and estimate equal
+        ref = slam.init_state(init_pose=pose0, device=device)
+        ref_est = []
+        for t in range(T):
+            u, obs = frames[t]
+            ref, _ = slam.step(ref, u, obs, noise[t], u0[t])
+            ref_est.append(slam.estimate_pose(ref))
+        full = sharded.gather_state(st)
+        for f in STATE_KEYS + ("lm_desc",):
+            a, b = getattr(full, f), getattr(ref, f)
+            check(torch.equal(a, b), f"config 5 sharded vs one device: {f} differs in "
+                                     f"{int((a != b).sum())}")
+        check(torch.equal(torch.stack(est), torch.stack(ref_est)),
+              "config 5 sharded vs one device: estimates differ")
+        print(f"config 5 sharded vs FastSLAM.step, {T} frames: every state leaf and estimate "
+              f"bit-equal ({int(full.lm_valid.sum())} live lanes)")
+        del ref, full
+
+        # the first frames on the twin path
+        st_k, est_k, _ = run_sharded(sharded.init_state(init_pose=pose0, device=device), 0,
+                                     CONFIG5_TWIN_FRAMES)
+        restore = _twin_path()
+        try:
+            st_t, est_t, _ = run_sharded(sharded.init_state(init_pose=pose0, device=device), 0,
+                                         CONFIG5_TWIN_FRAMES)
+        finally:
+            restore()
+        for k in ("lm_valid", "lm_count"):
+            a, b = getattr(st_k, k), getattr(st_t, k)
+            check(torch.equal(a, b), f"config 5 kernel vs twin path: {k} differs in "
+                                     f"{int((a != b).sum())}")
+        err = float((torch.stack(est_k) - torch.stack(est_t)).abs().max())
+        check(err <= 1e-5, f"config 5 kernel vs twin path: estimates differ by {err}")
+        print(f"config 5 kernel vs twin path, {CONFIG5_TWIN_FRAMES} frames: lm_valid and "
+              f"lm_count equal ({int(st_k.lm_valid.sum())} live lanes), est max |diff| {err:.3g}")
+        del st_k, st_t
+
+        # resume: the gathered state after frame 5 through the snapshot store
+        ckpt_dir = os.path.join(HERE, "build", "chip_smoke_config5")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        t_s = time.perf_counter()
+        snapshot_every(ckpt_dir, CONFIG5_CUT)(keep[CONFIG5_CUT], CONFIG5_CUT)
+        t_save = time.perf_counter() - t_s
+        t_s = time.perf_counter()
+        glob, start = resume_or_init(ckpt_dir, sharded.global_template(st),
+                                     lambda: None)
+        back = sharded.shard_state(glob, device=device)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t_s
+        check(start == CONFIG5_CUT, f"config 5 resumed at step {start}")
+        back, est_r, _ = run_sharded(back, CONFIG5_CUT, T)
+        for f in STATE_KEYS + ("lm_desc",):
+            check(torch.equal(getattr(back, f), getattr(st, f)), f"config 5 resume: {f} differs")
+        check(torch.equal(torch.stack(est_r), torch.stack(est[CONFIG5_CUT:])),
+              "config 5 resume: estimates differ")
+        mb = sum(os.path.getsize(os.path.join(ckpt_dir, n)) for n in os.listdir(ckpt_dir)) / 1e6
+        print(f"config 5 resume: snapshot after frame {CONFIG5_CUT} ({mb:.1f} MB, saved in "
+              f"{t_save:.2f} s, loaded and sharded in {t_load:.2f} s), frames "
+              f"{CONFIG5_CUT + 1}-{T} bit-equal in every state leaf and estimate")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        del back, st, keep
+
+        # -- the ring match at the demo's shape ---------------------------------
+        M, N = CONFIG5_RING
+        rng = np.random.default_rng(0)
+        qd = torch.as_tensor(descriptors(rng, (N, 8)), device=device)
+        db = torch.as_tensor(descriptors(rng, (M, 8)), device=device)
+        dbv = torch.as_tensor(rng.random(M) > 0.05, device=device)
+        qv = torch.ones(N, dtype=torch.bool, device=device)
+        match.hamming_top2.launches = 0
+        bi, b1, b2 = ring_hamming_top2(qd, qv, db, dbv, mesh)
+        ring_launches = match.hamming_top2.launches
+        ri, r1, r2 = match.hamming_top2_reference(qd, db, dbv)
+        ties = r1 == r2
+        check(torch.equal(b1, r1) and torch.equal(b2, r2), "config 5 ring match: b1/b2 differ")
+        check(torch.equal(bi[~ties], ri[~ties]), "config 5 ring match: idx differs off ties")
+        ms_ring = cuda_ms(lambda: ring_hamming_top2(qd, qv, db, dbv, mesh), reps=20)
+        ms_alone = cuda_ms(lambda: match.hamming_top2(qd, db, dbv), reps=20)
+        print(f"config 5 ring match M={M} N={N} W=8 over {mesh.size} rank: b1, b2 equal to the "
+              f"twin, idx equal off {int(ties.sum())} ties ({int((bi == ri).sum())} of {N} equal); "
+              f"ring {ms_ring:.4f} ms, hamming_top2 alone on the whole database "
+              f"{ms_alone:.4f} ms (median of 20 calls) | {card}")
+        out.update(ring_launches=ring_launches, ms_ring=ms_ring, ms_ring_alone=ms_alone)
+
+        # -- the distributed BA at the demo's size ------------------------------
+        cam, prob = config5_demo.make_big_ba(device=device, **CONFIG5_BA)
+        sp = dist_ba.shard_problem(prob, 1)
+        kw = dict(iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG, huber_delta=50.0,
+                  lam=config5_demo.BA_LAM)
+        dist_ba.optimize_ba_distributed(cam, sp, mesh, **kw)  # warm-up
+        torch.cuda.synchronize()
+        schur.apply_cinv.launches = 0
+        t_s = time.perf_counter()
+        res_p, costs = dist_ba.optimize_ba_distributed(cam, sp, mesh, **kw)
+        torch.cuda.synchronize()
+        ms_it = (time.perf_counter() - t_s) / CONFIG5_BA_ITERS * 1e3
+        cinv_launches = schur.apply_cinv.launches
+        saved = schur.cinv_apply
+        schur.cinv_apply = lambda C, u, eps=1e-12: schur.apply_cinv_reference(C, u, eps)
+        try:
+            _, costs_twin = dist_ba.optimize_ba_distributed(cam, sp, mesh, **kw)
+        finally:
+            schur.cinv_apply = saved
+        c, ct = costs.cpu().numpy(), costs_twin.cpu().numpy()
+        check(np.isfinite(c).all() and c[-1] < c[0], f"config 5 BA costs {c}")
+        check(np.allclose(c, ct, rtol=1e-4, atol=0.0), f"config 5 BA kernel {c} vs twin {ct}")
+        check(cinv_launches == CONFIG5_BA_ITERS * (CONFIG5_BA_PCG + 3),
+              f"config 5 BA apply_cinv launches {cinv_launches}")
+        ba.optimize_ba(cam, prob, iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG,
+                       huber_delta=50.0, lam=config5_demo.BA_LAM)  # warm-up
+        torch.cuda.synchronize()
+        t_s = time.perf_counter()
+        one = ba.optimize_ba(cam, prob, iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG,
+                             huber_delta=50.0, lam=config5_demo.BA_LAM)
+        torch.cuda.synchronize()
+        ms_one = (time.perf_counter() - t_s) / CONFIG5_BA_ITERS * 1e3
+        print(f"config 5 distributed BA (C=64 points={prob.num_points} obs={prob.num_obs}, "
+              f"{CONFIG5_BA_ITERS} LM x {CONFIG5_BA_PCG} PCG, S=1): {ms_it:.1f} ms per LM "
+              f"iteration, cost {' -> '.join(f'{x:.1f}' for x in c)}, through the twin "
+              f"{' -> '.join(f'{x:.1f}' for x in ct)}, apply_cinv launches={cinv_launches}; "
+              f"ba.optimize_ba on the same problem {ms_one:.1f} ms per LM iteration, cost "
+              f"{float(one.costs[-1]):.1f} | {card}")
+        out.update(ba_ms=ms_it, ba_one_ms=ms_one, cinv_launches=cinv_launches)
+        del res_p, prob, sp
+    finally:
+        tdist.destroy_process_group()
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "parakeet_slam_tpu_torch", "csrc")):
         raise SystemExit("chip_smoke FAILED: run from a checkout of the repository")
@@ -1983,6 +2263,7 @@ def main():
     ba_run = run(phase_ba, device)
     sys_ba = run(phase_run_ba, desk)
     config4 = run(phase_config4, device)
+    config5 = run(phase_config5, device, card)
 
     pkg = "parakeet_slam_tpu_torch"
 
@@ -2015,7 +2296,8 @@ def main():
               ms_single_call=gat[4], plain_ms_single_call=gat[5],
               ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][4],
               plain_ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][5],
-              launches_stereo=stereo["launches"][2], launches_config4=config4["launches"][2]),
+              launches_stereo=stereo["launches"][2], launches_config4=config4["launches"][2],
+              launches_config5=config5["launches"][2]),
         entry("measurement_update_3d", "ekf_update_3d.cu",
               "parakeet_slam_tpu/kernels/ekf_update_3d.py:664", stereo["launches"][1], err3,
               x3["update"], x3["update_twin"], x3["update_bound"],
@@ -2025,6 +2307,7 @@ def main():
               plain_ms_config4=x4["update_twin"], bound_ms_config4=x4["update_bound"][0],
               launches_desk=desk["launches"][1],
               launches_vision=vision["launches"][1], launches_config4=config4["launches"][1],
+              launches_config5=config5["launches"][1],
               ms_self_scoring=t3["update"], plain_ms_self_scoring=t3["update_twin"],
               bound_ms_self_scoring=t3["update_bound"][0],
               ms_self_scoring_single_call=t3["update_single"],
@@ -2041,7 +2324,8 @@ def main():
         entry("hamming_top2", "match.cu", "parakeet_slam_tpu/kernels/match.py:269",
               desk["launches"][3], 0.0, km["ham"][0], km["ham"][1], km["ham"][2],
               launches_run_ba=sys_ba["launches"][0], launches_stereo=stereo["launches"][3],
-              launches_config4=config4["launches"][3],
+              launches_config4=config4["launches"][3], launches_config5=config5["ring_launches"],
+              ms_ring_config5=config5["ms_ring"], ms_config5_whole_database=config5["ms_ring_alone"],
               ms_closure_config2_forward=c2f[0], ms_closure_config2_reverse=c2r[0],
               plain_ms_closure_config2_forward=c2f[1], bound_ms_closure_config2_forward=c2f[2][0],
               ms_closure_panoramic_forward=pnf[0], ms_closure_panoramic_reverse=pnr[0],
@@ -2056,7 +2340,8 @@ def main():
               ba_run["launches"], cinv["err"], cinv["ms"], cinv["plain"], cinv["bound"],
               library=cinv["library"], ms_bucket=cinv["ms_bucket"],
               bound_ms_all_of_c=cinv["bound_laid_out"],
-              launches_run_ba=sys_ba["launches"][1], launches_config4=config4["launches"][4]),
+              launches_run_ba=sys_ba["launches"][1], launches_config4=config4["launches"][4],
+              launches_config5=config5["cinv_launches"]),
     ]}
     print(card)
     print(json.dumps(record))

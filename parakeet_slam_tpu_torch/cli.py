@@ -24,6 +24,12 @@ dataset, the corridor benchmark, and the per-kernel benchmarks.
 `--device` defaults to cuda and fails when there is no card; only
 `--device cpu` runs on the CPU (through the kernels' plain twins). Any
 config field can be overridden with `--set filter.num_particles=512`.
+
+`run` on N ranks: start N processes with the reference's variables
+COORDINATOR_ADDRESS=host:port, NUM_PROCESSES=N and PROCESS_ID=0..N-1 (gloo
+on the CPU; NCCL with one card per rank). The system shards its filter when
+N = dist.particle_axis * dist.map_axis; only rank 0 prints and writes
+files.
 """
 
 from __future__ import annotations
@@ -128,9 +134,25 @@ def measure_corridor(device, num_steps: int = 500, seeds=range(5), cfg=None) -> 
 
 
 def cmd_run(args):
-    from parakeet_slam_tpu_torch.core.config import load_config
+    import contextlib
+    import io
+
+    from parakeet_slam_tpu_torch.dist.multihost import initialize_multihost, process_index
 
     device = resolve_device(args.device)
+    if not torch.distributed.is_initialized():
+        initialize_multihost()
+    if process_index() == 0:
+        return _cmd_run(args, device)
+    # every rank runs the program; rank 0 alone prints and writes files
+    args.out = ""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return _cmd_run(args, device)
+
+
+def _cmd_run(args, device):
+    from parakeet_slam_tpu_torch.core.config import load_config
+
     cfg = load_config(args.config, _parse_overrides(args.set))
     if cfg.data.dataset == "panoramic":
         return _run_panoramic(cfg, args, device)
@@ -406,10 +428,18 @@ def _run_euroc_multisession(cfg, args, roots, device, draws=None):
     import tempfile
 
     from parakeet_slam_tpu_torch.data.euroc import load_multi_session
+    from parakeet_slam_tpu_torch.dist.multihost import process_index
     from parakeet_slam_tpu_torch.utils.metrics_log import export_trajectory
 
     sessions = load_multi_session(roots)
-    ckpt_dir = cfg.checkpoint_dir or tempfile.mkdtemp(prefix="euroc_ms_")
+    ckpt_dir = cfg.checkpoint_dir
+    if not ckpt_dir and process_index() == 0:
+        ckpt_dir = tempfile.mkdtemp(prefix="euroc_ms_")
+    if torch.distributed.is_initialized():
+        # the ranks share rank 0's snapshot directory
+        box = [ckpt_dir]
+        torch.distributed.broadcast_object_list(box, src=0)
+        ckpt_dir = box[0]
     t0 = time.perf_counter()
     run = run_sessions(cfg, sessions, device, ckpt_dir, frames=args.frames, draws=draws)
     wall = time.perf_counter() - t0

@@ -1,5 +1,7 @@
 // Resampling payload gather: out_leaf[i, :] = in_leaf[idx[i], :] for every
-// leaf of the particle state, in ONE launch.
+// leaf of the particle state, in ONE launch. The P output rows may be fewer
+// than the P_src source rows (the ring gather of the sharded filter takes
+// a block's resident rows only).
 //
 // Replaces the TPU kernel parakeet_slam_tpu/kernels/resample_pallas.py
 // (gather_rows, called once per leaf by gather_state). Each leaf is viewed
@@ -57,16 +59,18 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Entry i of the index vector, int64 (`wide`) or int32 as the caller holds it.
+// Entry i of the index vector, int64 (`wide`) or int32 as the caller holds
+// it; every entry is a row of the source leaves, which have n_src rows.
 struct Index {
   const void* data;
   int wide;
+  int n_src;
 };
 
-__device__ __forceinline__ int checked(Index idx, int i, int P) {
+__device__ __forceinline__ int checked(Index idx, int i) {
   const long long j = idx.wide ? static_cast<const long long*>(idx.data)[i]
                                : static_cast<const int32_t*>(idx.data)[i];
-  if (j < 0 || j >= P) __trap();  // indices come from searchsorted, clamped
+  if (j < 0 || j >= idx.n_src) __trap();  // indices come from searchsorted, clamped
   return (int)j;
 }
 
@@ -99,7 +103,7 @@ __device__ __forceinline__ void copy_rows(const LeafTable& t, int k, Index idx, 
   for (long long e = lane; e < (r1 - r0) * w; e += 32) {
     const int r = r0 + (int)(e / w);
     const long long c = e % w;
-    d[r * w + c] = s[checked(idx, r, P) * w + c];
+    d[r * w + c] = s[checked(idx, r) * w + c];
   }
 }
 
@@ -177,7 +181,7 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
 
   for (int j = 0; j < kStages - 1 && j < n_mine; ++j) {
     const Piece p = piece_of(t, me + j * stride, chunk);
-    load(j, p, checked(idx, p.r, P));
+    load(j, p, checked(idx, p.r));
   }
   for (int j = 0; j < n_mine; ++j) {
     // the source row of the chunk to load next is read while this one lands
@@ -186,7 +190,7 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
     int row_n = 0;
     if (jn < n_mine) {
       pn = piece_of(t, me + jn * stride, chunk);
-      row_n = checked(idx, pn.r, P);
+      row_n = checked(idx, pn.r);
     }
     const Piece p = piece_of(t, me + j * stride, chunk);
     uint8_t* dst = t.dst[p.k] + p.r * t.row_bytes[p.k] + p.off;
@@ -208,14 +212,15 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
 }  // namespace
 
 // Leaves [0, n_bulk) and then [n_bulk, n_bulk + n_small) in the arrays, as
-// LeafTable lays them out. `chunk` is the size of a ring stage in bytes.
+// LeafTable lays them out. `chunk` is the size of a ring stage in bytes. P
+// rows are written; every index is a row in [0, P_src) of the sources.
 extern "C" int gather_rows_launch(const void* const* srcs, void* const* dsts,
                                   const long long* row_bytes, const int* per, const int* first,
                                   int n_bulk, int n_small, int n_bulk_items, int n_small_items,
                                   int chunk, const void* idx, int idx_is_int64, int P,
-                                  void* stream) {
+                                  int P_src, void* stream) {
   const int n = n_bulk + n_small;
-  if (n_bulk < 0 || n_small < 0 || n < 1 || n > kMaxLeaves || P < 1 || chunk < 16 ||
+  if (n_bulk < 0 || n_small < 0 || n < 1 || n > kMaxLeaves || P < 1 || P_src < 1 || chunk < 16 ||
       chunk % 16 != 0 || n_bulk_items < 0 || n_small_items < 0) {
     return (int)cudaErrorInvalidValue;
   }
@@ -246,6 +251,6 @@ extern "C" int gather_rows_launch(const void* const* srcs, void* const* dsts,
   // as many blocks as fit on the card at once, and no more than there are items
   const int per_sm = max(1, min(8, (227 * 1024) / (smem + 1024)));
   gather_rows_kernel<<<max(1, min(items, per_sm * n_sm)), kThreads, smem, (cudaStream_t)stream>>>(
-      t, Index{idx, idx_is_int64}, P, chunk, n_bulk_items, n_small_items);
+      t, Index{idx, idx_is_int64, P_src}, P, chunk, n_bulk_items, n_small_items);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,7 @@ the rank are given:
 from __future__ import annotations
 
 import os
+import socket
 
 import torch
 import torch.distributed as tdist
@@ -36,9 +37,20 @@ def initialize_multihost(coordinator: str | None = None, num_processes: int | No
     if num_processes <= 1:
         return False
     backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        # one card per rank: NCCL puts no two ranks on one device
+        torch.cuda.set_device(process_id % torch.cuda.device_count())
     tdist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                              world_size=num_processes, rank=process_id)
     return True
+
+
+def free_local_port() -> int:
+    """A TCP port on 127.0.0.1 that is free now: the coordinator address of
+    a process group whose ranks all run on this machine."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def process_index() -> int:

@@ -1,0 +1,227 @@
+"""Multi-process FastSLAM: the particle axis sharded over the mesh's `ici`
+ranks (port of `parakeet_slam_tpu.dist.sharded_filter`).
+
+Every stage of the step but the resample is per particle (motion or
+proposal, association, EKF updates, map management), so each rank runs the
+one-device code on its P / S rows, through the same kernels. The
+collectives are:
+
+1. **weights**: an all-gather of the [P] log-weights. The ESS, the resample
+   decision and the systematic indices are computed from the gathered
+   weights, so every rank takes the same branch;
+2. **payload**: when resampling, the survivors' whole states move between
+   ranks round a ring (`ring_gather_rows`): S - 1 transfers of one block
+   each, every leaf packed into one byte buffer, with each rank taking the
+   rows whose source block is resident through the `gather_rows` kernel
+   before each rotation.
+
+Estimates, the best particle's map and checkpoints read across particles,
+so they are collectives too (`estimate_pose`, `best_particle_lanes`,
+`gather_state`).
+
+**Draws depart from the reference.** It folds the motion key with the
+shard index (a stream per shard), and its threefry streams cannot be
+reproduced in torch in any case. Here every rank draws the *global*
+[P, noise_dim] noise and u0 from one shared generator and keeps its own
+rows, so a run over S ranks consumes exactly the draws of the one-device
+run and equals it bit for bit; that costs P * noise_dim normals a frame on
+every rank.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.distributed as tdist
+
+from parakeet_slam_tpu_torch.core.state import Observation, ParticleState, make_particle_state
+from parakeet_slam_tpu_torch.dist import mesh as mesh_mod
+from parakeet_slam_tpu_torch.dist.mesh import PARTICLE_AXIS, Mesh
+from parakeet_slam_tpu_torch.filter.fastslam import FastSLAM, StepMetrics
+from parakeet_slam_tpu_torch.filter.fastslam2 import FastSLAM2
+from parakeet_slam_tpu_torch.kernels import resample as resample_kernel
+from parakeet_slam_tpu_torch.kernels import resample_cuda
+
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(ParticleState))
+
+
+def _payload_leaves(payload) -> tuple[list[str], list[torch.Tensor]]:
+    """(names, tensors) that travel: a state's gathered leaves (log_w is
+    reset by the gather, not moved), or every entry of a dict."""
+    if isinstance(payload, ParticleState):
+        names = list(resample_cuda._LEAVES)
+    else:
+        names = sorted(payload)
+    return names, [getattr(payload, n) if isinstance(payload, ParticleState) else payload[n]
+                   for n in names]
+
+
+def _rebuild(payload, names, tensors):
+    if isinstance(payload, ParticleState):
+        return ParticleState(log_w=tensors[0].new_zeros((tensors[0].shape[0],), dtype=torch.float32),
+                             **dict(zip(names, tensors)))
+    return dict(zip(names, tensors))
+
+
+def _take(block, rows: torch.Tensor):
+    """block's rows `rows`: a state through the `gather_rows` kernel (its
+    twin on the CPU), a dict of tensors through index_select."""
+    if isinstance(block, ParticleState):
+        return resample_cuda.gather_state(block, rows)
+    return {k: v.index_select(0, rows) for k, v in block.items()}
+
+
+def ring_gather_rows(payload, global_idx: torch.Tensor, mesh: Mesh, axis: str = PARTICLE_AXIS):
+    """out[i] = global_payload[global_idx[i]], where `payload` (a
+    ParticleState or a dict of tensors, every leaf [Pl, ...]) is this rank's
+    block of a [S * Pl, ...] payload sharded along `axis`. Returns the
+    payload's type with len(global_idx) rows (a state's log_w set to 0).
+
+    Step s holds the block of rank me - s: the rows whose source is that
+    block are taken and written to their output rows once (index_copy_ at
+    distinct rows), while the block moves on to rank me + 1 (a batched send
+    and receive of one byte buffer). S - 1 transfers; the reference's last
+    one, which only brings the block home, is skipped, and at S = 1 the
+    gather is the one-device gather."""
+    S = mesh.axis_size(axis)
+    idx = global_idx.long()
+    if S == 1:
+        return _take(payload, idx)
+    me = mesh.axis_index(axis)
+    ring = mesh.axis_ranks(axis)
+    group = mesh.axis_group(axis)
+    names, leaves = _payload_leaves(payload)
+    Pl = leaves[0].shape[0]
+    src_of = (idx // Pl).cpu()
+    buf, layout = mesh_mod.pack_bytes(leaves)
+    out = None
+    for s in range(S):
+        reqs = None
+        if s < S - 1:
+            nxt = torch.empty_like(buf)
+            reqs = tdist.batch_isend_irecv([
+                tdist.P2POp(tdist.isend, buf, ring[(me + 1) % S], group=group),
+                tdist.P2POp(tdist.irecv, nxt, ring[(me - 1) % S], group=group),
+            ])
+        src = (me - s) % S
+        pos = torch.nonzero(src_of == src).flatten().to(idx.device)
+        if pos.numel():
+            block = _rebuild(payload, names, mesh_mod.unpack_bytes(buf, layout))
+            got = _take(block, idx.index_select(0, pos) - src * Pl)
+            _, got_leaves = _payload_leaves(got)
+            if out is None:
+                out = [g.new_empty((idx.shape[0],) + tuple(g.shape[1:])) for g in got_leaves]
+            for o, g in zip(out, got_leaves):
+                o.index_copy_(0, pos, g)
+        if reqs is not None:
+            for r in reqs:
+                r.wait()
+            buf = nxt
+    return _rebuild(payload, names, out)
+
+
+class ShardedFastSLAM:
+    """Drives a FastSLAM (1.0 or 2.0) instance with the particle axis
+    sharded over `mesh`'s `ici` ranks: cfg.num_particles in all, P / S on
+    each rank, replicated along `dcn`."""
+
+    def __init__(self, slam: FastSLAM, mesh: Mesh):
+        self.slam = slam
+        self.mesh = mesh
+        self.axis = PARTICLE_AXIS
+        S = mesh.axis_size(self.axis)
+        P = slam.cfg.num_particles
+        if P % S != 0:
+            raise ValueError(f"num_particles={P} not divisible by particle-axis size {S}")
+        self.rows = mesh_mod.particle_sharding(mesh).rows(P)
+        self.local_particles = P // S
+
+    def init_state(self, init_pose=None, *, device) -> ParticleState:
+        """This rank's rows of the initial state (every particle at
+        init_pose with an empty map)."""
+        c = self.slam.cfg
+        return make_particle_state(self.local_particles, c.max_landmarks, c.lm_dim, c.sig_dim,
+                                   c.desc_words, c.pose_dim, init_pose, device=device)
+
+    def local_draws(self, noise: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the frame's global [P, noise_dim] draws."""
+        return noise[self.rows]
+
+    def step(self, state: ParticleState, u, obs: Observation, noise, u0):
+        """One frame on this rank's rows: `noise` [P / S, noise_dim] (this
+        rank's rows of the global draws, `local_draws`), u0 the common comb
+        offset. Returns (state, StepMetrics) with the global ESS, landmark
+        mean and resample decision."""
+        slam = self.slam
+        cfg = slam.cfg
+        log_w0 = state.log_w.clone() if cfg.likelihood_temper != 1.0 else None
+        if isinstance(slam, FastSLAM2):
+            # the proposal is per particle; it weights the frame itself and
+            # the map pass reuses its association scores
+            state, scores = slam._propose(state, u, obs, noise)
+            state, mean_match = slam.measurement_core(state, obs, weight_matched=False,
+                                                      scores=scores)
+        else:
+            state = slam.motion_update(state, u, noise)
+            state, mean_match = slam.measurement_core(state, obs)
+        state = slam._temper(state, log_w0)
+
+        lw_all = mesh_mod.all_gather_rows(state.log_w, self.mesh, self.axis)
+        ess = resample_kernel.effective_sample_size(lw_all)
+        need = bool(ess < cfg.resample_frac * lw_all.shape[0])  # equal on every rank
+        if need:
+            idx = resample_kernel.systematic_resample_indices(lw_all, u0)
+            state = ring_gather_rows(state, idx[self.rows], self.mesh, self.axis)
+        S = self.mesh.axis_size(self.axis)
+        counts = mesh_mod.all_gather_rows(state.num_landmarks(), self.mesh, self.axis)
+        n_obs = torch.clamp(obs.valid.to(torch.float32).sum(), min=1.0)
+        metrics = StepMetrics(
+            ess=ess,
+            num_landmarks=counts.to(torch.float32).mean(),
+            match_frac=mesh_mod.all_reduce_sum(mean_match, self.mesh, self.axis) / S / n_obs,
+            resampled=need,
+        )
+        return state, metrics
+
+    def estimate_pose(self, state: ParticleState) -> torch.Tensor:
+        """The one-device estimate over the gathered poses and weights."""
+        pose, log_w = mesh_mod.all_gather_packed([state.pose, state.log_w], self.mesh, self.axis)
+        return self.slam.estimate_pose(state.replace(pose=pose, log_w=log_w))
+
+    def best_particle_lanes(self, state: ParticleState):
+        """(lm_mean [L, Dl], lm_valid [L], lm_desc [L, W], lm_count [L]) of
+        the highest-weight particle (the first on a tie, as argmax over all
+        P): the rank that owns it sends them to the others."""
+        lw_all = mesh_mod.all_gather_rows(state.log_w, self.mesh, self.axis)
+        best = torch.argmax(lw_all)
+        if self.mesh.axis_group(self.axis) is None:
+            return state.lm_mean[best], state.lm_valid[best], state.lm_desc[best], \
+                state.lm_count[best]
+        b = int(best)
+        owner, local = divmod(b, self.local_particles)
+        lanes = [state.lm_mean[local], state.lm_valid[local], state.lm_desc[local],
+                 state.lm_count[local]]
+        return tuple(mesh_mod.broadcast_packed(lanes, self.mesh, self.axis, owner))
+
+    def gather_state(self, state: ParticleState) -> ParticleState:
+        """The global state (all P rows) on every rank of the `ici` line."""
+        leaves = mesh_mod.all_gather_packed([getattr(state, f) for f in _STATE_FIELDS],
+                                            self.mesh, self.axis)
+        return ParticleState(**dict(zip(_STATE_FIELDS, leaves)))
+
+    def global_template(self, state: ParticleState) -> ParticleState:
+        """Host tensors of the global state's shapes and dtypes (a checkpoint
+        template), from this rank's rows."""
+        P = self.slam.cfg.num_particles
+        return ParticleState(**{
+            f: torch.empty((P,) + tuple(getattr(state, f).shape[1:]),
+                           dtype=getattr(state, f).dtype) for f in _STATE_FIELDS})
+
+    def shard_state(self, state: ParticleState, device=None) -> ParticleState:
+        """This rank's rows of a global state, on `device` (the state's own
+        by default)."""
+        local = mesh_mod.shard_particle_state(state, self.mesh)
+        if device is None:
+            return local
+        return local.replace(**{f: getattr(local, f).to(device) for f in _STATE_FIELDS})

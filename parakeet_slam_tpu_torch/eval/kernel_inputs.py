@@ -328,6 +328,32 @@ def drive_observations(world, t, Z, W, seed, pixel_noise=(0.75, 0.75, 0.5), max_
     return z, desc, np.arange(Z) < n
 
 
+def panoramic_observations(world, t, Z, W, seed, pixel_noise=(0.75, 0.75), min_range=1.0):
+    """One frame of equirect observations [Z, 2] of a panoramic world at its
+    ground-truth pose t (as `drive_observations` does for the drive world):
+    the Z nearest landmarks beyond `min_range` (an equirect camera sees every
+    direction), projected through the equirect_3d model of the world's image
+    size with pixel noise. Each landmark carries a fixed W-word descriptor,
+    observed with three bits flipped. Returns (z float32, desc uint32
+    [Z, W], valid [Z]); rows past the visible count are invalid."""
+    rng = np.random.default_rng(seed * 100003 + t)
+    table = np.random.default_rng(world.seed + 1000).integers(
+        0, 2**32, (len(world.landmarks), W), dtype=np.uint32)
+    H, W_img = world.image_size
+    par = tuple(zip(PAR_KEYS, (1.0, 1.0, 0.0, 0.0, 0.0, float(W_img), float(H))))
+    p, zw = project_np("equirect_3d", world.gt_pose[t].astype(np.float64), world.landmarks, par)
+    dist = np.linalg.norm(p, axis=1)
+    vis = np.flatnonzero(dist > min_range)
+    pick = vis[np.argsort(dist[vis], kind="stable")][:Z]
+    n = len(pick)
+    z = np.zeros((Z, 2), np.float32)
+    desc = np.zeros((Z, W), np.uint32)
+    z[:n] = zw[pick] + rng.normal(size=(n, 2)) * np.asarray(pixel_noise)
+    z[:n, 0] = np.mod(z[:n, 0], W_img)  # the azimuth wraps round the image
+    desc[:n] = flip_bits(rng, table[pick], 3)
+    return z, desc, np.arange(Z) < n
+
+
 def schur_blocks(N, seed=0):
     """The reference's Schur kernel-bench operands (eval/bench_kernels.py,
     bench_schur), drawn with numpy: N symmetric positive definite blocks

@@ -29,7 +29,7 @@ _LEAVES = ("pose", "lm_mean", "lm_cov", "lm_sig", "lm_desc", "lm_valid", "lm_cou
 def gather_state_reference(state: ParticleState, idx: torch.Tensor) -> ParticleState:
     idx = idx.long()
     out = {f: torch.index_select(getattr(state, f), 0, idx) for f in _LEAVES}
-    return state.replace(log_w=torch.zeros_like(state.log_w), **out)
+    return state.replace(log_w=state.log_w.new_zeros(idx.shape[0]), **out)
 
 
 # The kernel streams rows in chunks of this many bytes through a ring of
@@ -84,15 +84,19 @@ def _launch_plan(row_bytes: tuple, shaped: tuple, P: int, chunk: int):
 
 def gather_state(state: ParticleState, idx: torch.Tensor) -> ParticleState:
     """Gathered state (new tensors) with out[i] = state[idx[i]] for every
-    leaf and log_w = 0. idx [P] integer, every entry in [0, P)."""
+    leaf and log_w = 0. idx [N] integer, every entry in [0, P); the result
+    has N rows (N = P when resampling; fewer in the sharded filter's ring
+    gather, which takes a block's resident rows)."""
     if state.pose.device.type == "cpu":
         return gather_state_reference(state, idx)
     if state.pose.device.type != "cuda":
         raise ValueError(f"gather_state: unsupported device {state.pose.device}")
     P = state.num_particles
     dev = state.pose.device
-    if idx.shape != (P,) or idx.device != dev:
-        raise ValueError(f"gather_state: idx must be [{P}] on {dev}, got {tuple(idx.shape)} on {idx.device}")
+    if idx.dim() != 1 or idx.shape[0] < 1 or idx.device != dev:
+        raise ValueError(f"gather_state: idx must be [N >= 1] on {dev}, got {tuple(idx.shape)} "
+                         f"on {idx.device}")
+    N = idx.shape[0]
     if idx.dtype not in (torch.int32, torch.int64):
         idx = idx.long()
     idx = idx.contiguous()
@@ -101,22 +105,22 @@ def gather_state(state: ParticleState, idx: torch.Tensor) -> ParticleState:
         a = getattr(state, f)
         if a.device != dev or a.shape[0] != P or not a.is_contiguous():
             raise ValueError(f"gather_state: leaf {f} must be contiguous [{P}, ...] on {dev}")
-        o = torch.empty_like(a)
+        o = a.new_empty((N,) + tuple(a.shape[1:]))
         out[f] = o
         srcs.append(a.data_ptr())
         dsts.append(o.data_ptr())
         nbytes.append(a.numel() // P * a.element_size())
     shaped = tuple((s | d | nb) % 16 == 0 for s, d, nb in zip(srcs, dsts, nbytes))
-    order, *table = _launch_plan(tuple(nbytes), shaped, P, _CHUNK)
+    order, *table = _launch_plan(tuple(nbytes), shaped, N, _CHUNK)
     n = len(order)
     err = _build.library().gather_rows_launch(
         (ctypes.c_void_p * n)(*(srcs[k] for k in order)),
         (ctypes.c_void_p * n)(*(dsts[k] for k in order)),
-        *table, _CHUNK, idx.data_ptr(), idx.dtype == torch.int64, P, _build.stream_ptr(idx),
+        *table, _CHUNK, idx.data_ptr(), idx.dtype == torch.int64, N, P, _build.stream_ptr(idx),
     )
     _build.check(err, "gather_rows")
     gather_state.launches += 1
-    return state.replace(log_w=torch.zeros_like(state.log_w), **out)
+    return state.replace(log_w=state.log_w.new_zeros(N), **out)
 
 
 gather_state.launches = 0

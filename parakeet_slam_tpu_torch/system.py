@@ -1,5 +1,5 @@
 """Online visual SLAM: frontend -> particle filter -> keyframe backend
-(port of the single-device part of `parakeet_slam_tpu.system`).
+(port of `parakeet_slam_tpu.system`).
 
 Per frame (`process_frame`, or `process_stereo_frame` for a stereo pair):
   1. detect + describe on the grayscale (left) image (frontend; on an image
@@ -27,6 +27,18 @@ kernels, CPU tensors run their twins. Random draws come from a
 draws. Keyframe descriptors are int32 words carrying the reference's
 uint32 bits.
 
+Sharded (benchmark config 5): when a `torch.distributed` process group is up
+and its world size equals `dist.particle_axis * dist.map_axis`, the filter
+runs on a (dcn, ici) mesh of the ranks (`dist/sharded_filter.py`): each
+rank holds its P / particle_axis particles and draws the global noise of
+the one shared generator, so a sharded run equals the one-device run bit
+for bit. The reads across particles are collectives: the estimate gathers
+the poses and weights, the keyframe snapshot takes the best particle's
+lanes from the rank that holds it, a checkpoint gathers the state to rank 0,
+which alone writes files. The keyframe backend is replicated: every rank
+runs the same host logic on the same data. Otherwise the system runs on
+one device, as the reference does when its mesh does not fit.
+
 Offline, `run_ba` refines the keyframe poses and a deduplicated point table
 by bundle adjustment (`backend/ba.py`): `build_ba_problem` merges the
 keyframes' landmark snapshots by descriptor (`_assign_point_ids`, one
@@ -35,15 +47,16 @@ keyframe's own measured local points are the observations, and the pose
 graph's edges are fused into the solve when `backend.ba_fuse_pose_graph` is
 set.
 
+`run_ba(distributed=True)` (or None with `dist.map_axis > 1` on a mesh
+that fits) solves it with the points sharded over the mesh's `dcn` ranks
+(`dist/dist_ba.py`).
+
 `save_checkpoint` / `load_checkpoint` snapshot and restore the whole run
 (filter state, pose graph, generator, keyframes, the un-flushed flag window
 and the dispatched closure matches) in the reference's two files, so that a
 resumed run equals an uninterrupted one bit for bit; `checkpoint_every`
-snapshots automatically every that many keyframes.
-
-Not ported (each raises NotImplementedError): distributed bundle adjustment
-(`run_ba(distributed=True)`, which needs `dist/dist_ba.py`) and the sharded
-filter.
+snapshots automatically every that many keyframes. A snapshot holds the
+global state, so it resumes under any world size.
 """
 
 from __future__ import annotations
@@ -60,6 +73,10 @@ from parakeet_slam_tpu_torch.backend import posegraph as pg_mod
 from parakeet_slam_tpu_torch.core import geometry
 from parakeet_slam_tpu_torch.core.config import SLAMConfig
 from parakeet_slam_tpu_torch.core.state import Observation
+from parakeet_slam_tpu_torch.dist import dist_ba
+from parakeet_slam_tpu_torch.dist import mesh as mesh_mod
+from parakeet_slam_tpu_torch.dist.multihost import process_index
+from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
 from parakeet_slam_tpu_torch.filter import make_filter
 from parakeet_slam_tpu_torch.filter.runner import draw_noise
 from parakeet_slam_tpu_torch.frontend import camera as camera_mod
@@ -199,30 +216,30 @@ def _huber(n, valid, delta):
 
 
 class SLAMSystem:
-    """The online system on one device. `cfg` is a `SLAMConfig`."""
+    """The online system, on one device or sharded over the ranks of a
+    process group (see the module docstring). `cfg` is a `SLAMConfig`."""
 
     def __init__(self, cfg: SLAMConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         fe = cfg.frontend
         be = cfg.backend
-        d = cfg.dist
-        if d.particle_axis * d.map_axis > 1 and self.device.type == "cuda" and (
-                d.particle_axis * d.map_axis <= torch.cuda.device_count()):
-            raise NotImplementedError(
-                "the sharded filter (dist.particle_axis/map_axis > 1 on enough cards) is "
-                "not ported (ROADMAP Queue 1 item 3); on fewer cards the reference runs on one "
-                "device, as this port does")
         self.slam = make_filter(cfg.filter, fe)
+        self.mesh, self._sharded = self._make_mesh(cfg.dist)
+        # rank 0 alone prints and writes files
+        self.is_writer = process_index() == 0
         self.camera = camera_mod.from_config(fe)
         self.wrap_x = fe.camera == "equirect"
         self.keyframes: list[Keyframe] = []
         self.graph = graph_mod.make_pose_graph(be.max_keyframes, 4 * be.max_keyframes,
                                                device=self.device)
-        self.state = self.slam.init_state(device=self.device)
+        if self._sharded is not None:
+            self.state = self._sharded.init_state(device=self.device)
+        else:
+            self.state = self.slam.init_state(device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.filter.seed)
         self.frame_idx = 0
-        self.metrics = MetricsLogger(cfg.metrics_path or None)
+        self.metrics = MetricsLogger((cfg.metrics_path if self.is_writer else "") or None)
         self.loop_closures: list[tuple[int, int]] = []
         # the latest keyframe's pose when it was made (kept by snapshots)
         self.last_kf_pose: np.ndarray | None = None
@@ -244,6 +261,26 @@ class SLAMSystem:
         # Dispatched-but-unresolved closure matches (kf_index, n_old,
         # fwd [K, F], rev [K, F] device tensors), drained at the next flush.
         self._closure_pending: list[tuple] = []
+
+    def _make_mesh(self, d):
+        """(mesh, ShardedFastSLAM) when a process group is up whose world
+        size is dist.particle_axis * dist.map_axis, else (None, None): one
+        device. Says which on stderr (rank 0) when the config asks for a
+        mesh or a group is up."""
+        n_mesh = d.particle_axis * d.map_axis
+        world = torch.distributed.get_world_size() if mesh_mod.is_distributed() else 1
+        sharded = mesh_mod.is_distributed() and world == n_mesh
+        if n_mesh > 1 or mesh_mod.is_distributed():
+            what = (f"particle axis sharded over {d.particle_axis} of {world} ranks "
+                    f"(dcn={d.map_axis}, ici={d.particle_axis})" if sharded else
+                    f"one device (dist {d.map_axis} x {d.particle_axis} does not fit a world "
+                    f"of {world})")
+            if process_index() == 0:
+                print(f"SLAMSystem: {what}", file=_sys.stderr)
+        if not sharded:
+            return None, None
+        mesh = mesh_mod.make_mesh(map_axis=d.map_axis)
+        return mesh, ShardedFastSLAM(self.slam, mesh)
 
     # -- frontend ---------------------------------------------------------
 
@@ -270,15 +307,20 @@ class SLAMSystem:
 
     # -- keyframe / loop closure -----------------------------------------
 
+    def _best_particle_lanes(self, state):
+        """(lm_mean, lm_valid, lm_desc, lm_count) of the highest-weight
+        particle (from the rank that holds it when sharded)."""
+        if self._sharded is not None:
+            return self._sharded.best_particle_lanes(state)
+        best = torch.argmax(state.log_w)
+        return state.lm_mean[best], state.lm_valid[best], state.lm_desc[best], state.lm_count[best]
+
     def _kf_snapshot_impl(self, state, est_pose):
         """Best-particle map snapshot in the keyframe frame: F lanes ranked
         valid in-FOV first (most-observed first), then valid out-of-view,
         with non-finite or far-away lanes excluded. The ranking keeps the
         reference's tie order (lower lane first)."""
-        means, valid = self.slam.best_particle_map(state)
-        best = torch.argmax(state.log_w)
-        desc = state.lm_desc[best]
-        count = state.lm_count[best]
+        means, valid, desc, count = self._best_particle_lanes(state)
         F = min(self.cfg.frontend.max_features, means.shape[0])
         in_fov = self.slam.model.in_fov(est_pose, means)
         dist = torch.linalg.vector_norm(means - est_pose[:3], dim=-1)
@@ -667,8 +709,13 @@ class SLAMSystem:
         the frame's own map snapshot."""
         noise, u0 = self._draws(motion_noise, resample_u0)
         u = torch.as_tensor(np.asarray(odom_u, np.float32), device=self.device)
-        self.state, metrics = self.slam.step(self.state, u, obs, noise, u0)
-        est = self.slam.estimate_pose(self.state)
+        if self._sharded is not None:
+            self.state, metrics = self._sharded.step(self.state, u, obs,
+                                                     self._sharded.local_draws(noise), u0)
+            est = self._sharded.estimate_pose(self.state)
+        else:
+            self.state, metrics = self.slam.step(self.state, u, obs, noise, u0)
+            est = self.slam.estimate_pose(self.state)
         flag = self._kf_test(est, self._last_kf_dev, self._has_kf)
         self._last_kf_dev = torch.where(flag, est, self._last_kf_dev)
         snap = self._kf_snapshot_impl(self.state, est)
@@ -788,9 +835,20 @@ class SLAMSystem:
         Descriptor words are stored as uint32. The flag window is persisted,
         not flushed: a flush here would make keyframes at this frame instead
         of at the next window boundary, and the resumed run would part from
-        the uninterrupted one."""
+        the uninterrupted one. Sharded, the state is gathered and rank 0
+        writes the reference's global layout; every rank returns once the
+        files are there."""
         self.flush_metrics()
-        ckpt.save_checkpoint(path_prefix + ".state.npz", self._ckpt_tree(), step=self.frame_idx)
+        tree = self._ckpt_tree()
+        if self._sharded is not None:
+            tree["state"] = self._sharded.gather_state(self.state)
+        if self.is_writer:
+            self._write_checkpoint(path_prefix, tree)
+        if self._sharded is not None:
+            mesh_mod.barrier(self.mesh)
+
+    def _write_checkpoint(self, path_prefix: str, tree):
+        ckpt.save_checkpoint(path_prefix + ".state.npz", tree, step=self.frame_idx)
         host = lambda t: t.detach().cpu().numpy()  # noqa: E731
         kfs = self.keyframes
         pend = [(fi, host(est), host(flag), [host(a) for a in snap])
@@ -845,9 +903,16 @@ class SLAMSystem:
         any pending work of its own; the reference's older layouts (no
         `has_kf`, `anchor_kf`, `kf_frame` or `cp_kidx`) are read as the
         reference reads them. Raises ValueError when the state layout or the
-        generator does not fit this system."""
-        tree, _ = ckpt.load_checkpoint(path_prefix + ".state.npz", self._ckpt_tree())
+        generator does not fit this system. Sharded, every rank reads the
+        global state and keeps its own rows, so a snapshot resumes under any
+        world size."""
+        tmpl = self._ckpt_tree()
+        if self._sharded is not None:
+            tmpl["state"] = self._sharded.global_template(self.state)
+        tree, _ = ckpt.load_checkpoint(path_prefix + ".state.npz", tmpl)
         self.state, self.graph = tree["state"], tree["graph"]
+        if self._sharded is not None:
+            self.state = self._sharded.shard_state(self.state, device=self.device)
         self.generator.set_state(tree["key"])
         T = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
         data = np.load(path_prefix + ".kf.npz")
@@ -997,23 +1062,39 @@ class SLAMSystem:
                         if be.ba_fuse_pose_graph else None),
         )
 
+    def solve_ba_distributed(self, prob, iters: int | None = None):
+        """`dist_ba.optimize_ba_distributed` of `prob` with the points
+        sharded over the `dcn` ranks of the system's mesh (one of map_axis
+        ranks made for it when the system's does not fit: 1 x 1 on one
+        process with map_axis = 1, as the reference's
+        `make_mesh(n_devices=map_axis)` on one device). The pose graph's
+        edges are not fused, as in the reference. Returns a `BAResult`."""
+        be, d = self.cfg.backend, self.cfg.dist
+        mesh = self.mesh
+        if mesh is None or mesh.shape[mesh_mod.MAP_AXIS] != d.map_axis:
+            mesh = mesh_mod.make_mesh(n_devices=d.map_axis, map_axis=d.map_axis)
+            if not mesh.is_member:
+                raise ValueError(f"rank {process_index()} is not in the {d.map_axis}-rank BA mesh")
+        sp = dist_ba.shard_problem(prob, d.map_axis)
+        res_prob, costs = dist_ba.optimize_ba_distributed(
+            self.camera, sp, mesh, iters=iters or be.gn_iters, lam=be.lm_damping_init,
+            pcg_iters=be.pcg_iters, huber_delta=be.huber_delta)
+        return ba_mod.BAResult(problem=res_prob, costs=costs,
+                               pcg_residuals=torch.zeros_like(costs))
+
     def run_ba(self, iters: int | None = None, distributed: bool | None = None):
         """Refine the keyframe poses and the deduped points by bundle
-        adjustment with the single-device bucketed solver; returns its
-        `BAResult`, or None with fewer than two keyframes. distributed=None
-        selects the distributed solver when dist.map_axis > 1 fits the
-        available cards; that solver is not ported."""
+        adjustment; returns the `BAResult`, or None with fewer than two
+        keyframes. distributed=None picks the distributed solver
+        (`solve_ba_distributed`) when dist.map_axis > 1 and the system runs
+        on a mesh, else the single-device bucketed solver (`solve_ba`)."""
         d = self.cfg.dist
         if distributed is None:
-            n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
-            distributed = 1 < d.map_axis <= n_dev
-        if distributed:
-            raise NotImplementedError("distributed bundle adjustment (dist/dist_ba.py) is not "
-                                      "ported (ROADMAP Queue 1 item 3)")
+            distributed = d.map_axis > 1 and self.mesh is not None
         prob = self.ba_problem()
         if prob is None:
             return None
-        res = self.solve_ba(prob, iters)
+        res = self.solve_ba_distributed(prob, iters) if distributed else self.solve_ba(prob, iters)
         poses_np = res.problem.cam_pose.cpu().numpy()
         for i, kf in enumerate(self.keyframes):
             kf.pose = poses_np[i]

@@ -166,7 +166,9 @@ def test_port_never_imports_jax():
         "       'backend.posegraph', 'kernels.match', 'data.panoramic', 'data.tum',\n"
         "       'utils.metrics_log', 'backend.ba', 'kernels.schur', 'eval.repeatability',\n"
         "       'eval.ab_kernels', 'frontend.stereo', 'frontend.pyramid', 'data.kitti',\n"
-        "       'utils.checkpoint', 'data.euroc', 'dist.multihost')\n"
+        "       'utils.checkpoint', 'data.euroc', 'dist.multihost', 'dist.mesh',\n"
+        "       'dist.sharded_filter', 'dist.ring_match', 'dist.reshard', 'dist.dist_ba',\n"
+        "       'eval.scaling', 'eval.config5_demo')\n"
         "assert all(pkg.__name__ + '.' + m in names for m in new), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'parakeet_slam_tpu')]\n"
         "assert not bad, bad\n"

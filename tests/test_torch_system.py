@@ -629,16 +629,31 @@ def test_cli_synth_and_run_tum(tmp_path, capsys):
     assert rows.shape == (6, 8) and np.isfinite(rows).all()
 
 
-# -- not ported ---------------------------------------------------------------
+# -- the distributed BA at one rank, and the remaining refusal ---------------
 
 
-def test_unported_paths_raise(pano):
+def test_distributed_ba_at_one_rank_and_the_stereo_refusal(pano):
+    """`run_ba(distributed=True)` with no process group runs the distributed
+    solver on a 1 x 1 mesh (dist.map_axis=1, as the reference's
+    make_mesh(n_devices=map_axis) on one device): on the BA fixture its
+    costs follow JAX's distributed solve, its final cost meets the
+    reference's bar against the one-device solver (<= 2 x + 1), and it
+    rewrites the keyframe poses. A monocular system refuses stereo frames.
+    On the CPU the matcher launches no kernel."""
     world, images = pano
+    systems = _pair()
+    j_sys, p_sys = systems
+    _noisy_keyframes(systems, np.random.default_rng(21))
+    one = p_sys.solve_ba(p_sys.ba_problem(), iters=3)
+    j_res, p_res = j_sys.run_ba(iters=3, distributed=True), p_sys.run_ba(iters=3, distributed=True)
+    np.testing.assert_allclose(p_res.costs.numpy(), np.asarray(j_res.costs), rtol=1e-3)
+    assert np.isfinite(p_res.costs.numpy()).all()
+    assert float(p_res.costs[-1]) <= 2.0 * float(one.costs[-1]) + 1.0
+    for i, kf in enumerate(p_sys.keyframes):
+        np.testing.assert_array_equal(kf.pose, p_res.problem.cam_pose[i].numpy())
+        # tests/test_schur_distba.py's bar for the distributed solver
+        _same_pose(kf.pose, j_sys.keyframes[i].pose, 5e-3)
     p_sys = system.SLAMSystem(_pano_cfg(pcm), device="cpu")
-    # checkpoints and the EuRoC path are ported (tests/test_torch_checkpoint.py,
-    # tests/test_torch_euroc.py); the distributed BA is not (Queue 1 item 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        p_sys.run_ba(distributed=True)
     # stereo frames are ported (tests/test_torch_stereo.py); a monocular
     # configuration refuses them, as the reference's does
     with pytest.raises(ValueError, match="obs_dim=3"):
