@@ -181,7 +181,33 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      demo's size (64 cameras, 110,000 points, 128,000 observations, 3 LM x
      15 PCG, S=1) with costs within rtol=1e-4 of the same solver through
      apply_cinv's twin, ms per LM iteration beside `ba.optimize_ba` on the
-     same problem.
+     same problem;
+  17. the generic measurement path (`FastSLAM._measurement_generic`, plain
+     torch, the reference's model-agnostic route) on the card, against the
+     hand kernels from one state: ekf_update_2d at the corridor shape and
+     at P=2048, L=10240, Z=32, S=3, and measurement_update_3d scoring
+     itself at pinhole P=256, L=1024, Z=32 with the anchor freeze off and
+     at 3. The two paths do the same arithmetic in different forms, so an
+     association may part only where the generic best score lies within
+     1e-4 of the new-landmark threshold or of the runner-up (counted and
+     printed, those particles left out); every other lane, mask, count and
+     n_match equal, floats within rtol=atol=1e-5, log_w within atol 1e-4;
+     the single-call times of both. Then 30 frames each of a bearing_2d
+     FastSLAM 1.0 filter and a bearing_2d + velocity_2d FastSLAM 2.0
+     filter (P=64, L=192, Z=16) on the corridor's bearings: finite, every
+     particle mapping, one gather a resample, frames/s;
+  18. `eval/bench_system` at the reference's widths (FastSLAM 1.0, P=256,
+     L=2048, Z=64): stereo (`process_stereo_frame` on 376x1241 pairs) and
+     pano (`process_frame` on 512x1024 equirect frames), 5 warm-up frames
+     then 20 and 17 timed frames (the reference times 30: cut to keep the
+     renders and the script near its time) and 3 under torch.profiler,
+     rendered in worker processes started before phase 6: the reference's
+     result line, one measurement_update_3d launch a frame (scoring
+     itself, no score_3d), one gather a resample, hamming_top2 twice a
+     closure dispatch, >= 2 keyframes, finite estimates; frames/s, ms a
+     frame, keyframes, launches a frame, idle share, peak memory and the
+     render seconds; the first 2 frames replayed on the twin path (lm_valid
+     and lm_count equal, estimates within 1e-5).
 Every kernel's record carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and its
 operations over the card's peak for their type (67 TFLOP/s float32, 1,979
@@ -196,7 +222,10 @@ is no CUDA device or no package beside the script. The last line is
 score_3d, hamming_top2, l2_top2, apply_cinv) and the line before that the
 card's name and power limit. The records of the five kernels on config 4's
 path carry its launches as `launches_config4`, those of the four on config
-5's distributed path as `launches_config5`.
+5's distributed path as `launches_config5`, those of the three on
+bench_system's paths (gather_rows, measurement_update_3d, hamming_top2) as
+`launches_bench_stereo` and `launches_bench_pano`; measurement_update_3d's
+carries phase 17's largest float difference as `max_abs_err_generic_path`.
 """
 
 from __future__ import annotations
@@ -2187,8 +2216,8 @@ def phase_config5(device, card):
         # -- the distributed BA at the demo's size ------------------------------
         cam, prob = config5_demo.make_big_ba(device=device, **CONFIG5_BA)
         sp = dist_ba.shard_problem(prob, 1)
-        kw = dict(iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG, huber_delta=50.0,
-                  lam=config5_demo.BA_LAM)
+        kw = dict(iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG,
+                  huber_delta=config5_demo.BA_HUBER, lam=config5_demo.BA_LAM)
         dist_ba.optimize_ba_distributed(cam, sp, mesh, **kw)  # warm-up
         torch.cuda.synchronize()
         schur.apply_cinv.launches = 0
@@ -2209,11 +2238,11 @@ def phase_config5(device, card):
         check(cinv_launches == CONFIG5_BA_ITERS * (CONFIG5_BA_PCG + 3),
               f"config 5 BA apply_cinv launches {cinv_launches}")
         ba.optimize_ba(cam, prob, iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG,
-                       huber_delta=50.0, lam=config5_demo.BA_LAM)  # warm-up
+                       huber_delta=config5_demo.BA_HUBER, lam=config5_demo.BA_LAM)  # warm-up
         torch.cuda.synchronize()
         t_s = time.perf_counter()
         one = ba.optimize_ba(cam, prob, iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG,
-                             huber_delta=50.0, lam=config5_demo.BA_LAM)
+                             huber_delta=config5_demo.BA_HUBER, lam=config5_demo.BA_LAM)
         torch.cuda.synchronize()
         ms_one = (time.perf_counter() - t_s) / CONFIG5_BA_ITERS * 1e3
         print(f"config 5 distributed BA (C=64 points={prob.num_points} obs={prob.num_obs}, "
@@ -2226,6 +2255,356 @@ def phase_config5(device, card):
         del res_p, prob, sp
     finally:
         tdist.destroy_process_group()
+    return out
+
+
+# -- phase 17: the generic measurement path ---------------------------------
+
+GENERIC_3D_SHAPE = (256, 1024, 32)  # a small pinhole shape (P, L, Z)
+GENERIC_RUN_FRAMES = 30             # frames of the bearing_2d / velocity_2d filters
+NEAR_TIE = 1e-4                     # score margin inside which two forms may part
+
+
+def _generic_margins(slam, state, obs):
+    """Per (particle, observation) of the generic scoring: (best minus
+    runner-up, |best - new-landmark threshold|) [P, Z]."""
+    import torch
+
+    zhat, _, inv, logdet = slam._per_pair_stats(state.pose[:, None, :], state.lm_mean,
+                                                state.lm_cov, assoc=True)
+    gap, thr = [], []
+    p0 = slam._log_p0_assoc()
+    for i in range(obs.capacity):
+        ll = slam._loglik(obs.z[i], zhat, inv, logdet) + slam._appearance_loglik(
+            obs.sig[i], obs.desc[i], state.lm_sig, state.lm_desc)
+        ll = torch.where(state.lm_valid & torch.isfinite(ll), ll, -1e30)
+        top = torch.topk(ll, 2, dim=1).values
+        gap.append(top[:, 0] - top[:, 1])
+        thr.append((top[:, 0] - p0).abs())
+    return torch.stack(gap, 1), torch.stack(thr, 1)
+
+
+def _compare_generic(what, slam, state, obs, k_out, fields):
+    """The generic path against a kernel's outputs (fields in order, then
+    n_match and target) from one state: targets equal except where the best
+    score lies within NEAR_TIE of the runner-up or the threshold (counted;
+    those particles' states are left out); everything else at the standing
+    bar. The generic path itself launches neither fused update nor
+    score_3d. Returns (max float difference, lanes parted, particles left out,
+    the generic path's ms a single call)."""
+    import torch
+
+    before = _counts()[:1] + _counts_3d()[:2]
+    g_target, is_new, do_upd, do_alloc, _ = slam._associate_frame(state, obs)
+    g_state, _ = slam._measurement_generic(state, obs, True)
+    torch.cuda.synchronize()
+    check(_counts()[:1] + _counts_3d()[:2] == before,
+          f"{what}: the generic path launched a fused update or score_3d")
+    got = dict(zip(fields, k_out))
+    k_target = got["target"].long()
+    diff = g_target != k_target
+    gap, thr = _generic_margins(slam, state, obs)
+    near = (gap < NEAR_TIE) | (thr < NEAR_TIE)
+    bad = diff & ~near
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} association lanes differ off the ties")
+    keep = ~diff.any(dim=1)
+    g_match = (do_upd | do_alloc).to(torch.float32).sum(dim=1)
+    check(torch.equal(g_match[keep], got["n_match"][keep]), f"{what}: n_match differs")
+    err = 0.0
+    for f in fields:
+        if f in ("n_match", "target"):
+            continue
+        g, k = getattr(g_state, f)[keep], got[f][keep]
+        if f in ("lm_valid", "lm_count", "lm_desc"):
+            check(torch.equal(g, k), f"{what}: {f} differs in {int((g != k).sum())} entries")
+            continue
+        d = float((g - k).abs().max()) if g.numel() else 0.0
+        err = max(err, d)
+        tol = dict(rtol=0.0, atol=1e-4) if f == "log_w" else dict(rtol=1e-5, atol=1e-5)
+        check(torch.allclose(g, k, **tol), f"{what}: {f} max |diff| {d}")
+    ms = cuda_ms(lambda: slam._measurement_generic(state, obs, True), reps=3)
+    return err, int(diff.sum()), int((~keep).sum()), ms
+
+
+def check_generic_2d(shape, device):
+    """The generic path against ekf_update_2d from one state (corridor
+    options: S=3, r=(0.1, 0.03), log p0=-8, cull)."""
+    import torch
+
+    from parakeet_slam_tpu_torch.core.config import FilterConfig
+    from parakeet_slam_tpu_torch.core.state import Observation, ParticleState
+    from parakeet_slam_tpu_torch.filter import FastSLAM
+    from parakeet_slam_tpu_torch.kernels import ekf_update
+
+    P, L, Z, S = shape
+    T = _update_inputs(shape, seed=sum(shape) + 1, device=device)
+    cfg = FilterConfig(num_particles=P, max_landmarks=L, max_observations=Z, sig_dim=S,
+                       meas_noise=(0.1, 0.03), sig_noise=0.5, new_landmark_loglik=-8.0,
+                       max_range=6.5, fov_half_angle=2.5)
+    slam = FastSLAM(cfg)
+    check(slam.kernel_2d, f"{shape}: the 2-D kernel does not cover this config")
+    state = ParticleState(**{k: T[k] for k in STATE_KEYS},
+                          lm_desc=torch.zeros(P, L, 0, dtype=torch.int32, device=device))
+    obs = Observation(z=T["z"], sig=T["sig"], desc=torch.zeros(Z, 0, dtype=torch.int32,
+                                                                device=device), valid=T["valid"])
+    kw = dict(sig_dim=S, r_var=slam.r_var, sig_var=slam.sig_var, log_p0=-8.0, init_infl=1.0,
+              max_range=6.5, fov_half=2.5, cull=True)
+    work = [T[k].clone() for k in STATE_KEYS]
+    k_out = ekf_update.measurement_update_2d(*work, T["z"], T["sig"], T["valid"], **kw)
+    fields = ("log_w", "lm_mean", "lm_cov", "lm_sig", "lm_valid", "lm_count", "n_match", "target")
+    err, n_diff, n_left, g_ms = _compare_generic(f"generic vs ekf_update_2d {shape}", slam, state,
+                                                 obs, k_out, fields)
+
+    def reset():
+        for w, k in zip(work, STATE_KEYS):
+            w.copy_(T[k])
+
+    k_ms = cuda_ms(lambda: ekf_update.measurement_update_2d(*work, T["z"], T["sig"], T["valid"],
+                                                            **kw), reps=5, prepare=reset)
+    print(f"generic vs ekf_update_2d P={P} L={L} Z={Z} S={S}: targets equal but {n_diff} near "
+          f"ties ({n_left} particles left out), max_abs_err={err:.3g}; generic {g_ms:.3f} ms, "
+          f"kernel {k_ms:.3f} ms (single calls)")
+    return err, n_diff
+
+
+def check_generic_3d(device, freeze):
+    """The generic path against measurement_update_3d (pinhole_3d, scoring
+    itself) from one state, anchor freeze off or on."""
+    import torch
+
+    from parakeet_slam_tpu_torch.core.config import FilterConfig, FrontendConfig
+    from parakeet_slam_tpu_torch.core.state import Observation, ParticleState
+    from parakeet_slam_tpu_torch.eval import kernel_inputs as KI
+    from parakeet_slam_tpu_torch.filter import FastSLAM
+    from parakeet_slam_tpu_torch.kernels import ekf_update_3d as E
+
+    P, L, Z = GENERIC_3D_SHAPE
+    model = "pinhole_3d"
+    T = _frame_3d(model, GENERIC_3D_SHAPE, "holes", device)
+    kw = KI.update_3d_kwargs(model, freeze=freeze)
+    fx, fy, cx, cy, b, W, H = KI.CAMERAS[model]
+    cfg = FilterConfig(num_particles=P, max_landmarks=L, max_observations=Z, lm_dim=3, obs_dim=2,
+                       pose_dim=7, desc_words=8, desc_weight=0.5, measurement_model=model,
+                       motion_model="se3_odometry", meas_noise=KI.NOISE_3D[model],
+                       new_landmark_loglik=-30.0, init_range_prior=8.0, init_range_sigma=3.0,
+                       max_range=35.0, freeze_min_count=freeze)
+    fe = FrontendConfig(camera="pinhole", intrinsics=(fx, fy, cx, cy), baseline=b,
+                        image_size=(int(H), int(W)))
+    slam = FastSLAM(cfg, fe)
+    check(slam.kernel_3d, "the 3-D kernel does not cover this config")
+    state = ParticleState(**{k: T[k] for k in STATE_3D},
+                          lm_sig=torch.zeros(P, L, 0, device=device))
+    obs = Observation(z=T["z"], sig=torch.zeros(Z, 0, device=device), desc=T["desc"],
+                      valid=T["valid"])
+    work = [T[k].clone() for k in STATE_3D]
+    k_out = E.measurement_update_3d(*work, T["z"], T["desc"], T["valid"], None, None, **kw)
+    fields = ("log_w", "lm_mean", "lm_cov", "lm_desc", "lm_valid", "lm_count", "n_match", "target")
+    what = f"generic vs measurement_update_3d {model} P={P} L={L} Z={Z} freeze={freeze}"
+    err, n_diff, n_left, g_ms = _compare_generic(what, slam, state, obs, k_out, fields)
+    print(f"{what}: targets equal but {n_diff} near ties ({n_left} particles left out), "
+          f"max_abs_err={err:.3g}; generic {g_ms:.3f} ms")
+    return err, n_diff
+
+
+def _run_2d_filter(what, device, **kw):
+    """GENERIC_RUN_FRAMES frames of a 2-D filter on the corridor's bearings
+    (numpy, seed 7): finite, mapping; (frames/s, resamples, gathers)."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch.core.config import FilterConfig
+    from parakeet_slam_tpu_torch.data import make_corridor
+    from parakeet_slam_tpu_torch.filter import make_filter, run_sequence
+    from parakeet_slam_tpu_torch.kernels import resample_cuda
+
+    n = GENERIC_RUN_FRAMES
+    sim = make_corridor(num_landmarks=100, num_steps=200, max_obs=16, seed=7)
+    cfg = FilterConfig(num_particles=64, max_landmarks=192, max_observations=16, sig_dim=3,
+                       measurement_model="bearing_2d", obs_dim=1, meas_noise=(0.03,),
+                       sig_noise=0.5, max_range=6.5, fov_half_angle=2.5, init_range_prior=3.0,
+                       init_range_sigma=1.5, new_landmark_loglik=-3.0, **kw)
+    slam = make_filter(cfg)
+    check(not (slam.kernel_2d or slam.kernel_3d), f"{what}: not the generic path")
+    odom = sim.odom[:n]
+    if cfg.motion_model == "velocity_2d":
+        dt = 0.1
+        odom = np.stack([odom[:, 0] / dt, odom[:, 2] / dt, np.full(n, dt)], 1)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=None, device=device)  # noqa: E731
+    data = (T(odom.astype(np.float32)), T(sim.obs_z[:n, :, 1:2]), T(sim.obs_sig[:n]),
+            T(sim.obs_valid[:n]))
+    gen = torch.Generator(device=device).manual_seed(0)
+    state0 = slam.init_state(init_pose=sim.gt_pose[0], device=device)
+    run_sequence(slam, state0, *(a[:2] for a in data), generator=gen)  # warm-up
+    resample_cuda.gather_state.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, est, metrics = run_sequence(slam, state0, *data, generator=gen)
+    torch.cuda.synchronize()
+    fps = n / (time.perf_counter() - t0)
+    n_res = sum(m.resampled for m in metrics)
+    gathers = resample_cuda.gather_state.launches
+    lms = final.lm_valid.sum(dim=1)
+    print(f"{what} (P=64 L=192 Z=16, generic path): {n} frames fps={fps:.1f} "
+          f"landmarks/particle {float(lms.float().mean()):.1f} resamples={n_res} "
+          f"gather launches={gathers}")
+    check(bool(torch.isfinite(est).all()) and bool(torch.isfinite(final.log_w).all()),
+          f"{what}: not finite")
+    check(int(lms.min()) > 0, f"{what}: a particle allocated no landmark")
+    check(gathers == n_res, f"{what}: gather launches {gathers}, resamples {n_res}")
+    return fps
+
+
+def phase_generic(device):
+    """The generic measurement path on the card: against the 2-D and 3-D
+    kernels from one state, and two 2-D filters that only it covers."""
+    err, ties = 0.0, 0
+    for shape in (CORRIDOR_SHAPE, REAL_SHAPE):
+        e, t = check_generic_2d(shape, device)
+        err, ties = max(err, e), ties + t
+    for freeze in (0, 3):
+        e, t = check_generic_3d(device, freeze)
+        err, ties = max(err, e), ties + t
+    fs1 = _run_2d_filter("bearing_2d FastSLAM 1.0", device)
+    fs2 = _run_2d_filter("bearing_2d + velocity_2d FastSLAM 2.0", device, algorithm="fastslam2",
+                         motion_model="velocity_2d", motion_noise=(0.05, 0.01, 0.05, 0.01))
+    return {"err": err, "ties": ties, "fps_bearing_fs1": fs1, "fps_velocity_fs2": fs2}
+
+
+# -- phase 18: bench_system ---------------------------------------------------
+
+BENCH_FRAMES = 30   # timed frames: the reference's default, on its 35-step worlds
+BENCH_PROFILE = 3   # the worlds' last frames, under torch.profiler, on a second system
+BENCH_REPLAY = 2    # the first frames, replayed on the twin path
+
+
+def start_bench_renders():
+    """Submit phase 18's renders to worker processes (all cores but two),
+    so that they overlap phase 6, whose times are the card's own (CUDA
+    events); `finish_bench_renders` collects them before phase 7, the first
+    phase timed on the host's clock. Returns (pool, jobs, done, t0)."""
+    from parakeet_slam_tpu_torch.eval.bench_system import bench_world, render_pool
+
+    t0 = time.perf_counter()
+    worlds = {kind: bench_world(kind, BENCH_FRAMES) for kind in ("stereo", "pano")}
+    pool = render_pool(sum(len(w[3]) for w in worlds.values()))
+    done = {}
+
+    def stamp(kind):
+        def finished(_):
+            done[kind] = max(done.get(kind, 0.0), time.perf_counter() - t0)
+        return finished
+
+    jobs = {}
+    for kind, (cfg, world, render, args) in worlds.items():
+        futures = [pool.submit(render, *a) for a in args]
+        for f in futures:
+            f.add_done_callback(stamp(kind))
+        jobs[kind] = (cfg, world, futures)
+    return pool, jobs, done, t0
+
+
+def finish_bench_renders(renders):
+    """Wait for the renders and stop the workers: {kind: (cfg, world, inputs)}."""
+    pool, jobs, done, t0 = renders
+    t_wait = time.perf_counter()
+    try:
+        out = {kind: (cfg, world, [f.result() for f in futures])
+               for kind, (cfg, world, futures) in jobs.items()}
+    finally:
+        pool.shutdown(cancel_futures=True)
+    print(f"bench_system renders: {len(out['stereo'][2])} stereo pairs done at "
+          f"{done['stereo']:.1f} s, {len(out['pano'][2])} pano frames at {done['pano']:.1f} s, "
+          f"in worker processes on {os.cpu_count()} cores less two, beside phase 6; phase 7 waited "
+          f"{time.perf_counter() - t_wait:.1f} s")
+    return out
+
+
+def phase_bench_system(device, rendered):
+    import torch
+
+    from parakeet_slam_tpu_torch import system as system_mod
+    from parakeet_slam_tpu_torch.eval.bench_system import WARMUP, frame_step, run_bench
+    from parakeet_slam_tpu_torch.kernels import match
+
+    out = {}
+    for kind in ("stereo", "pano"):
+        cfg, world, inputs = rendered[kind]
+        frames = WARMUP + BENCH_FRAMES
+        step = frame_step(kind, world, inputs)
+        calls = []
+        kf_match = system_mod._batched_kf_match
+
+        def capture(qd, qv, db, dbv, ratio):
+            fwd, rev = kf_match(qd, qv, db, dbv, ratio)
+            calls.append(tuple(t.clone() for t in (qd, qv, db, dbv, fwd, rev)) + (ratio,))
+            return fwd, rev
+
+        system_mod._batched_kf_match = capture
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts_3d()
+            match.hamming_top2.launches = 0
+            row, sys_ = run_bench(kind, cfg, world, inputs, BENCH_FRAMES, device)
+            sys_.flush_flags()
+            torch.cuda.synchronize()
+            launches = _counts_3d() + (match.hamming_top2.launches,)
+        finally:
+            system_mod._batched_kf_match = kf_match
+        peak = torch.cuda.max_memory_allocated()
+        n_res = sum(bool(p[1][3]) for p in sys_._metrics_pending)
+        est = sys_.state.pose
+        fc = cfg.filter
+        print(f"bench_system {kind} (FastSLAM 1.0 {fc.measurement_model} P={fc.num_particles} "
+              f"L={fc.max_landmarks} Z={fc.max_observations}, {cfg.frontend.image_size[0]}x"
+              f"{cfg.frontend.image_size[1]}): {json.dumps(row)}")
+        check(row["fps_per_chip"] > 0 and bool(torch.isfinite(est).all()), f"{kind}: not finite")
+        check(launches[1] == frames and launches[0] == 0,
+              f"{kind}: launches update_3d={launches[1]} score_3d={launches[0]}, frames {frames}")
+        check(launches[2] == n_res, f"{kind}: gather launches {launches[2]}, resamples {n_res}")
+        per = system_mod.MATCH_LAUNCHES_PER_DISPATCH
+        check(len(calls) >= 1 and launches[3] == per * len(calls),
+              f"{kind}: hamming_top2 launches {launches[3]}, dispatches {len(calls)} x {per}")
+        check(len(sys_.keyframes) >= 2, f"{kind}: keyframes {len(sys_.keyframes)}")
+        # every closure dispatch of the run through hamming_top2's twin
+        phase_desk_replay(calls, what=f"bench_system {kind}")
+
+        # the first frames again, the kernel path against the twin path
+        kern = system_mod.SLAMSystem(cfg, device=device)
+        est_k = torch.stack([step(kern, t) for t in range(BENCH_REPLAY)])
+        counts = _counts_3d()
+        restore = _twin_path()
+        try:
+            twin = system_mod.SLAMSystem(cfg, device=device)
+            est_t = torch.stack([step(twin, t) for t in range(BENCH_REPLAY)])
+        finally:
+            restore()
+        check(_counts_3d() == counts, "the twin path launched a kernel")
+        for f in ("lm_valid", "lm_count"):
+            a, b = getattr(kern.state, f), getattr(twin.state, f)
+            check(torch.equal(a, b), f"{kind} kernel vs twin path: {f} differs in "
+                  f"{int((a != b).sum())}")
+        d = float((est_k - est_t).abs().max())
+        check(d <= 1e-5, f"{kind} kernel vs twin path: estimates differ by {d}")
+        print(f"bench_system {kind} kernel vs twin path, {BENCH_REPLAY} frames: lm_valid and "
+              f"lm_count equal ({int(kern.state.lm_valid.sum())} live lanes), est max |diff| "
+              f"{d:.3g}")
+
+        # the kernel-path system on to the worlds' last frames, profiled
+        for t in range(BENCH_REPLAY, frames - BENCH_PROFILE):
+            step(kern, t)
+        prof = _profile(lambda: [step(kern, t) for t in range(frames - BENCH_PROFILE, frames)])
+        print(f"bench_system {kind}: {WARMUP} + {BENCH_FRAMES} frames, keyframes="
+              f"{len(sys_.keyframes)} dispatches={len(calls)} resamples={n_res} launches "
+              f"update_3d={launches[1]} score_3d={launches[0]} gather={launches[2]} "
+              f"hamming_top2={launches[3]}; profile of frames {frames - BENCH_PROFILE}-"
+              f"{frames - 1} on a second run: {prof[0] / BENCH_PROFILE:.0f} launches a frame, "
+              f"device busy {prof[1] / BENCH_PROFILE:.2f} of {prof[2] / BENCH_PROFILE:.2f} ms a "
+              f"frame, idle share {1 - prof[1] / prof[2]:.3f}; peak_mem={peak / 2**30:.3f} GiB; "
+              f"top {prof[3]}")
+        out[kind] = dict(row=row, launches=launches, dispatches=len(calls),
+                         peak_gib=peak / 2**30, idle=1 - prof[1] / prof[2])
+        del sys_, kern, twin
     return out
 
 
@@ -2252,7 +2631,13 @@ def main():
     k, ekf_err = run(phase_kernels, device)
     launches = run(phase_corridor, device)
     run(phase_real_size, device)
-    k3, err3 = run(phase_kernels_3d, device)
+    renders = start_bench_renders()  # phase 18's frames, beside phase 6 only
+    try:
+        k3, err3 = run(phase_kernels_3d, device)
+    except BaseException:
+        renders[0].shutdown(cancel_futures=True)
+        raise
+    rendered = finish_bench_renders(renders)
     vision = run(phase_vision, device)
     run(phase_bench_rows, device)
     km, l2_err, l2_launches = run(phase_match, device)
@@ -2264,6 +2649,8 @@ def main():
     sys_ba = run(phase_run_ba, desk)
     config4 = run(phase_config4, device)
     config5 = run(phase_config5, device, card)
+    generic = run(phase_generic, device)
+    bench = run(phase_bench_system, device, rendered)
 
     pkg = "parakeet_slam_tpu_torch"
 
@@ -2297,7 +2684,9 @@ def main():
               ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][4],
               plain_ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][5],
               launches_stereo=stereo["launches"][2], launches_config4=config4["launches"][2],
-              launches_config5=config5["launches"][2]),
+              launches_config5=config5["launches"][2],
+              launches_bench_stereo=bench["stereo"]["launches"][2],
+              launches_bench_pano=bench["pano"]["launches"][2]),
         entry("measurement_update_3d", "ekf_update_3d.cu",
               "parakeet_slam_tpu/kernels/ekf_update_3d.py:664", stereo["launches"][1], err3,
               x3["update"], x3["update_twin"], x3["update_bound"],
@@ -2308,6 +2697,9 @@ def main():
               launches_desk=desk["launches"][1],
               launches_vision=vision["launches"][1], launches_config4=config4["launches"][1],
               launches_config5=config5["launches"][1],
+              launches_bench_stereo=bench["stereo"]["launches"][1],
+              launches_bench_pano=bench["pano"]["launches"][1],
+              max_abs_err_generic_path=generic["err"],
               ms_self_scoring=t3["update"], plain_ms_self_scoring=t3["update_twin"],
               bound_ms_self_scoring=t3["update_bound"][0],
               ms_self_scoring_single_call=t3["update_single"],
@@ -2325,6 +2717,8 @@ def main():
               desk["launches"][3], 0.0, km["ham"][0], km["ham"][1], km["ham"][2],
               launches_run_ba=sys_ba["launches"][0], launches_stereo=stereo["launches"][3],
               launches_config4=config4["launches"][3], launches_config5=config5["ring_launches"],
+              launches_bench_stereo=bench["stereo"]["launches"][3],
+              launches_bench_pano=bench["pano"]["launches"][3],
               ms_ring_config5=config5["ms_ring"], ms_config5_whole_database=config5["ms_ring_alone"],
               ms_closure_config2_forward=c2f[0], ms_closure_config2_reverse=c2r[0],
               plain_ms_closure_config2_forward=c2f[1], bound_ms_closure_config2_forward=c2f[2][0],

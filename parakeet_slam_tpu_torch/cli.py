@@ -17,6 +17,7 @@ dataset, the corridor benchmark, and the per-kernel benchmarks.
   python -m parakeet_slam_tpu_torch.cli run --config configs/panoramic.yaml
   python -m parakeet_slam_tpu_torch.cli bench
   python -m parakeet_slam_tpu_torch.cli bench --kernel fs2_step
+  python -m parakeet_slam_tpu_torch.cli bench --measure-baseline
   python -m parakeet_slam_tpu_torch.cli bench --kernel ekf_update_3d --device cpu --shape 16 256 8
   python -m parakeet_slam_tpu_torch.cli bench --kernel ba_iteration --device cpu --shape 4 200 60
   python -m parakeet_slam_tpu_torch.cli eval --est est.txt --gt groundtruth.txt
@@ -37,12 +38,16 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
 import torch
 
 # Pure-numpy reference-class FastSLAM on the corridor, frames/s (bench.py).
+# `cli bench --measure-baseline` re-measures it on the host it runs on: 1.279
+# frames/s on the 8-core host of an NVIDIA H100 80GB HBM3 at 700 W (its CPU
+# model not reported). The denominator stays the reference's.
 NUMPY_BASELINE_FPS = 2.16
 
 
@@ -555,7 +560,35 @@ def cmd_eval(args):
     print(json.dumps({"ate_rmse_m": round(ate, 5), "frames": n}))
 
 
+def measure_baseline(steps: int = 100) -> float:
+    """The numpy baseline's frames/s on the corridor (bench.py's
+    `measure_baseline`: 64 particles, 100 landmarks, 16 observations a
+    frame, seed 7, timed over `steps` frames after 50 warm-up frames)."""
+    from parakeet_slam_tpu_torch.baseline.numpy_fastslam import NumpyFastSLAM
+    from parakeet_slam_tpu_torch.data import make_corridor
+
+    sim = make_corridor(num_landmarks=100, num_steps=500, max_obs=16, seed=7)
+    slam = NumpyFastSLAM(
+        num_particles=64, motion_noise=(0.3, 0.1, 0.3, 0.1), meas_noise=(0.1, 0.03),
+        sig_noise=0.5, max_range=6.5, fov_half_angle=2.5, seed=0,
+    )
+    warm = 50
+    for i in range(warm):
+        slam.motion_update(sim.odom[i])
+        slam.measurement_update(sim.obs_z[i], sim.obs_sig[i], sim.obs_valid[i])
+    t0 = time.time()
+    for i in range(warm, warm + steps):
+        slam.motion_update(sim.odom[i])
+        slam.measurement_update(sim.obs_z[i], sim.obs_sig[i], sim.obs_valid[i])
+    return steps / (time.time() - t0)
+
+
 def cmd_bench(args):
+    if args.measure_baseline:
+        fps = measure_baseline()
+        print(f"numpy baseline fps: {fps:.3f}", file=sys.stderr)
+        print(json.dumps({"metric": "baseline_fps", "value": fps, "unit": "frames/s"}))
+        return
     device = resolve_device(args.device)
     if args.kernel:
         from parakeet_slam_tpu_torch.eval import bench_kernels
@@ -622,6 +655,8 @@ def main(argv=None):
                          help="P L [Z] in place of the kernel bench's shape (match: N M; "
                               "schur: N; ba_iteration: C Pts obs_per_cam)")
     p_bench.add_argument("--device", default="cuda")
+    p_bench.add_argument("--measure-baseline", action="store_true",
+                         help="the numpy baseline's frames/s on this host (no card)")
     p_bench.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)

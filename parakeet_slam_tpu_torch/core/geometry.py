@@ -27,6 +27,19 @@ def se2_compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, th], dim=-1)
 
 
+def se2_exp(xi: torch.Tensor) -> torch.Tensor:
+    """Exponential map R^3 -> SE(2), xi = [vx, vy, omega] [..., 3]; the
+    series 1 - w^2/6 and w/2 below |w| < 1e-6, as the reference."""
+    v, w = xi[..., :2], xi[..., 2]
+    small = w.abs() < 1e-6
+    w_safe = torch.where(small, torch.ones_like(w), w)
+    a = torch.where(small, 1.0 - w * w / 6.0, torch.sin(w_safe) / w_safe)
+    b = torch.where(small, w / 2.0, (1.0 - torch.cos(w_safe)) / w_safe)
+    x = a * v[..., 0] - b * v[..., 1]
+    y = b * v[..., 0] + a * v[..., 1]
+    return torch.stack([x, y, wrap_angle(w)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Quaternions (Hamilton, [x, y, z, w])
 # ---------------------------------------------------------------------------

@@ -2,9 +2,12 @@
 the panoramic online system with its particle axis sharded, a
 131,072-slot map, ring-streamed matching over a sharded descriptor
 database, the distributed BA over 100,000+ points, and the weak-scaling
-table, one JSON row each under the reference's keys.
+table, one JSON row each under the reference's keys. The distributed BA
+also runs on a second, well-posed problem (`make_ring_ba`), and its rows
+add the accepted cost and steps and the camera-position difference from the
+one-rank solve.
 
-    python -m parakeet_slam_tpu_torch.eval.config5_demo [--device cpu]
+    python -m parakeet_slam_tpu_torch.eval.config5_demo [--device cpu] [--parts ba]
 
 on N processes with COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID set
 (`dist/multihost.py`; NCCL with one card per rank); one process alone
@@ -159,16 +162,52 @@ def make_big_ba(C=64, Pts=110000, obs_per_cam=2000, seed=0, device="cuda"):
 # points seen once: the reference's solver rejects them too, at 1.9e12,
 # 1.3e10 and 1.9e6 against 8,800), where 1e-2 descends from the first.
 BA_LAM = 1e-2
+BA_HUBER = 50.0  # the reference's Huber threshold in pixels
+
+
+def make_ring_ba(C=32, Pts=4000, seed=11, device="cuda"):
+    """(camera, BAProblem): `kernel_inputs.ring_ba_problem`, a well-posed
+    problem whose points are each seen by many cameras."""
+    from parakeet_slam_tpu_torch.backend.graph import make_ba_problem
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import RING_BA_CAMERA, ring_ba_problem
+    from parakeet_slam_tpu_torch.frontend.camera import Pinhole
+
+    fields, _ = ring_ba_problem(C=C, Pts=Pts, seed=seed)
+    return Pinhole(*RING_BA_CAMERA), make_ba_problem(**fields, device=device)
+
+
+def _sharded_cost(cam, sp, mesh, cam_pose, points):
+    """The cost of (cam_pose, all points) on the sharded problem `sp`, with
+    `dist_ba`'s own arithmetic: this rank's block, summed over `dcn`."""
+    from parakeet_slam_tpu_torch.dist import dist_ba
+
+    S = mesh.axis_size(mesh_mod.MAP_AXIS)
+    k = mesh.axis_index(mesh_mod.MAP_AXIS)
+    rows = mesh_mod.RowSharding(mesh, mesh_mod.MAP_AXIS).rows(sp.num_points)
+    O_l = sp.num_obs // S
+    o = slice(k * O_l, (k + 1) * O_l)
+    c = dist_ba._cost(cam, cam_pose, points[rows], sp.obs_cam[o].long(),
+                      sp.obs_pt[o].long() - rows.start, sp.obs_uv[o], sp.obs_valid[o], BA_HUBER)
+    return float(mesh_mod.all_reduce_sum(c, mesh, mesh_mod.MAP_AXIS))
 
 
 def demo_dist_ba(Pts=110000, iters=3, pcg_iters=15, map_axes=(1, 2, 4), device="cuda",
-                 obs_per_cam=2000, lam=BA_LAM):
-    """The distributed BA at 100,000+ points, point blocks sharded over
-    `dcn`; weak scaling over the map axis (the sizes that fit the world)."""
+                 obs_per_cam=2000, lam=BA_LAM, problem="bench"):
+    """The distributed BA, point blocks sharded over `dcn`; weak scaling
+    over the map axis (the sizes that fit the world). `problem` "bench" is
+    the 100,000+ point layout, most points seen once; "ring" is
+    `make_ring_ba` (C=32, Pts points, each seen by many cameras). Each row
+    holds the last candidate's cost (`final_cost`, the reference's key), the
+    last accepted cost and the number of accepted LM steps, replayed from
+    the candidates' costs with the solver's own rule and cost arithmetic,
+    and the largest camera-position difference from the S=1 solve."""
     from parakeet_slam_tpu_torch.dist import dist_ba
 
-    cam, prob = make_big_ba(Pts=Pts, obs_per_cam=obs_per_cam, device=device)
-    rows, base = [], None
+    if problem == "ring":
+        cam, prob = make_ring_ba(Pts=Pts, device=device)
+    else:
+        cam, prob = make_big_ba(Pts=Pts, obs_per_cam=obs_per_cam, device=device)
+    rows, base, cam1 = [], None, None
     for S in map_axes:
         if S > _world():
             continue
@@ -179,23 +218,36 @@ def demo_dist_ba(Pts=110000, iters=3, pcg_iters=15, map_axes=(1, 2, 4), device="
 
         def call():
             return dist_ba.optimize_ba_distributed(cam, sp, mesh, iters=iters, lam=lam,
-                                                   pcg_iters=pcg_iters, huber_delta=50.0)
+                                                   pcg_iters=pcg_iters, huber_delta=BA_HUBER)
 
         call()
         _sync(device)
         t0 = time.perf_counter()
-        _, costs = call()
+        out, costs = call()
         _sync(device)
         ips = iters / (time.perf_counter() - t0)
         base = ips if base is None else base
+        # the solver accepts a candidate whose cost is below the current one
+        accepted = _sharded_cost(cam, sp, mesh, sp.cam_pose, sp.points)
+        n_acc = 0
+        for c in costs.tolist():
+            if c < accepted:
+                accepted, n_acc = c, n_acc + 1
+        cam_pos = out.cam_pose[:, :3].cpu()
+        cam1 = cam_pos if cam1 is None else cam1
         rows.append(_say({
             "bench": "dist_ba",
-            "points": Pts,
+            "problem": problem,
+            "points": int(prob.num_points),
             "obs": int(prob.obs_valid.sum()),
             "map_shards": S,
             "lm_iters_per_s": round(ips, 3),
             "efficiency_vs_1shard": round(ips / base, 3),
             "final_cost": float(costs[-1]),
+            "accepted_cost": accepted,
+            "returned_cost": _sharded_cost(cam, sp, mesh, out.cam_pose, out.points),
+            "accepted_steps": n_acc,
+            "max_cam_pos_diff_vs_1shard": float((cam_pos - cam1).abs().max()),
         }))
     return rows
 
@@ -209,7 +261,10 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=6)
     ap.add_argument("--ba-points", type=int, default=110000)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--parts", default="online,ring,ba,scaling",
+                    help="comma list of the demos to run: online, ring, ba, scaling")
     args = ap.parse_args(argv)
+    parts = set(args.parts.split(","))
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device available (use --device cpu)")
     own_group = False
@@ -223,10 +278,16 @@ def main(argv=None):
         art = {"devices": _world(), "platform": args.device,
                "kind": torch.cuda.get_device_name() if args.device == "cuda" else "cpu"}
         _say({"devices": art["devices"], "kind": art["kind"]})
-        art["online"] = demo_online_sharded(n_frames=args.frames, device=args.device)
-        art["ring_match"] = demo_ring_match(device=args.device)
-        art["dist_ba"] = demo_dist_ba(Pts=args.ba_points, device=args.device)
-        art["filter_weak_scaling"] = measure_scaling(device=args.device)
+        if "online" in parts:
+            art["online"] = demo_online_sharded(n_frames=args.frames, device=args.device)
+        if "ring" in parts:
+            art["ring_match"] = demo_ring_match(device=args.device)
+        if "ba" in parts:
+            art["dist_ba"] = demo_dist_ba(Pts=args.ba_points, device=args.device)
+            art["dist_ba_ring"] = demo_dist_ba(Pts=4000, iters=6, pcg_iters=60, lam=1e-4,
+                                               device=args.device, problem="ring")
+        if "scaling" in parts:
+            art["filter_weak_scaling"] = measure_scaling(device=args.device)
         if args.out and process_index() == 0:
             os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
             with open(args.out, "w") as f:

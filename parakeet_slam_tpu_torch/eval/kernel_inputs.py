@@ -390,3 +390,82 @@ def ba_bench_problem(C=64, Pts=50000, obs_per_cam=2000, seed=0, noise_px=0.5):
     f32 = np.float32
     return dict(cam_pose=poses.astype(f32), points=pts.astype(f32), obs_cam=obs_cam,
                 obs_pt=obs_pt, obs_uv=uv.astype(f32))
+
+
+# The well-posed bundle-adjustment problem's pinhole camera.
+RING_BA_CAMERA = (500.0, 500.0, 320.0, 240.0, 640, 480)
+
+
+def _quat_of_matrix(R):
+    """Unit quaternion (x, y, z, w) of a rotation matrix [3, 3], float64."""
+    tr = np.trace(R)
+    if tr > 0:
+        s = 2.0 * np.sqrt(1.0 + tr)
+        q = [(R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s, (R[1, 0] - R[0, 1]) / s, s / 4]
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = 2.0 * np.sqrt(1.0 + R[i, i] - R[j, j] - R[k, k])
+        q = [0.0, 0.0, 0.0, (R[k, j] - R[j, k]) / s]
+        q[i], q[j], q[k] = s / 4, (R[j, i] + R[i, j]) / s, (R[k, i] + R[i, k]) / s
+    q = np.asarray(q)
+    return q / np.linalg.norm(q)
+
+
+def _quat_mul(a, b):
+    (ax, ay, az, aw), (bx, by, bz, bw) = a, b
+    return np.array([aw * bx + ax * bw + ay * bz - az * by, aw * by - ax * bz + ay * bw + az * bx,
+                     aw * bz + ax * by - ay * bx + az * bw, aw * bw - ax * bx - ay * by - az * bz])
+
+
+def ring_ba_problem(C=32, Pts=4000, seed=11, noise_px=0.5):
+    """A well-posed bundle-adjustment problem in the layout of the reference's
+    backend test problem (`_make_ba_problem` of its BA tests), drawn with
+    numpy: C cameras on a circle of radius 4 m at height 0.5 m looking at
+    the origin, Pts points uniform in +-1.5 m, each observed by every camera
+    that has it more than 0.5 m in front and inside the 640x480 image, with
+    `noise_px` of pixel noise. Every point is seen by many cameras. The first
+    two cameras are fixed at the truth (the monocular gauge, scale included),
+    the others start 0.1 m and 0.03 rad off, the points 0.1 m off. Returns
+    (the BAProblem fields as arrays with `cam_fixed`, the true poses [C, 7])."""
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy, W, H = RING_BA_CAMERA
+    th = np.linspace(0.0, 2 * np.pi, C, endpoint=False)
+    gt = np.zeros((C, 7))
+    Rs = []
+    for c, t in enumerate(th):
+        pos = np.array([4.0 * np.cos(t), 4.0 * np.sin(t), 0.5])
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd], axis=1)  # columns: camera axes
+        Rs.append(R)
+        gt[c, :3], gt[c, 3:] = pos, _quat_of_matrix(R)
+    pts = rng.uniform(-1.5, 1.5, (Pts, 3))
+    obs_cam, obs_pt, obs_uv = [], [], []
+    for c in range(C):
+        q = (pts - gt[c, :3]) @ Rs[c]  # camera-frame points
+        z = np.maximum(q[:, 2], 1e-6)
+        uv = np.stack([fx * q[:, 0] / z + cx, fy * q[:, 1] / z + cy], axis=1)
+        vis = np.where((q[:, 2] > 0.5) & (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0)
+                       & (uv[:, 1] < H))[0]
+        obs_cam.append(np.full(len(vis), c))
+        obs_pt.append(vis)
+        obs_uv.append(uv[vis])
+    obs_uv = np.concatenate(obs_uv)
+    obs_uv = obs_uv + noise_px * rng.normal(size=obs_uv.shape)
+    init = gt.copy()
+    for c in range(2, C):
+        w = 0.03 * rng.normal(size=3)
+        a = np.linalg.norm(w)
+        dq = np.concatenate([np.sin(a / 2) * w / a, [np.cos(a / 2)]])
+        init[c, :3] += 0.1 * rng.normal(size=3)
+        init[c, 3:] = _quat_mul(gt[c, 3:], dq)
+    cam_fixed = np.zeros(C, bool)
+    cam_fixed[:2] = True
+    f32 = np.float32
+    points = pts + 0.1 * rng.normal(size=pts.shape)
+    return dict(cam_pose=init.astype(f32), points=points.astype(f32),
+                obs_cam=np.concatenate(obs_cam).astype(np.int32),
+                obs_pt=np.concatenate(obs_pt).astype(np.int32), obs_uv=obs_uv.astype(f32),
+                cam_fixed=cam_fixed), gt.astype(f32)

@@ -6,14 +6,22 @@ per-landmark EKF updates, importance weighting, adaptive systematic
 resampling and counter-based map management, each one batched tensor
 program over dense [P, L] arrays with validity masks.
 
-The frame's measurement update goes through a fused kernel wrapper:
-`kernels.ekf_update.measurement_update_2d` on the 2-D corridor model, and
-`kernels.ekf_update_3d.measurement_update_3d` (with `score_3d` where the
-weights are shaped) on the vision models. The resampling gather goes through
-`kernels.resample_cuda.gather_state`. The state's device picks the route:
-the hand-written CUDA kernels on CUDA tensors, their plain twins on CPU
-tensors. The port always follows the reference's `use_pallas=True` routing;
-the config key itself is ignored.
+The frame's measurement update goes through a fused kernel wrapper where
+one covers the model and the options: `kernels.ekf_update.measurement_update_2d`
+on `range_bearing_2d` with no external scores, anchor freeze, weight shaping
+or descriptors, and `kernels.ekf_update_3d.measurement_update_3d` (with
+`score_3d` where the weights are shaped) on the vision models without a float
+signature. Everything else takes the reference's model-agnostic path
+(`_measurement_generic`: `_score_frame`, `_associate_frame`,
+`_apply_observation` once per observation in order, the cull), built from
+each model's h / jac / residual / init / in_fov in plain torch. The
+resampling gather goes through `kernels.resample_cuda.gather_state`. The
+state's device picks kernel or twin inside each wrapper: the hand-written
+CUDA kernels on CUDA tensors, their plain twins on CPU tensors. The config
+key `use_pallas` is ignored: where the reference's `use_pallas=True` sends
+2-D shaping or descriptor configs to its fused kernel, which drops those
+options, the port honours them on the generic path, as the reference's
+`use_pallas=False` route does.
 """
 
 from __future__ import annotations
@@ -23,12 +31,16 @@ from dataclasses import dataclass
 
 import torch
 
+from parakeet_slam_tpu_torch.core import linalg
 from parakeet_slam_tpu_torch.core.config import FilterConfig, FrontendConfig
 from parakeet_slam_tpu_torch.core.geometry import wrap_angle
 from parakeet_slam_tpu_torch.core.state import Observation, ParticleState, make_particle_state
 from parakeet_slam_tpu_torch.filter import models as model_zoo
 from parakeet_slam_tpu_torch.kernels import ekf_update, ekf_update_3d
+from parakeet_slam_tpu_torch.kernels import match as match_kernel
 from parakeet_slam_tpu_torch.kernels import resample as resample_kernel
+
+_NEG_INF = -1e30
 
 
 def _f32(x: float) -> float:
@@ -61,31 +73,17 @@ class FastSLAM:
                 f"{self.model.name} ({self.model.obs_dim},{self.model.lm_dim})"
             )
         self.vision = self.model.name in model_zoo.VISION_MODELS
-        if self.vision and cfg.sig_dim != 0:
-            raise NotImplementedError(
-                "3-D models with a float signature (sig_dim > 0) take the reference's "
-                "XLA path, which is not ported (ROADMAP Queue 1)"
-            )
-        if not self.vision:
-            # The fused 2-D kernel has none of these; the reference runs them
-            # on its XLA path, which the port does not have.
-            unported = {
-                "weight_min_count": cfg.weight_min_count != 0,
-                "weight_only_matched": cfg.weight_only_matched,
-                "assoc_gate_px": cfg.assoc_gate_px != 0.0,
-                "freeze_min_count": cfg.freeze_min_count != 0,
-                "desc_words": cfg.desc_words != 0,
-            }
-            bad = [k for k, v in unported.items() if v]
-            if bad:
-                raise NotImplementedError(
-                    f"FilterConfig {bad} on {self.model.name}: the 2-D path has no weight "
-                    "shaping, anchor freeze or descriptors (ROADMAP Queue 1)"
-                )
+        # which fused kernel, if any, covers this model and these options
+        self.kernel_3d = self.vision and cfg.sig_dim == 0
+        self.kernel_2d = (
+            self.model.name == "range_bearing_2d" and cfg.freeze_min_count == 0
+            and not self._weight_shaping and cfg.desc_words == 0
+        )
         # Measurement variances of the 2-D kernel, held as float32 values so
         # that the kernel (float parameters) and the twin agree.
         self.r_var = tuple(_f32(float(x) ** 2) for x in cfg.meas_noise[:2])
         self.sig_var = _f32(float(cfg.sig_noise) ** 2)
+        self._R = {}  # diag(R) of the generic path, per (assoc, device, dtype)
 
     # -- state ------------------------------------------------------------
 
@@ -139,9 +137,11 @@ class FastSLAM:
     def _frame_scores(self, state: ParticleState, obs: Observation):
         """Association of the whole frame against the pre-frame map at the
         state's poses: (best lane [P, Z], best ll [P, Z]). `score_3d` on the
-        vision models, the plain 2-D scoring otherwise."""
+        vision models without a float signature, the 2-D kernel's plain
+        scoring on `range_bearing_2d` without descriptors or a gate, the
+        generic scoring otherwise."""
         c = self.cfg
-        if self.vision:
+        if self.kernel_3d:
             ll, ix = ekf_update_3d.score_3d(
                 state.pose, state.lm_mean, state.lm_cov, state.lm_desc, state.lm_valid,
                 obs.z, obs.desc, model=self.model.name, desc_words=c.desc_words,
@@ -149,10 +149,162 @@ class FastSLAM:
                 desc_weight=float(c.desc_weight),
             )
             return ix, ll
-        return ekf_update._score_frame(
-            state.pose, state.lm_mean, state.lm_cov, state.lm_sig, state.lm_valid,
-            obs.z, obs.sig, c.sig_dim, self.r_var, self.sig_var,
-        )
+        if self.model.name == "range_bearing_2d" and c.desc_words == 0 and c.assoc_gate_px == 0:
+            return ekf_update._score_frame(
+                state.pose, state.lm_mean, state.lm_cov, state.lm_sig, state.lm_valid,
+                obs.z, obs.sig, c.sig_dim, self.r_var, self.sig_var,
+            )
+        return self._score_frame(state, obs)
+
+    # -- the generic path ---------------------------------------------------
+
+    def _per_pair_stats(self, pose, lm_mean, lm_cov, assoc: bool = False):
+        """The geometry of each (pose, landmark) pair, shared by every
+        observation: (zhat [..., Dz], H [..., Dz, Dl], Q^-1, log det Q), with
+        Q = H S H^T + R and the reference's clamps."""
+        key = (assoc, lm_mean.device, lm_mean.dtype)
+        if key not in self._R:  # one host-to-device copy per device
+            self._R[key] = torch.diag(torch.tensor(self._meas_var(assoc), dtype=lm_mean.dtype,
+                                                   device=lm_mean.device))
+        zhat = self.model.h(pose, lm_mean)
+        H = self.model.jac(pose, lm_mean)
+        Q = H @ lm_cov @ H.transpose(-1, -2) + self._R[key]
+        inv, det = linalg.inv_psd(Q)
+        return zhat, H, inv, torch.log(torch.clamp(det, min=1e-12))
+
+    def _loglik(self, z, zhat, inv, logdet):
+        """log N(z - zhat; 0, Q) from Q's inverse and log-determinant; the
+        Mahalanobis term clamped at 0, as `linalg.gaussian_loglik`."""
+        nu = self.model.residual(z, zhat)
+        maha = torch.clamp(torch.einsum("...i,...ij,...j->...", nu, inv, nu), min=0.0)
+        D = nu.shape[-1]
+        return -0.5 * (maha + logdet + D * math.log(2.0 * math.pi))
+
+    def _appearance_loglik(self, obs_sig, obs_desc, lm_sig, lm_desc):
+        """Signature (float) and descriptor (Hamming) terms [P, L]."""
+        c = self.cfg
+        ll = torch.zeros(lm_sig.shape[:2], dtype=lm_sig.dtype, device=lm_sig.device)
+        if c.sig_dim > 0:
+            d2 = torch.sum((lm_sig - obs_sig[None, None, :]) ** 2, dim=-1)
+            ll = ll - 0.5 * d2 / self.sig_var
+        if c.desc_words > 0:
+            x = torch.bitwise_xor(lm_desc, obs_desc[None, None, :])
+            ham = match_kernel.popcount32(x).sum(dim=-1, dtype=torch.int32).to(ll.dtype)
+            ll = ll - c.desc_weight * ham
+        return ll
+
+    def _score_frame(self, state: ParticleState, obs: Observation):
+        """Every observation scored against every (particle, landmark) pair
+        of the pre-frame map: (best lane [P, Z], best ll [P, Z]). Invalid
+        lanes and non-finite scores count -1e30; the best lane is the first
+        among equal maxima."""
+        zhat, _, inv, logdet = self._per_pair_stats(state.pose[:, None, :], state.lm_mean,
+                                                    state.lm_cov, assoc=True)
+        best, best_ll = [], []
+        for i in range(obs.capacity):
+            ll = self._loglik(obs.z[i], zhat, inv, logdet)
+            ll = ll + self._appearance_loglik(obs.sig[i], obs.desc[i], state.lm_sig,
+                                              state.lm_desc)
+            ll = torch.where(state.lm_valid & torch.isfinite(ll), ll, _NEG_INF)
+            b = torch.argmax(ll, dim=1)
+            best.append(b)
+            best_ll.append(torch.gather(ll, 1, b[:, None])[:, 0])
+        return torch.stack(best, 1), torch.stack(best_ll, 1)
+
+    def _associate_frame(self, state: ParticleState, obs: Observation, scores=None):
+        """Pre-frame association of the whole frame: (target [P, Z] lane or
+        -1, is_new, do_upd, do_alloc, best_ll). New landmarks take the free
+        lanes in ascending order, at most min(Z, 64) a frame."""
+        best, best_ll = self._score_frame(state, obs) if scores is None else scores
+        target, is_new, do_upd, do_alloc = ekf_update._associate(
+            state.lm_valid, best.long(), best_ll, obs.valid, self._log_p0_assoc())
+        return target, is_new, do_upd, do_alloc, best_ll
+
+    def _apply_observation(self, state: ParticleState, matched, obs: Observation, i,
+                           target, is_new):
+        """Observation i applied at its pre-assigned lane target [P] of every
+        particle, IN PLACE on the state's landmark tensors and `matched`: the
+        EKF update (symmetrised covariance; mean and covariance left alone on
+        a frozen anchor, whose count and appearance still move) where it
+        matched, the model's landmark init where it is new and has a slot.
+        Each particle writes one lane, so the writes are plain indexed
+        stores, no accumulation."""
+        c = self.cfg
+        rows = torch.arange(state.num_particles, device=state.pose.device)
+        act = target >= 0
+        upd = act & ~is_new
+        alloc = act & is_new
+        tgt = torch.clamp(target, min=0)
+        z = obs.z[i]
+        mean_b, cov_b = state.lm_mean[rows, tgt], state.lm_cov[rows, tgt]
+        cnt_b = state.lm_count[rows, tgt]
+        frozen = (cnt_b >= c.freeze_min_count) if c.freeze_min_count > 0 else torch.zeros_like(upd)
+
+        zhat, H, Qinv, _ = self._per_pair_stats(state.pose, mean_b, cov_b)
+        nu = self.model.residual(z, zhat)
+        K = cov_b @ H.transpose(-1, -2) @ Qinv
+        mean_u = mean_b + (K @ nu[..., None])[..., 0]
+        eye = torch.eye(c.lm_dim, dtype=cov_b.dtype, device=cov_b.device)
+        cov_u = (eye - K @ H) @ cov_b
+        cov_u = 0.5 * (cov_u + cov_u.transpose(-1, -2))
+        mean0, cov0 = self.model.init(state.pose, z)
+
+        move = upd & ~frozen
+        m1 = lambda a: a[:, None]  # noqa: E731
+        state.lm_mean[rows, tgt] = torch.where(m1(move), mean_u,
+                                               torch.where(m1(alloc), mean0, mean_b))
+        state.lm_cov[rows, tgt] = torch.where(m1(m1(move)), cov_u,
+                                              torch.where(m1(m1(alloc)), cov0, cov_b))
+        cnt_u = cnt_b + 2
+        state.lm_count[rows, tgt] = torch.where(upd, cnt_u,
+                                                torch.where(alloc, torch.ones_like(cnt_b), cnt_b))
+        state.lm_valid[rows, tgt] = state.lm_valid[rows, tgt] | alloc
+        if c.sig_dim > 0:
+            # running-average appearance
+            sig = obs.sig[i]
+            sig_b = state.lm_sig[rows, tgt]
+            cnt = torch.clamp(cnt_u.to(sig_b.dtype), min=1.0)
+            sig_u = sig_b + (sig[None, :] - sig_b) / cnt[:, None]
+            state.lm_sig[rows, tgt] = torch.where(
+                m1(upd), sig_u, torch.where(m1(alloc), sig.expand_as(sig_b), sig_b))
+        if c.desc_words > 0:
+            # latest-wins descriptors
+            desc_b = state.lm_desc[rows, tgt]
+            state.lm_desc[rows, tgt] = torch.where(m1(act), obs.desc[i].expand_as(desc_b), desc_b)
+        matched[rows, tgt] = matched[rows, tgt] | act
+
+    def _cull(self, state: ParticleState, matched) -> ParticleState:
+        """Unmatched lanes age (in the field of view, or everywhere with
+        cull_unseen); a count below 0 frees the lane."""
+        c = self.cfg
+        if not c.cull_enabled:
+            return state
+        if c.cull_unseen:
+            dec = state.lm_valid & ~matched
+        else:
+            in_fov = self.model.in_fov(state.pose[:, None, :], state.lm_mean)
+            dec = state.lm_valid & in_fov & ~matched
+        count = state.lm_count - dec.to(torch.int32)
+        return state.replace(lm_count=count, lm_valid=state.lm_valid & (count >= 0))
+
+    def _measurement_generic(self, state, obs, weight_matched, scores=None):
+        """The reference's model-agnostic measurement update: pre-frame
+        association, the shaped weight increment, the observations applied in
+        order, the cull. Returns (state, mean associated-observation count)."""
+        pre = state
+        target, is_new, do_upd, do_alloc, best_ll = self._associate_frame(state, obs, scores)
+        if weight_matched:
+            # the lane is read only where the observation is not new
+            best = torch.where(is_new, torch.zeros_like(target), torch.clamp(target, min=0))
+            state = state.replace(log_w=state.log_w + self._weight_delta(pre, obs, (best, best_ll)))
+        # the observations write into copies: the caller's state stays as it was
+        state = state.replace(**{f: getattr(state, f).clone() for f in (
+            "lm_mean", "lm_cov", "lm_count", "lm_valid", "lm_sig", "lm_desc")})
+        matched = torch.zeros_like(state.lm_valid)
+        for i in range(obs.capacity):
+            self._apply_observation(state, matched, obs, i, target[:, i], is_new[:, i])
+        n_match = (do_upd | do_alloc).to(torch.float32).sum(dim=1)
+        return self._cull(state, matched), n_match.mean()
 
     @property
     def _weight_shaping(self) -> bool:
@@ -184,13 +336,10 @@ class FastSLAM:
         Returns (state, mean associated-observation count). `scores` (best,
         best_ll), when given, replaces the association sweep (FastSLAM 2.0's
         proposal already scored the frame)."""
-        if not self.vision:
-            if scores is not None:
-                raise NotImplementedError(
-                    "external scores on the 2-D model take the reference's XLA path, "
-                    "which is not ported (ROADMAP Queue 1)"
-                )
+        if self.kernel_2d and scores is None:
             return self._measurement_update_2d(state, obs, weight_matched)
+        if not self.kernel_3d:
+            return self._measurement_generic(state, obs, weight_matched, scores)
         if weight_matched and self._weight_shaping:
             # Shaped weights are computed here from a score_3d sweep; the
             # update kernel then applies those scores with its own weight
@@ -206,7 +355,7 @@ class FastSLAM:
         # The fused update weights a new observation with new_landmark_loglik
         # and also uses it as the association threshold; the reference's
         # threshold (_log_p0_assoc) equals it only while assoc_gate_px == 0,
-        # which __init__ enforces on this model.
+        # which the routing (kernel_2d) ensures.
         out = ekf_update.measurement_update_2d(
             state.pose, state.log_w, state.lm_mean, state.lm_cov, state.lm_sig,
             state.lm_valid, state.lm_count, obs.z, obs.sig, obs.valid,

@@ -11,9 +11,10 @@ are each model's closed form (`pose_jac`), held to the reference's
 FastSLAM 1.0 measurement core with its weight update off.
 
 Association: "hoisted" scores the whole frame once at the motion-mean pose
-(one `score_3d` sweep, reused by the map pass); "sequential" re-associates
-each observation at the progressively refined pose. "auto" is hoisted on
-the vision models and sequential on the 2-D corridor. The refinement is
+(one `score_3d` sweep, or the generic scoring, reused by the map pass);
+"sequential" re-associates each observation at the progressively refined
+pose, appearance terms included. "auto" is hoisted on the vision models
+that `score_3d` covers (no float signature) and sequential otherwise. The refinement is
 sequential over the observations either way: a Python loop of small [P, 6]
 tensor programs.
 """
@@ -39,11 +40,6 @@ class FastSLAM2(FastSLAM):
             model_zoo.get_motion_mean_cov(cfg.motion_model)
         )
         self.noise_dim = self.tangent_dim  # the proposal's draw replaces the motion draw
-        if not self.vision and self._hoist_association():
-            raise NotImplementedError(
-                "hoisted association on the 2-D model takes the reference's XLA map "
-                "pass, which is not ported (ROADMAP Queue 1)"
-            )
 
     # -- proposal stage -----------------------------------------------------
 
@@ -55,7 +51,7 @@ class FastSLAM2(FastSLAM):
     def _hoist_association(self) -> bool:
         mode = getattr(self.cfg, "fs2_association", "auto")
         if mode == "auto":
-            return self.vision
+            return self.kernel_3d
         return mode == "hoisted"
 
     def _associate(self, pose, state: ParticleState, obs: Observation, i: int):

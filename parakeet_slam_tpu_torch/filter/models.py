@@ -1,6 +1,6 @@
 """Motion and measurement models (port of `parakeet_slam_tpu.filter.models`:
-odometry_2d, se3_odometry, range_bearing_2d, pinhole_3d, stereo_3d,
-equirect_3d).
+odometry_2d, velocity_2d, se3_odometry, range_bearing_2d, bearing_2d,
+pinhole_3d, stereo_3d, equirect_3d).
 
 Unlike the JAX zoo, whose functions take one landmark and are vmapped, these
 take tensors with any leading batch dims that broadcast against each other:
@@ -61,6 +61,28 @@ def sample_odometry_2d(pose, u, alphas, noise):
     return geometry.se2_compose(pose, du)
 
 
+def _velocity_sigmas(u, alphas):
+    v, w = u[0], u[1]
+    a1, a2, a3, a4 = alphas
+    sig_v = torch.sqrt(a1 * v * v + a2 * w * w) + 1e-6
+    sig_w = torch.sqrt(a3 * v * v + a4 * w * w) + 1e-6
+    return sig_v, sig_w
+
+
+def _velocity_step(pose, v, w, dt):
+    """pose o exp([v dt, 0, w dt]); v, w broadcast against pose[..., 0]."""
+    twist = torch.stack([v * dt, torch.zeros_like(v), w * dt], dim=-1)
+    return geometry.se2_compose(pose, geometry.se2_exp(twist))
+
+
+def sample_velocity_2d(pose, u, alphas, noise):
+    """Velocity motion model: u = [v, omega, dt]; noise [..., 2] standard
+    normals scale the speed and the turn rate. pose [..., 3] -> [..., 3]."""
+    v, w, dt = u[0], u[1], u[2]
+    sig_v, sig_w = _velocity_sigmas(u, alphas)
+    return _velocity_step(pose, v + noise[..., 0] * sig_v, w + noise[..., 1] * sig_w, dt)
+
+
 def sample_se3_odometry(pose, u, sigmas, noise):
     """SE(3) odometry: u = twist [6], sigmas = (sig_trans, sig_rot),
     noise [..., 6] standard normals. pose [..., 7] -> [..., 7]."""
@@ -72,6 +94,7 @@ def sample_se3_odometry(pose, u, sigmas, noise):
 # name -> (sampler, dimension of its standard-normal draw)
 MOTION_MODELS: dict[str, tuple[Callable, int]] = {
     "odometry_2d": (sample_odometry_2d, 3),
+    "velocity_2d": (sample_velocity_2d, 2),
     "se3_odometry": (sample_se3_odometry, 6),
 }
 
@@ -87,7 +110,7 @@ def motion_noise_dim(name: str) -> int:
 def _lookup(table, name, what):
     if name in table:
         return table[name]
-    raise NotImplementedError(f"{what} {name!r} is not ported yet (ROADMAP Queue 1)")
+    raise KeyError(f"unknown {what} {name!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +143,24 @@ def _odometry_2d_mean_cov(pose, u, alphas):
     return mean, cov.expand(*pose.shape[:-1], 3, 3)
 
 
+def _velocity_2d_mean_cov(pose, u, alphas):
+    """Mean pose o exp([v dt, 0, w dt]) and J diag(sig_v^2, sig_w^2) J^T +
+    1e-8 I, J = d mean / d (v, w) [P, 3, 2] by `torch.func.jacfwd` (rank 2:
+    the 1e-8 regularises it, as in the reference)."""
+    v, w, dt = u[0], u[1], u[2]
+    sig_v, sig_w = _velocity_sigmas(u, alphas)
+
+    def f(vw):
+        vw = vw.expand(*pose.shape[:-1], 2)  # see _se3_odometry_mean_cov
+        return _velocity_step(pose, vw[..., 0], vw[..., 1], dt)
+
+    vw0 = torch.stack([v, w]).to(pose.dtype)
+    J = torch.func.jacfwd(f)(vw0)
+    M = torch.stack([sig_v**2, sig_w**2]).to(pose.dtype)
+    eye = torch.eye(3, dtype=pose.dtype, device=pose.device)
+    return f(vw0), (J * M) @ J.transpose(-1, -2) + 1e-8 * eye
+
+
 def _se3_odometry_mean_cov(pose, u, sigmas):
     """Mean pose o exp(u) and J M J^T, J the right Jacobian of exp at u, as
     `torch.func.jacfwd` of log(mean^-1 o pose o exp(u + eps)) at eps = 0.
@@ -145,6 +186,7 @@ def _se3_odometry_mean_cov(pose, u, sigmas):
 #          retract(pose, delta), tangent_dim)
 MOTION_MEAN_COV: dict[str, tuple[Callable, Callable, int]] = {
     "odometry_2d": (_odometry_2d_mean_cov, se2_retract, 3),
+    "velocity_2d": (_velocity_2d_mean_cov, se2_retract, 3),
     "se3_odometry": (_se3_odometry_mean_cov, se3_retract, 6),
 }
 
@@ -240,6 +282,48 @@ def _range_bearing_2d(cfg: FilterConfig, fe: FrontendConfig) -> MeasurementModel
         return torch.cat([J, col], dim=-1)
 
     return MeasurementModel("range_bearing_2d", 2, 2, h, jac, residual, init, in_fov, pose_jac)
+
+
+def _bearing_2d(cfg: FilterConfig, fe: FrontendConfig) -> MeasurementModel:
+    """Bearing-only z = [bearing] of a 2-D landmark (the appearance channels
+    ride separately as the signature)."""
+
+    def h(pose, lm):
+        d = lm - pose[..., :2]
+        return wrap_angle(torch.atan2(d[..., 1], d[..., 0]) - pose[..., 2])[..., None]
+
+    def jac(pose, lm):
+        d = lm - pose[..., :2]
+        q = torch.sum(d * d, dim=-1) + 1e-12
+        return torch.stack([-d[..., 1] / q, d[..., 0] / q], dim=-1)[..., None, :]
+
+    def residual(z, zhat):
+        return wrap_angle(z - zhat)
+
+    def init(pose, z):
+        # depth is unobservable: the prior range along the bearing ray, with
+        # a large radial and a bearing-noise tangential spread
+        r0 = cfg.init_range_prior
+        ang = pose[..., 2] + z[..., 0]
+        c, s = torch.cos(ang), torch.sin(ang)
+        mean = pose[..., :2] + r0 * torch.stack([c, s], dim=-1)
+        sig_r = cfg.init_range_sigma
+        sig_t = r0 * cfg.meas_noise[0]
+        Rm = torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
+        D = torch.tensor([sig_r**2, sig_t**2], dtype=mean.dtype, device=mean.device)
+        return mean, cfg.init_cov_inflation * ((Rm * D) @ Rm.transpose(-1, -2))
+
+    def in_fov(pose, lm):
+        d = lm - pose[..., :2]
+        r = torch.sqrt(torch.sum(d * d, dim=-1))
+        phi = wrap_angle(torch.atan2(d[..., 1], d[..., 0]) - pose[..., 2])
+        return (r < cfg.max_range) & (phi.abs() < cfg.fov_half_angle)
+
+    def pose_jac(pose, lm):  # d h / d pose = [-d h / d lm | -1]
+        J = -jac(pose, lm)
+        return torch.cat([J, torch.full_like(J[..., :1], -1.0)], dim=-1)
+
+    return MeasurementModel("bearing_2d", 1, 2, h, jac, residual, init, in_fov, pose_jac)
 
 
 def _row_stack(rows):
@@ -443,6 +527,7 @@ def _equirect_3d(cfg: FilterConfig, fe: FrontendConfig) -> MeasurementModel:
 
 MEASUREMENT_MODELS: dict[str, Callable[[FilterConfig, FrontendConfig], MeasurementModel]] = {
     "range_bearing_2d": _range_bearing_2d,
+    "bearing_2d": _bearing_2d,
     "pinhole_3d": _pinhole_3d,
     "stereo_3d": _stereo_3d,
     "equirect_3d": _equirect_3d,

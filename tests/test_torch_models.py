@@ -58,13 +58,16 @@ def test_range_bearing_matches_jax():
 
 
 def test_registries_hold_the_2d_entries_only():
-    """The registries hold the ported entries; the 2-D entries the port has
-    not ported (velocity_2d, bearing_2d) still raise."""
+    """The registries hold every reference entry, velocity_2d and
+    bearing_2d included; an unknown name raises KeyError, as the reference's
+    registries do."""
     assert tmodels.get_motion_model("odometry_2d") is tmodels.sample_odometry_2d
     assert tmodels.get_motion_model("se3_odometry") is tmodels.sample_se3_odometry
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.get_motion_model("velocity_2d")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.get_measurement_model(FilterConfig(measurement_model="bearing_2d"))
-    for name in ("range_bearing_2d", "pinhole_3d", "stereo_3d", "equirect_3d"):
+    assert tmodels.get_motion_model("velocity_2d") is tmodels.sample_velocity_2d
+    assert tmodels.get_motion_mean_cov("velocity_2d")[2] == 3
+    with pytest.raises(KeyError):
+        tmodels.get_motion_model("ackermann_2d")
+    with pytest.raises(KeyError):
+        tmodels.get_measurement_model(FilterConfig(measurement_model="lidar_2d"))
+    for name in ("range_bearing_2d", "bearing_2d", "pinhole_3d", "stereo_3d", "equirect_3d"):
         assert tmodels.get_measurement_model(FilterConfig(measurement_model=name)).name == name

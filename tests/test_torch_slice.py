@@ -138,20 +138,31 @@ def test_bench_prints_bench_py_keys(capsys):
 
 
 def test_make_filter_refuses_unported_algorithms():
-    """fastslam2 is ported; what the port lacks still raises: the 2-D
-    models' XLA-only options, bearing_2d, and 3-D models with a float
-    signature."""
+    """Every reference algorithm and option builds and steps: the 2-D
+    models' options that no fused kernel takes, bearing_2d, 3-D models with
+    a float signature and hoisted association on the 2-D model run the
+    generic path; an unknown algorithm still raises."""
+    from parakeet_slam_tpu_torch.core.state import make_observation
     from parakeet_slam_tpu_torch.filter import FastSLAM2
 
     assert isinstance(make_filter(FilterConfig(algorithm="fastslam2")), FastSLAM2)
     with pytest.raises(ValueError, match="unknown algorithm"):
         make_filter(FilterConfig(algorithm="fastslam3"))
+    small = dict(num_particles=4, max_landmarks=8, max_observations=2)
     for kw in (dict(freeze_min_count=3), dict(measurement_model="bearing_2d", obs_dim=1),
                dict(measurement_model="pinhole_3d", lm_dim=3, pose_dim=7, sig_dim=2,
-                    motion_model="se3_odometry"),
+                    obs_dim=2, motion_model="se3_odometry"),
                dict(algorithm="fastslam2", fs2_association="hoisted")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_filter(FilterConfig(**kw))
+        slam = make_filter(FilterConfig(**small, **kw))
+        # no fused kernel covers it (hoisted scores route past the 2-D one)
+        assert not (slam.kernel_2d or slam.kernel_3d) or slam._hoist_association()
+        c = slam.cfg
+        st = slam.init_state(device="cpu")
+        obs = make_observation(torch.full((2, c.obs_dim), 0.5), sig=torch.zeros(2, c.sig_dim),
+                               device="cpu")
+        u = torch.zeros(6 if c.pose_dim == 7 else 3)
+        st, m = slam.step(st, u, obs, torch.zeros(4, slam.noise_dim), torch.tensor(0.1))
+        assert bool(st.lm_valid.any()) and bool(torch.isfinite(st.log_w).all()), kw
 
 
 def test_port_never_imports_jax():
@@ -168,7 +179,8 @@ def test_port_never_imports_jax():
         "       'eval.ab_kernels', 'frontend.stereo', 'frontend.pyramid', 'data.kitti',\n"
         "       'utils.checkpoint', 'data.euroc', 'dist.multihost', 'dist.mesh',\n"
         "       'dist.sharded_filter', 'dist.ring_match', 'dist.reshard', 'dist.dist_ba',\n"
-        "       'eval.scaling', 'eval.config5_demo')\n"
+        "       'eval.scaling', 'eval.config5_demo', 'eval.bench_system',\n"
+        "       'baseline.numpy_fastslam', 'utils.viz')\n"
         "assert all(pkg.__name__ + '.' + m in names for m in new), names\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'parakeet_slam_tpu')]\n"
         "assert not bad, bad\n"

@@ -414,6 +414,29 @@ def suite_ba(out: Path):
           cam_2d=p2.cam_pose, pts_2d=p2.points, costs_2d=c2)
 
 
+def suite_ba4(out: Path):
+    """The 1-D distributed BA at S = 4 (one point block a rank), and the
+    config-5 demo's BA rows at S = 1, 2, 4 on both its problems, small."""
+    import torch.distributed as tdist
+
+    from parakeet_slam_tpu_torch.dist import dist_ba
+    from parakeet_slam_tpu_torch.dist import mesh as mesh_mod
+    from parakeet_slam_tpu_torch.dist.multihost import initialize_multihost
+    from parakeet_slam_tpu_torch.eval import config5_demo as demo
+
+    initialize_multihost()
+    cam, prob = ba_inputs(np.load(out / "inputs.npz"))
+    mesh = mesh_mod.make_mesh(map_axis=4)
+    p, c = dist_ba.optimize_ba_distributed(cam, dist_ba.shard_problem(prob, 4), mesh, **BA_KW)
+    _save(out, "ba4", cam=p.cam_pose, pts=p.points, costs=c)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows = {"ring": demo.demo_dist_ba(Pts=300, iters=4, pcg_iters=30, lam=1e-4,
+                                          device="cpu", problem="ring"),
+                "bench": demo.demo_dist_ba(Pts=1000, iters=2, pcg_iters=5, device="cpu",
+                                           obs_per_cam=200)}
+    (out / f"demo_ba_r{tdist.get_rank()}.json").write_text(json.dumps(rows))
+
+
 # -- the system, and recovery ------------------------------------------------
 
 
@@ -603,7 +626,7 @@ def suite_recover_resume(out: Path):
 
 
 SUITES = {
-    "dist": suite_dist, "ring": suite_ring, "reshard": suite_reshard, "ba": suite_ba,
+    "dist": suite_dist, "ring": suite_ring, "reshard": suite_reshard, "ba": suite_ba, "ba4": suite_ba4,
     "system": suite_system, "recover_run": suite_recover_run,
     "recover_resume": suite_recover_resume,
 }
