@@ -23,11 +23,15 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      update, full and empty maps, L=130, Z=64) at small shapes, and the
      gather on descriptor rows of W=8 words and on one row repeated P times;
   4. the main path, config 1 (configs/corridor.yaml) for 500 frames and
-     filter seeds 0-4: every frame through the update kernel, every resample
-     through the gather kernel, each ATE < 0.5 m, the 5-seed mean in the JAX
-     reference band [0.136, 0.264] m;
+     filter seeds 0-4, `run_sequence` replaying its captured CUDA graph
+     (the default on the card; `filter/captured.py`): every frame through
+     the update kernel and the gather kernel (the resample is decided on
+     the device, so the gather runs every frame, at the identity indices
+     where the ESS asks for none; the resamples are counted from the
+     metrics, > 0), each ATE < 0.5 m, the 5-seed mean in the JAX reference
+     band [0.136, 0.264] m;
   5. the main path at the real-size shape for 30 frames: finite, both
-     kernels launched, frames/s and peak device memory;
+     kernels launched once a frame, frames/s and peak device memory;
   6. the two 3-D kernels (measurement_update_3d, score_3d) against their
      twins: each model at the bench shape (P=1024, L=8192, Z=32), stereo at
      the KITTI shape (P=2048, L=10240, Z=128) and equirect at the panoramic
@@ -50,11 +54,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      FastSLAM 2.0, stereo_3d, P=2048, L=10240, Z=128) fed synthetic
      observations for 10 frames of the drive world (phase 11b runs the same
      configuration from images): one score_3d and one measurement_update_3d
-     launch per frame, one gather per resample, a finite trajectory,
+     launch per frame, one gather a frame, a finite trajectory,
      frames/s, peak device memory, ATE against ground truth and dead
      reckoning (printed, not gated); the kernel path and the twin path
      give equal masks and counts over the first 2 frames from the same
-     draws;
+     draws (both eager);
   8. the ekf_update_3d, fs1_step and fs2_step rows of the kernel bench;
   9. the two matcher kernels (hamming_top2, l2_top2) against their twins:
      Hamming at the bench shape (N=1024, M=131072, W=8; all valid, and 1 in
@@ -82,7 +86,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      closure, so that the repeat below covers one, hamming_top2 launched
      twice per closure dispatch (forward and reverse) and at least once,
      one score_3d and one measurement_update_3d launch per frame, one gather
-     per resample; frames/s (from frame 3), keyframes, dispatches, accepted
+     a frame; frames/s (from frame 3), keyframes, dispatches, accepted
      closures, peak device memory, and the corrected, online and
      dead-reckoning ATE (Sim(3), not gated); then the same run again from
      the same seed: keyframe count, resample count, estimates and pose-graph
@@ -95,7 +99,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      drive world written in the KITTI layout and run through `cli run`'s
      KITTI loop (loader, stereo frames with the SAD disparity, SE(3) ATE): a
      finite trajectory, one score_3d and one measurement_update_3d launch
-     per frame, one gather per resample, hamming_top2 twice per closure
+     per frame, one gather a frame, hamming_top2 twice per closure
      dispatch, at least one disparity-valid observation a frame on average,
      landmarks > 0; one frame's keypoint_disparity on the card equal to the
      CPU's in mask and disparity (within 1e-5), keypoints whose two smallest
@@ -139,7 +143,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      relocalization prior, the joint BA solved twice and timed warm): a
      finite trajectory over both sessions, >= 2 keyframes in each, a finite
      joint-BA cost whose last value is <= its first; one score_3d and one
-     measurement_update_3d launch per frame, one gather per resample,
+     measurement_update_3d launch per frame, one gather a frame,
      hamming_top2 twice per closure dispatch plus once per keyframe of the
      BA's point dedup, apply_cinv 2 x gn_iters x buckets x (pcg_iters + 3);
      the kernels against their twins at config 4's shapes and data: every
@@ -195,7 +199,7 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      the single-call times of both. Then 30 frames each of a bearing_2d
      FastSLAM 1.0 filter and a bearing_2d + velocity_2d FastSLAM 2.0
      filter (P=64, L=192, Z=16) on the corridor's bearings: finite, every
-     particle mapping, one gather a resample, frames/s;
+     particle mapping, one gather a frame, frames/s;
   18. `eval/bench_system` at the reference's widths (FastSLAM 1.0, P=256,
      L=2048, Z=64): stereo (`process_stereo_frame` on 376x1241 pairs) and
      pano (`process_frame` on 512x1024 equirect frames), 5 warm-up frames
@@ -203,11 +207,26 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      renders and the script near its time) and 3 under torch.profiler,
      rendered in worker processes started before phase 6: the reference's
      result line, one measurement_update_3d launch a frame (scoring
-     itself, no score_3d), one gather a resample, hamming_top2 twice a
+     itself, no score_3d), one gather a frame, hamming_top2 twice a
      closure dispatch, >= 2 keyframes, finite estimates; frames/s, ms a
      frame, keyframes, launches a frame, idle share, peak memory and the
      render seconds; the first 2 frames replayed on the twin path (lm_valid
-     and lm_count equal, estimates within 1e-5).
+     and lm_count equal, estimates within 1e-5);
+  19. (run after phase 11) the captured step against its eager twin
+     (`capture=False`) from the same draws: the corridor (config 1, seed 0,
+     500 frames) and config 3's filter (10 frames) through `run_sequence`,
+     config 2's system (phase 10's captured run against an eager run over
+     the same 90 frames): every state leaf, estimate and metric (and config
+     2's graph poses, keyframes and closures) bit-equal; frames/s of both,
+     the capture and instantiation seconds, the graph pool's bytes and the
+     launches counted per replay; for each path and mode a few frames under
+     torch.profiler (device launches, host CUDA API calls, device busy,
+     wall, idle share); one eager step of configs 1-4 under
+     `torch.cuda.set_sync_debug_mode("error")`.
+On the card phases 4, 5, 7, 10, 11b, 15, 17 and 18 run the captured step
+(the default): each wrapper's launch count holds its launches on the
+warm-up frame and once per replay (`CapturedStep` takes back what the
+capture counted and adds it per replay); the twin paths run eagerly.
 Every kernel's record carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and its
 operations over the card's peak for their type (67 TFLOP/s float32, 1,979
@@ -649,8 +668,11 @@ def phase_corridor(device):
           f"fps median={r['fps']:.1f} launches ekf={launches[0]} gather={launches[1]}")
     check(r["est_finite"], "corridor trajectory not finite")
     check(launches[0] == steps * len(seeds), f"ekf launches {launches[0]} != {steps * len(seeds)}")
+    # the resample is decided on the device: one gather a frame (the
+    # identity where the ESS asks for none); the resamples from the metrics
     n_res = sum(r["resamples"])
-    check(launches[1] == n_res and n_res > 0, f"gather launches {launches[1]}, resamples {n_res}")
+    check(launches[1] == steps * len(seeds) and n_res > 0,
+          f"gather launches {launches[1]} (frames {steps * len(seeds)}), resamples {n_res}")
     check(all(a < 0.5 for a in r["ates"]), f"ATE >= 0.5 m: {r['ates']}")
     check(ATE_BAND[0] <= r["ate"] <= ATE_BAND[1], f"5-seed ATE {r['ate']:.4f} outside {ATE_BAND}")
     return launches
@@ -679,7 +701,7 @@ def phase_real_size(device):
     print(f"real size P={P} L={L} Z={Z}: 30 frames fps={run['fps']:.2f} ate={run['ate']:.4f} m "
           f"peak_mem={peak / 2**30:.3f} GiB launches ekf={launches[0]} gather={launches[1]}")
     check(bool(torch.isfinite(run["est"]).all()), "real-size trajectory not finite")
-    check(launches[0] == 30 and launches[1] >= 1, f"real-size launches {launches}")
+    check(launches[0] == 30 and launches[1] == 30, f"real-size launches {launches}")
 
 
 # --------------------------------------------------------------------------
@@ -922,7 +944,7 @@ def phase_vision(device, frames=10, config="configs/kitti_00.yaml", check_frames
     dt = time.perf_counter() - t0
     launches = _counts_3d()
     peak = torch.cuda.max_memory_allocated()
-    n_res = sum(m.resampled for m in metrics)
+    n_res = int(sum(bool(m.resampled) for m in metrics))
     gt = torch.as_tensor(world.gt_pose[:frames])
     dr = [gt[0]]
     for t in range(1, frames):
@@ -938,17 +960,19 @@ def phase_vision(device, frames=10, config="configs/kitti_00.yaml", check_frames
     check(bool(torch.isfinite(est).all()), "vision trajectory not finite")
     check(launches[0] == frames and launches[1] == frames,
           f"vision launches score_3d={launches[0]} update_3d={launches[1]}, frames {frames}")
-    check(launches[2] == n_res, f"vision gather launches {launches[2]}, resamples {n_res}")
+    check(launches[2] == frames, f"vision gather launches {launches[2]}, frames {frames}")
 
     # kernel path vs twin path over the first frames, from the same draws
+    # (both eager: the captured path is held to the eager one in phase 19)
     noise, u0 = draw_noise(check_frames, P, slam.noise_dim, gen, device)
     short = [a[:check_frames] for a in data]
     kernel_final, kernel_est, _ = run_sequence(slam, state0, *short[:4], motion_noise=noise,
-                                               resample_u0=u0, obs_desc=short[4])
+                                               resample_u0=u0, obs_desc=short[4], capture=False)
     restore = _twin_path()
     try:
         twin_final, twin_est, _ = run_sequence(slam, state0, *short[:4], motion_noise=noise,
-                                               resample_u0=u0, obs_desc=short[4])
+                                               resample_u0=u0, obs_desc=short[4],
+                                               capture=False)
     finally:
         restore()
     for k in ("lm_valid", "lm_count"):
@@ -1239,10 +1263,13 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
           f"hamming_top2 launches {launches[3]}, dispatches {len(calls)} x {per}")
     check(launches[0] == frames and launches[1] == frames,
           f"desk launches score_3d={launches[0]} update_3d={launches[1]}, frames {frames}")
-    check(launches[2] == n_res, f"desk gather launches {launches[2]}, resamples {n_res}")
+    check(launches[2] == frames and n_res > 0,
+          f"desk gather launches {launches[2]} (frames {frames}), resamples {n_res}")
     return {"fps": fps, "launches": launches, "calls": calls, "ates": ates,
             "closures": len(sys_.loop_closures), "peak_gib": peak / 2**30,
-            "system": sys_, "est": est, "gt": world.gt_pose, "cfg": cfg}
+            "system": sys_, "est": est, "gt": world.gt_pose, "cfg": cfg, "images": images,
+            "odom": odom, "graph_poses": graph_poses,
+            "state": {f: getattr(sys_.state, f).clone() for f in STATE_KEYS + ("lm_desc",)}}
 
 
 def phase_desk_replay(calls, what="desk"):
@@ -1362,7 +1389,7 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
           "stereo trajectory not finite")
     check(launches[0] == frames and launches[1] == frames,
           f"stereo launches score_3d={launches[0]} update_3d={launches[1]}, frames {frames}")
-    check(launches[2] == n_res, f"stereo gather launches {launches[2]}, resamples {n_res}")
+    check(launches[2] == frames, f"stereo gather launches {launches[2]}, frames {frames}")
     check(launches[3] == system.MATCH_LAUNCHES_PER_DISPATCH * len(dispatches),
           f"stereo hamming_top2 launches {launches[3]}, dispatches {len(dispatches)}")
     check(obs_per_frame >= 1.0, f"stereo: {obs_per_frame} disparity-valid observations a frame")
@@ -1511,12 +1538,13 @@ def phase_cinv(device):
             "bound_laid_out": bnd_laid_out[0], "ms_bucket": ms_bucket}
 
 
-def _profile(fn):
+def _profile(fn, api=None):
     """(launches, device busy ms, wall ms, the five device activities with
     the most time as (name, ms, count)) of fn() under torch.profiler,
     recording the device's activity only (with the host's ops recorded as
     well, the stereo phase took 117.9 s in one call; with the device's
-    alone, 51.8 s in the next)."""
+    alone, 51.8 s in the next). `api`, a list, receives the number of host
+    CUDA runtime and driver calls the profile holds (`_is_api`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1526,14 +1554,25 @@ def _profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     check(dev, "torch.profiler recorded no device activity")
+    if api is not None:
+        api.append(sum(1 for e in events if e.device_type != torch.autograd.DeviceType.CUDA
+                       and _is_api(e.name)))
     by_name = {}
     for e in dev:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(((name, ms, n) for name, (ms, n) in by_name.items()), key=lambda r: -r[1])[:5]
     return len(dev), sum(e.time_range.elapsed_us() for e in dev) / 1e3, wall, top
+
+
+def _is_api(name):
+    """A CUDA runtime or driver call's name (cudaLaunchKernel, cuLaunchKernel...)."""
+    import re
+
+    return re.match(r"cu[A-Z]|cuda[A-Z]", name) is not None
 
 
 def phase_ba(device):
@@ -1874,7 +1913,7 @@ def phase_config4(device):
           f"config 4 joint BA costs {costs}")
     check(launches[0] == n_frames and launches[1] == n_frames,
           f"config 4 launches score_3d={launches[0]} update_3d={launches[1]}, frames {n_frames}")
-    check(launches[2] == n_res, f"config 4 gather launches {launches[2]}, resamples {n_res}")
+    check(launches[2] == n_frames, f"config 4 gather launches {launches[2]}, frames {n_frames}")
     dedup_rows = [len(d[0][0]) for d in dedups]
     check(dedup_rows == [len(sys_.keyframes)],
           f"config 4 dedup rows {dedup_rows}, keyframes {len(sys_.keyframes)}")
@@ -1905,9 +1944,11 @@ def phase_config4(device):
           f"point ids and counts equal to the twin's ({int(dedups[0][2][0][3])} points)")
     check(n_res > 0 and len(gathers) == 1,
           f"config 4 ran {n_res} resamples, {len(gathers)} captured")
+    # the last frame's gather: its clones were captured into the graph with
+    # the gather, so they hold the last replay's state and indices
     st, idx = gathers[0]
     check_gather_equal(f"config 4 state P={st.num_particles} L={st.lm_valid.shape[1]}", st, idx)
-    print(f"gather_rows config 4 last resample (P={st.num_particles} L={st.lm_valid.shape[1]} "
+    print(f"gather_rows config 4 last frame (P={st.num_particles} L={st.lm_valid.shape[1]} "
           f"W={st.lm_desc.shape[-1]}, {len(set(idx.tolist()))} distinct rows): bit-equal")
     del st, idx, gathers[:]
 
@@ -1926,7 +1967,7 @@ def phase_config4(device):
     draws = list(zip(noise, u0))
 
     def short_run():
-        s = system.SLAMSystem(cfg, device=device)
+        s = system.SLAMSystem(cfg, device=device, capture=False)
         e, _, _ = cli.run_image_sequence(s, seq.image, odom[:EUROC_CHECK_FRAMES], draws=draws)
         return s.state, e
 
@@ -2434,14 +2475,14 @@ def _run_2d_filter(what, device, **kw):
             T(sim.obs_valid[:n]))
     gen = torch.Generator(device=device).manual_seed(0)
     state0 = slam.init_state(init_pose=sim.gt_pose[0], device=device)
-    run_sequence(slam, state0, *(a[:2] for a in data), generator=gen)  # warm-up
+    run_sequence(slam, state0, *data, generator=gen)  # warm-up and capture
     resample_cuda.gather_state.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     final, est, metrics = run_sequence(slam, state0, *data, generator=gen)
     torch.cuda.synchronize()
     fps = n / (time.perf_counter() - t0)
-    n_res = sum(m.resampled for m in metrics)
+    n_res = int(sum(bool(m.resampled) for m in metrics))
     gathers = resample_cuda.gather_state.launches
     lms = final.lm_valid.sum(dim=1)
     print(f"{what} (P=64 L=192 Z=16, generic path): {n} frames fps={fps:.1f} "
@@ -2450,7 +2491,7 @@ def _run_2d_filter(what, device, **kw):
     check(bool(torch.isfinite(est).all()) and bool(torch.isfinite(final.log_w).all()),
           f"{what}: not finite")
     check(int(lms.min()) > 0, f"{what}: a particle allocated no landmark")
-    check(gathers == n_res, f"{what}: gather launches {gathers}, resamples {n_res}")
+    check(gathers == n, f"{what}: gather launches {gathers}, frames {n}")
     return fps
 
 
@@ -2561,7 +2602,7 @@ def phase_bench_system(device, rendered):
         check(row["fps_per_chip"] > 0 and bool(torch.isfinite(est).all()), f"{kind}: not finite")
         check(launches[1] == frames and launches[0] == 0,
               f"{kind}: launches update_3d={launches[1]} score_3d={launches[0]}, frames {frames}")
-        check(launches[2] == n_res, f"{kind}: gather launches {launches[2]}, resamples {n_res}")
+        check(launches[2] == frames, f"{kind}: gather launches {launches[2]}, frames {frames}")
         per = system_mod.MATCH_LAUNCHES_PER_DISPATCH
         check(len(calls) >= 1 and launches[3] == per * len(calls),
               f"{kind}: hamming_top2 launches {launches[3]}, dispatches {len(calls)} x {per}")
@@ -2575,7 +2616,7 @@ def phase_bench_system(device, rendered):
         counts = _counts_3d()
         restore = _twin_path()
         try:
-            twin = system_mod.SLAMSystem(cfg, device=device)
+            twin = system_mod.SLAMSystem(cfg, device=device, capture=False)
             est_t = torch.stack([step(twin, t) for t in range(BENCH_REPLAY)])
         finally:
             restore()
@@ -2606,6 +2647,264 @@ def phase_bench_system(device, rendered):
                          peak_gib=peak / 2**30, idle=1 - prof[1] / prof[2])
         del sys_, kern, twin
     return out
+
+
+# -- phase 19: the captured step against the eager twin ------------------------
+
+CAPTURE_PROFILE = {"corridor": (20, 20), "config 3": (1, 3), "config 2": (2, 3)}  # eager, captured
+
+
+def _api_calls(fn):
+    """Host CUDA API calls of fn() under torch.profiler with the host's
+    activity recorded (where the device's alone holds none of them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type != torch.autograd.DeviceType.CUDA
+               and _is_api(e.name))
+
+
+def _path_profile(what, mode, fn, n):
+    """Launches, host CUDA API calls, device busy, wall and idle share per
+    frame of n frames run by fn() under torch.profiler recording the
+    device's activity (the API calls from a second profile with the host's
+    too, where the first holds none)."""
+    api = []
+    n_dev, busy, wall, _ = _profile(fn, api)
+    api = api[0] or _api_calls(fn)
+    row = {"launches": n_dev / n, "api_calls": api / n, "busy_ms": busy / n,
+           "wall_ms": wall / n, "idle": 1 - busy / wall}
+    print(f"captured vs eager {what} {mode}, {n} frames profiled: {row['launches']:.0f} device "
+          f"launches, {row['api_calls']:.0f} host CUDA API calls, device busy "
+          f"{row['busy_ms']:.3f} of {row['wall_ms']:.3f} ms a frame, idle share {row['idle']:.3f}")
+    return row
+
+
+def _graph_facts(cs):
+    return {"capture_s": cs.capture_s, "instantiate_s": cs.instantiate_s,
+            "pool_bytes": cs.pool_bytes, "per_replay": cs.launches_per_replay}
+
+
+def _same_state(what, a, b):
+    import torch
+
+    for f in STATE_KEYS + ("lm_desc",):
+        x, y = getattr(a, f), getattr(b, f)
+        check(torch.equal(x, y), f"{what}: captured vs eager {f} differs in "
+                                 f"{int((x != y).sum())} entries")
+
+
+def _same_run(what, cap, eager):
+    """run_sequence results (state, est, metrics), captured and eager."""
+    import torch
+
+    _same_state(what, cap[0], eager[0])
+    check(torch.equal(cap[1], eager[1]), f"{what}: captured vs eager estimates differ")
+    for k in ("ess", "num_landmarks", "match_frac", "resampled"):
+        a = torch.stack([getattr(m, k) for m in cap[2]])
+        b = torch.stack([getattr(m, k) for m in eager[2]])
+        check(torch.equal(a, b), f"{what}: captured vs eager metric {k} differs")
+
+
+def _sync_free(what, fn):
+    """fn() (one eager step on device inputs) under
+    torch.cuda.set_sync_debug_mode("error"): a call that waits for the
+    device raises."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        check(False, f"{what}: the eager step waits for the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"captured vs eager {what}: one eager step under set_sync_debug_mode('error') "
+          "reads nothing on the host")
+
+
+def _sequence_paths(what, slam, state0, data, noise, u0, obs_desc, profile_frames):
+    """run_sequence eager and captured from the same draws: equal, timed,
+    profiled."""
+    import torch
+
+    from parakeet_slam_tpu_torch.core.state import Observation
+    from parakeet_slam_tpu_torch.filter import run_sequence
+
+    T = len(data[0])
+    kw = dict(motion_noise=noise, resample_u0=u0, obs_desc=obs_desc)
+    out, fps = {}, {}
+    for mode in ("eager", "captured", "captured"):  # the second captured run replays alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[mode] = run_sequence(slam, state0, *data, capture=mode == "captured", **kw)
+        torch.cuda.synchronize()
+        fps[mode] = T / (time.perf_counter() - t0)
+        if mode == "captured" and "capture" not in fps:
+            fps["capture"] = fps[mode]  # first captured run: warm-up frame, capture
+    _same_run(what, out["captured"], out["eager"])
+    cs = slam._sequence_step[1]
+    facts = _graph_facts(cs)
+    n_eager, n_cap = profile_frames
+    obs = [Observation(z=data[1][t], sig=data[2][t], desc=obs_desc[t], valid=data[3][t])
+           for t in range(T)]
+
+    def eager_frames():
+        st = state0.clone()
+        for t in range(n_eager):
+            st, _ = slam.step(st, data[0][t], obs[t], noise[t], u0[t])
+            slam.estimate_pose(st)
+
+    def captured_frames():
+        cs.inputs["t"].zero_()
+        for _ in range(n_cap):
+            cs()
+
+    prof = {"eager": _path_profile(what, "eager", eager_frames, n_eager),
+            "captured": _path_profile(what, "captured", captured_frames, n_cap)}
+    st = state0.clone()
+    st, _ = slam.step(st, data[0][0], obs[0], noise[0], u0[0])
+    _sync_free(what, lambda: slam.estimate_pose(slam.step(st, data[0][1], obs[1], noise[1],
+                                                            u0[1])[0]))
+    print(f"captured vs eager {what}: {T} frames, every state leaf, estimate and metric "
+          f"bit-equal; frames/s eager {fps['eager']:.2f}, captured {fps['captured']:.2f} "
+          f"(first captured run, with its warm-up frame and the capture: {fps['capture']:.2f}); "
+          f"capture {facts['capture_s']:.3f} s, instantiate {facts['instantiate_s']:.3f} s, "
+          f"graph pool {facts['pool_bytes'] / 2**20:.1f} MiB, launches counted per replay "
+          f"{facts['per_replay']}")
+    return {"fps": fps, "graph": facts, "profile": prof,
+            "resamples": int(sum(bool(m.resampled) for m in out["eager"][2]))}
+
+
+def phase_captured(device, desk):
+    """The captured step (`filter/captured.py`) against its eager twin from
+    the same draws, on the corridor (config 1, one seed, 500 frames),
+    config 3's filter (10 frames) and config 2's system (phase 10's run
+    against an eager run over the same frames); config 4's frame under the
+    sync check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch import cli, system
+    from parakeet_slam_tpu_torch.core.config import load_config
+    from parakeet_slam_tpu_torch.data import make_corridor, make_drive_world
+    from parakeet_slam_tpu_torch.data.synth_vision import make_hall_world
+    from parakeet_slam_tpu_torch.filter import captured, make_filter
+    from parakeet_slam_tpu_torch.filter.runner import draw_noise
+    from parakeet_slam_tpu_torch.kernels import resample as resample_kernel
+
+    res = {}
+    t0 = time.perf_counter()
+    # config 1: the corridor, seed 0
+    cfg = cli.corridor_config()
+    sim = make_corridor(num_landmarks=100, num_steps=500, max_obs=cfg.max_observations, seed=7)
+    slam = make_filter(cfg)
+    data = cli.sim_tensors(sim, device)
+    noise, u0 = draw_noise(500, cfg.num_particles, slam.noise_dim,
+                           torch.Generator(device=device).manual_seed(0), device)
+    desc = torch.zeros(500, cfg.max_observations, 0, dtype=torch.int32, device=device)
+    res["corridor"] = _sequence_paths(
+        "corridor", slam, slam.init_state(init_pose=sim.gt_pose[0], device=device), data, noise,
+        u0, desc, CAPTURE_PROFILE["corridor"])
+    del slam, data
+    print(f"captured vs eager corridor: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
+    # config 3's filter, 10 frames of the drive world
+    cfg3 = load_config(os.path.join(HERE, "configs/kitti_00.yaml"))
+    fc = cfg3.filter
+    slam = make_filter(fc, cfg3.frontend)
+    frames = 10
+    world = make_drive_world(num_steps=frames)
+    data = vision_sequence(world, frames, fc.max_observations, fc.desc_words, device)
+    noise, u0 = draw_noise(frames, fc.num_particles, slam.noise_dim,
+                           torch.Generator(device=device).manual_seed(0), device)
+    res["config 3"] = _sequence_paths(
+        "config 3", slam, slam.init_state(init_pose=world.gt_pose[0], device=device), data[:4],
+        noise, u0, data[4], CAPTURE_PROFILE["config 3"])
+    # the price of the resample decided on the device, at config 3's 1.78 GB
+    # state: the gather at the identity indices (a frame without a resample)
+    # and the copy of the new state into the static buffers
+    st = slam._sequence_step[1].state
+    keep = torch.arange(st.num_particles, device=device)
+    spare = captured.clone(st)
+    ms_gather = cuda_ms(lambda: resample_kernel.gather_particles(st, keep), 5)
+    ms_copy = cuda_ms(lambda: captured.copy_into(spare, st), 5)
+    mb = sum(t.numel() * t.element_size() for t in captured.leaves(st)) / 1e6
+    print(f"captured vs eager config 3: the identity gather {ms_gather:.4f} ms and the "
+          f"write-back copy {ms_copy:.4f} ms a frame ({mb:.1f} MB of state; medians of 5 calls)")
+    res["config 3"].update(ms_identity_gather=ms_gather, ms_write_back=ms_copy)
+    del slam, data, st, spare
+    torch.cuda.empty_cache()
+    print(f"captured vs eager config 3: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
+    # config 2's system: phase 10's captured run against an eager run
+    cfg2, images, odom = desk["cfg"], desk["images"], desk["odom"]
+    eager = system.SLAMSystem(cfg2, device=device, capture=False)
+    est, fps_e, _ = cli.run_image_sequence(eager, images, odom)
+    eager.flush_flags()
+    eager.flush_metrics()
+    check(np.array_equal(est, desk["est"]), "config 2: captured vs eager estimates differ")
+    check(np.array_equal(eager.graph.poses.cpu().numpy(), desk["graph_poses"]),
+          "config 2: captured vs eager graph poses differ")
+    for f, v in desk["state"].items():
+        x = getattr(eager.state, f)
+        check(torch.equal(x, v), f"config 2: captured vs eager {f} differs in "
+                                 f"{int((x != v).sum())} entries")
+    check(len(eager.keyframes) == len(desk["system"].keyframes)
+          and eager.loop_closures == desk["system"].loop_closures,
+          "config 2: captured vs eager keyframes or closures differ")
+    cap = desk["system"]
+    n_e, n_c = CAPTURE_PROFILE["config 2"]
+    last = len(images) - max(n_e, n_c)
+    prof = {"eager": _path_profile("config 2", "eager", lambda: [
+        eager.process_frame(images[i], odom[i]) for i in range(last, last + n_e)], n_e),
+        "captured": _path_profile("config 2", "captured", lambda: [
+            cap.process_frame(images[i], odom[i]) for i in range(last, last + n_c)], n_c)}
+    obs = eager._to_observation(*eager._frontend(torch.as_tensor(images[-1], device=device)))
+    x = {"u": torch.as_tensor(odom[-1], dtype=torch.float32, device=device), "obs": obs,
+         "noise": torch.zeros(cfg2.filter.num_particles, eager.slam.noise_dim, device=device),
+         "u0": torch.full((), 0.5 / cfg2.filter.num_particles, device=device),
+         "has_kf": eager._has_kf_dev}
+    _sync_free("config 2", lambda: eager._frame((eager.state, eager._last_kf_dev), x))
+    facts = _graph_facts(cap._captured)
+    print(f"captured vs eager config 2: {len(images)} frames, estimates, graph poses, every "
+          f"state leaf, keyframes ({len(eager.keyframes)}) and closures "
+          f"({len(eager.loop_closures)}) bit-equal; frames/s eager {fps_e:.3f}, captured "
+          f"{desk['fps']:.3f} (phase 10, from frame 3); capture {facts['capture_s']:.3f} s, "
+          f"instantiate {facts['instantiate_s']:.3f} s, graph pool "
+          f"{facts['pool_bytes'] / 2**20:.1f} MiB, launches counted per replay "
+          f"{facts['per_replay']}")
+    res["config 2"] = {"fps": {"eager": fps_e, "captured": desk["fps"]}, "graph": facts,
+                       "profile": prof}
+    del eager
+    print(f"captured vs eager config 2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
+    # config 4's frame (configs/euroc_mh.yaml) under the sync check, after one frame
+    cfg4 = load_config(os.path.join(HERE, "configs/euroc_mh.yaml"))
+    hall = make_hall_world(num_steps=EUROC_WORLD_STEPS, session=0)
+    hall = dataclasses.replace(hall, gt_pose=hall.gt_pose[:2], odom=hall.odom[:2])
+    s4 = system.SLAMSystem(cfg4, device=device, capture=False)
+    s4.process_frame(hall.render(0), hall.odom[0])
+    obs = s4._to_observation(*s4._frontend(torch.as_tensor(hall.render(1), device=device)))
+    x = {"u": torch.as_tensor(hall.odom[1], dtype=torch.float32, device=device), "obs": obs,
+         "noise": torch.zeros(cfg4.filter.num_particles, s4.slam.noise_dim, device=device),
+         "u0": torch.full((), 0.5 / cfg4.filter.num_particles, device=device),
+         "has_kf": s4._has_kf_dev}
+    _sync_free("config 4", lambda: s4._frame((s4.state, s4._last_kf_dev), x))
+    print(f"captured vs eager config 4: {time.perf_counter() - t0:.1f} s")
+    print("captured vs eager paths: " + json.dumps(res))
+    return res
 
 
 def main():
@@ -2643,6 +2942,7 @@ def main():
     km, l2_err, l2_launches = run(phase_match, device)
     desk = run(phase_desk, device)
     run(phase_desk_replay, desk["calls"])
+    captured = run(phase_captured, device, desk)
     stereo = run(phase_stereo, device)
     cinv = run(phase_cinv, device)
     ba_run = run(phase_ba, device)

@@ -109,7 +109,7 @@ def run_corridor(slam, sim, seed: int, device) -> dict:
         "est": est,
         "ate": float(ate_rmse(est[:, :2], torch.as_tensor(sim.gt_pose[:, :2]))),
         "fps": len(est) / dt,
-        "resamples": sum(m.resampled for m in metrics),
+        "resamples": int(torch.stack([m.resampled for m in metrics]).sum()),
     }
 
 

@@ -22,6 +22,11 @@ key `use_pallas` is ignored: where the reference's `use_pallas=True` sends
 2-D shaping or descriptor configs to its fused kernel, which drops those
 options, the port honours them on the generic path, as the reference's
 `use_pallas=False` route does.
+
+The step reads nothing on the host and copies no host data to the device
+once its constants exist (after one warm-up step): the resample decision
+stays on the device, as the reference's `lax.cond`, so that
+`filter/captured.py` can capture the step into one CUDA graph.
 """
 
 from __future__ import annotations
@@ -50,12 +55,12 @@ def _f32(x: float) -> float:
 
 @dataclass
 class StepMetrics:
-    """Per-frame observability metrics (0-dim tensors)."""
+    """Per-frame observability metrics (0-dim tensors; `resampled` bool)."""
 
     ess: torch.Tensor
     num_landmarks: torch.Tensor
     match_frac: torch.Tensor
-    resampled: bool
+    resampled: torch.Tensor
 
 
 class FastSLAM:
@@ -162,15 +167,20 @@ class FastSLAM:
         """The geometry of each (pose, landmark) pair, shared by every
         observation: (zhat [..., Dz], H [..., Dz, Dl], Q^-1, log det Q), with
         Q = H S H^T + R and the reference's clamps."""
-        key = (assoc, lm_mean.device, lm_mean.dtype)
-        if key not in self._R:  # one host-to-device copy per device
-            self._R[key] = torch.diag(torch.tensor(self._meas_var(assoc), dtype=lm_mean.dtype,
-                                                   device=lm_mean.device))
         zhat = self.model.h(pose, lm_mean)
         H = self.model.jac(pose, lm_mean)
-        Q = H @ lm_cov @ H.transpose(-1, -2) + self._R[key]
+        Q = H @ lm_cov @ H.transpose(-1, -2) + self._r_matrix(assoc, lm_mean)
         inv, det = linalg.inv_psd(Q)
         return zhat, H, inv, torch.log(torch.clamp(det, min=1e-12))
+
+    def _r_matrix(self, assoc: bool, like: torch.Tensor) -> torch.Tensor:
+        """diag(R) (`_meas_var(assoc)`) on `like`'s device and dtype: one
+        host-to-device copy per device, at its first use."""
+        key = (assoc, like.device, like.dtype)
+        if key not in self._R:
+            self._R[key] = torch.diag(torch.tensor(self._meas_var(assoc), dtype=like.dtype,
+                                                   device=like.device))
+        return self._R[key]
 
     def _loglik(self, z, zhat, inv, logdet):
         """log N(z - zhat; 0, Q) from Q's inverse and log-determinant; the
@@ -416,15 +426,21 @@ class FastSLAM:
         return self._resample_and_metrics(state, obs, mean_match, u0)
 
     def _resample_and_metrics(self, state, obs, mean_match, u0):
-        """Adaptive systematic resampling + per-frame metrics. The resample
-        decision is read on the host (one device-to-host sync per frame)."""
+        """Adaptive systematic resampling + per-frame metrics, decided on the
+        device (the reference's `lax.cond`): the gather runs every frame, at
+        the identity indices where the ESS asks for no resample, and log_w
+        is reset only where it does. A frame without a resample so leaves
+        the state bit for bit as the cond's untouched branch does, at the
+        cost of one copy of the state."""
         c = self.cfg
         P = state.num_particles
         ess = state.effective_sample_size()
-        need = bool(ess < c.resample_frac * P)
-        if need:
-            idx = resample_kernel.systematic_resample_indices(state.log_w, u0)
-            state = resample_kernel.gather_particles(state, idx)
+        need = ess < c.resample_frac * P
+        keep = torch.arange(P, device=state.log_w.device)
+        idx = torch.where(need, resample_kernel.systematic_resample_indices(state.log_w, u0), keep)
+        log_w = state.log_w
+        state = resample_kernel.gather_particles(state, idx)
+        state = state.replace(log_w=torch.where(need, state.log_w, log_w))
         n_obs = torch.clamp(obs.valid.to(torch.float32).sum(), min=1.0)
         metrics = StepMetrics(
             ess=ess,
@@ -455,15 +471,16 @@ class FastSLAM:
             s = torch.sum(w * torch.sin(state.pose[:, 2]))
             cth = torch.sum(w * torch.cos(state.pose[:, 2]))
             return torch.cat([xy, wrap_angle(torch.atan2(s, cth))[None]])
-        best = torch.argmax(state.log_w)
+        best = torch.argmax(state.log_w).reshape(1)
         t = torch.sum(w[:, None] * state.pose[:, :3], dim=0)
         q = state.pose[:, 3:]
-        sign = torch.where(torch.sum(q * q[best][None, :], dim=1) < 0, -1.0, 1.0)
+        # index_select: indexing with a 0-dim tensor reads it on the host
+        sign = torch.where(torch.sum(q * q.index_select(0, best), dim=1) < 0, -1.0, 1.0)
         qm = torch.sum((w * sign)[:, None] * q, dim=0)
         qm = qm / torch.clamp(torch.linalg.vector_norm(qm), min=1e-9)
         return torch.cat([t, qm])
 
     def best_particle_map(self, state: ParticleState):
         """(means [L, Dl], valid [L]) of the highest-weight particle."""
-        best = torch.argmax(state.log_w)
-        return state.lm_mean[best], state.lm_valid[best]
+        best = torch.argmax(state.log_w).reshape(1)
+        return state.lm_mean.index_select(0, best)[0], state.lm_valid.index_select(0, best)[0]

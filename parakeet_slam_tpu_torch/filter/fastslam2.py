@@ -72,7 +72,7 @@ class FastSLAM2(FastSLAM):
         P, dt = state.num_particles, self.tangent_dim
         dev, dtype = state.pose.device, state.pose.dtype
         rows = torch.arange(P, device=dev)
-        R = torch.diag(torch.tensor(self._meas_var(assoc=True), dtype=dtype, device=dev))
+        R = self._r_matrix(True, state.pose)
         eye_t = torch.eye(dt, dtype=dtype, device=dev)
         log_p0 = self._log_p0_assoc()
         unmatched_w = 0.0 if c.weight_only_matched else c.new_landmark_loglik

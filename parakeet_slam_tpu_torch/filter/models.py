@@ -15,10 +15,15 @@ from `jax.jacfwd` through the retraction (additive for SE(2), the right
 perturbation pose o exp(d) for SE(3)), clamps included.
 Random draws are explicit arguments: the caller draws them from its
 `torch.Generator`, or a test hands in the numbers JAX drew.
+
+A model reads no host data once its constants exist: each constant vector
+is copied to its device at its first use and kept (`_const`), so that a
+step can be captured into a CUDA graph after one warm-up step.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -32,6 +37,13 @@ from parakeet_slam_tpu_torch.core.geometry import wrap_angle
 # Minimum camera-frame depth of the projective models: keeps H ~ fx/z and
 # det(Q) in float32 range for landmarks behind or beside the camera.
 MIN_DEPTH = 0.1
+
+
+@functools.cache
+def _const(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The constant vector `values` on `device`: one host-to-device copy at
+    its first use, none after."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 # ---------------------------------------------------------------------------
 # Motion models (sampled)
@@ -87,7 +99,7 @@ def sample_se3_odometry(pose, u, sigmas, noise):
     """SE(3) odometry: u = twist [6], sigmas = (sig_trans, sig_rot),
     noise [..., 6] standard normals. pose [..., 7] -> [..., 7]."""
     s_t, s_r = float(sigmas[0]), float(sigmas[1])
-    scale = torch.tensor([s_t] * 3 + [s_r] * 3, dtype=pose.dtype, device=pose.device)
+    scale = _const((s_t,) * 3 + (s_r,) * 3, pose.dtype, pose.device)
     return geometry.se3_compose(pose, geometry.se3_exp(u + noise * scale))
 
 
@@ -177,7 +189,7 @@ def _se3_odometry_mean_cov(pose, u, sigmas):
         return geometry.se3_log(geometry.se3_between(mean, p))
 
     J = torch.func.jacfwd(f)(torch.zeros(6, dtype=pose.dtype, device=pose.device))
-    M = torch.tensor([s_t**2] * 3 + [s_r**2] * 3, dtype=pose.dtype, device=pose.device)
+    M = _const((s_t**2,) * 3 + (s_r**2,) * 3, pose.dtype, pose.device)
     eye = torch.eye(6, dtype=pose.dtype, device=pose.device)
     return mean, (J * M) @ J.transpose(-1, -2) + 1e-10 * eye
 
@@ -267,7 +279,7 @@ def _range_bearing_2d(cfg: FilterConfig, fe: FrontendConfig) -> MeasurementModel
             ],
             dim=-2,
         ) / det_safe[..., None, None]
-        R = torch.tensor(cfg.meas_noise[:2], dtype=mean.dtype, device=mean.device) ** 2
+        R = _const(tuple(cfg.meas_noise[:2]), mean.dtype, mean.device) ** 2
         cov = (Hinv * R) @ Hinv.transpose(-1, -2)  # Hinv diag(R) Hinv^T
         return mean, cfg.init_cov_inflation * cov
 
@@ -310,7 +322,7 @@ def _bearing_2d(cfg: FilterConfig, fe: FrontendConfig) -> MeasurementModel:
         sig_r = cfg.init_range_sigma
         sig_t = r0 * cfg.meas_noise[0]
         Rm = torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)
-        D = torch.tensor([sig_r**2, sig_t**2], dtype=mean.dtype, device=mean.device)
+        D = _const((sig_r**2, sig_t**2), mean.dtype, mean.device)
         return mean, cfg.init_cov_inflation * ((Rm * D) @ Rm.transpose(-1, -2))
 
     def in_fov(pose, lm):
@@ -429,8 +441,9 @@ def _stereo_3d(cfg: FilterConfig, fe: FrontendConfig) -> MeasurementModel:
         p_c = torch.stack([(u - cx) / fx * depth, (v - cy) / fy * depth, depth], dim=-1)
         mean = geometry.se3_apply(pose, p_c)
         Hm = jac(pose, mean)
-        Hinv = torch.linalg.inv(Hm + 1e-9 * torch.eye(3, dtype=Hm.dtype, device=Hm.device))
-        R = torch.tensor(cfg.meas_noise[:3], dtype=mean.dtype, device=mean.device) ** 2
+        # inv_ex: linalg.inv reads its error flags on the host
+        Hinv = torch.linalg.inv_ex(Hm + 1e-9 * torch.eye(3, dtype=Hm.dtype, device=Hm.device))[0]
+        R = _const(tuple(cfg.meas_noise[:3]), mean.dtype, mean.device) ** 2
         return mean, cfg.init_cov_inflation * ((Hinv * R) @ Hinv.transpose(-1, -2))
 
     def in_fov(pose, lm):

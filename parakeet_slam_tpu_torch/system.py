@@ -21,10 +21,17 @@ then optimized and its correction applied to every particle.
 
 The state lives on one device (`device=`). The kernel wrappers pick the
 route by the tensors' device alone: CUDA tensors launch the hand-written
-kernels, CPU tensors run their twins. Random draws come from a
-`torch.Generator` seeded by `cfg.filter.seed`, or are injected per frame
-(`motion_noise`, `resample_u0`) so that a test can replay the reference's
-draws. Keyframe descriptors are int32 words carrying the reference's
+kernels, CPU tensors run their twins. On the card, steps 3-4 (filter step,
+estimate, keyframe test, snapshot: the reference's `_fused_obs_impl`
+without the frontend) run as one captured CUDA graph a frame
+(`filter/captured.py`): `self.state` and the keyframe reference are its
+static buffers, written in place by everything that replaces them (the
+pose-graph correction, `load_checkpoint`), and what a frame keeps past
+itself is cloned. `capture=False` asks for the eager twin; `capture=True`
+on the CPU runs the captured path's buffer rules eagerly. The sharded step
+runs eagerly. Random draws come from a `torch.Generator` seeded by
+`cfg.filter.seed`, or are injected per frame (`motion_noise`,
+`resample_u0`) so that a test can replay the reference's draws. Keyframe descriptors are int32 words carrying the reference's
 uint32 bits.
 
 Sharded (benchmark config 5): when a `torch.distributed` process group is up
@@ -77,7 +84,7 @@ from parakeet_slam_tpu_torch.dist import dist_ba
 from parakeet_slam_tpu_torch.dist import mesh as mesh_mod
 from parakeet_slam_tpu_torch.dist.multihost import process_index
 from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
-from parakeet_slam_tpu_torch.filter import make_filter
+from parakeet_slam_tpu_torch.filter import captured, make_filter
 from parakeet_slam_tpu_torch.filter.runner import draw_noise
 from parakeet_slam_tpu_torch.frontend import camera as camera_mod
 from parakeet_slam_tpu_torch.frontend.describe import describe
@@ -219,13 +226,19 @@ class SLAMSystem:
     """The online system, on one device or sharded over the ranks of a
     process group (see the module docstring). `cfg` is a `SLAMConfig`."""
 
-    def __init__(self, cfg: SLAMConfig, device="cuda"):
+    def __init__(self, cfg: SLAMConfig, device="cuda", capture: bool | None = None):
         self.cfg = cfg
         self.device = torch.device(device)
         fe = cfg.frontend
         be = cfg.backend
         self.slam = make_filter(cfg.filter, fe)
         self.mesh, self._sharded = self._make_mesh(cfg.dist)
+        if capture and self._sharded is not None:
+            raise ValueError("SLAMSystem: the sharded step runs eagerly (capture=True)")
+        # the frame's step as one CUDA graph (None: on the card, one device)
+        self.capture = (self.device.type == "cuda" and self._sharded is None
+                        if capture is None else bool(capture))
+        self._captured = None  # the CapturedStep, built at the first frame
         # rank 0 alone prints and writes files
         self.is_writer = process_index() == 0
         self.camera = camera_mod.from_config(fe)
@@ -248,6 +261,7 @@ class SLAMSystem:
         # so the keyframe cadence is a function of the frame sequence alone.
         self._last_kf_dev = _identity_pose(self.device)
         self._has_kf = False
+        self._has_kf_dev = torch.zeros((), dtype=torch.bool, device=self.device)
         self._metrics_pending: list[tuple] = []
         # Keyframe flags are read in windows of kf_flag_lag frames, at
         # absolute frame-index boundaries (every frame until the first
@@ -312,8 +326,10 @@ class SLAMSystem:
         particle (from the rank that holds it when sharded)."""
         if self._sharded is not None:
             return self._sharded.best_particle_lanes(state)
-        best = torch.argmax(state.log_w)
-        return state.lm_mean[best], state.lm_valid[best], state.lm_desc[best], state.lm_count[best]
+        best = torch.argmax(state.log_w).reshape(1)
+        # index_select: indexing with a 0-dim tensor reads it on the host
+        return tuple(t.index_select(0, best)[0] for t in (state.lm_mean, state.lm_valid,
+                                                          state.lm_desc, state.lm_count))
 
     def _kf_snapshot_impl(self, state, est_pose):
         """Best-particle map snapshot in the keyframe frame: F lanes ranked
@@ -662,12 +678,12 @@ class SLAMSystem:
         opt_pose = self.graph.poses[k]
         est_pose = torch.as_tensor(self.keyframes[k].pose, device=self.device)
         corr = geometry.se3_compose(opt_pose, geometry.se3_inverse(est_pose))
-        self.state = self.state.replace(
+        self._set_state(self.state.replace(
             pose=geometry.se3_compose(corr, self.state.pose),
             lm_mean=geometry.se3_apply(corr, self.state.lm_mean),
-        )
+        ))
         # the keyframe-motion reference lives in the filter-estimate frame
-        self._last_kf_dev = geometry.se3_compose(corr, self._last_kf_dev)
+        self._set_kf_ref(geometry.se3_compose(corr, self._last_kf_dev))
         poses_np = self.graph.poses[: len(self.keyframes)].cpu().numpy()
         corr_np = corr.cpu().numpy()
         for i, kf in enumerate(self.keyframes):
@@ -687,39 +703,84 @@ class SLAMSystem:
 
     # -- per-frame step ---------------------------------------------------
 
-    def _kf_test(self, est, last_kf, has_kf: bool):
+    def _kf_test(self, est, last_kf, has_kf):
+        """The keyframe flag (0-dim bool): moved past a threshold since the
+        reference `last_kf`, or no keyframe yet (`has_kf`, 0-dim bool)."""
         xi = geometry.se3_log(geometry.se3_between(last_kf, est))
         be = self.cfg.backend
         moved = ((torch.linalg.vector_norm(xi[:3]) > be.keyframe_translation)
                  | (torch.linalg.vector_norm(xi[3:]) > be.keyframe_rotation))
-        return moved | (not has_kf)
+        return moved | ~has_kf
+
+    def _set_state(self, state):
+        """Replace the filter state: written into the captured step's static
+        buffers, or rebound on the eager path."""
+        if self.capture:
+            captured.copy_into(self.state, state)
+        else:
+            self.state = state
+
+    def _set_kf_ref(self, pose):
+        """Replace the device keyframe reference, as `_set_state`."""
+        if self.capture:
+            self._last_kf_dev.copy_(pose)
+        else:
+            self._last_kf_dev = pose
+
+    def _set_has_kf(self, has_kf: bool):
+        self._has_kf = has_kf
+        self._has_kf_dev.fill_(has_kf)
 
     def _draws(self, motion_noise, resample_u0):
         """This frame's (noise [P, noise_dim], u0): injected, or drawn."""
-        if motion_noise is not None and resample_u0 is not None:
-            return (torch.as_tensor(motion_noise, dtype=torch.float32, device=self.device),
-                    torch.as_tensor(resample_u0, dtype=torch.float32, device=self.device))
-        noise, u0 = draw_noise(1, self.slam.cfg.num_particles, self.slam.noise_dim,
-                               self.generator, self.device)
-        return (noise[0] if motion_noise is None else motion_noise,
-                u0[0] if resample_u0 is None else resample_u0)
+        if motion_noise is None or resample_u0 is None:
+            noise, u0 = draw_noise(1, self.slam.cfg.num_particles, self.slam.noise_dim,
+                                   self.generator, self.device)
+            motion_noise = noise[0] if motion_noise is None else motion_noise
+            resample_u0 = u0[0] if resample_u0 is None else resample_u0
+        return (torch.as_tensor(motion_noise, dtype=torch.float32, device=self.device),
+                torch.as_tensor(resample_u0, dtype=torch.float32, device=self.device))
+
+    def _frame(self, carry, x):
+        """The frame from (state, keyframe reference) and the inputs x (u,
+        obs, noise, u0, has_kf): filter step, estimate, keyframe flag with
+        the reference latch, and the frame's own map snapshot. Returns
+        ((state, reference), (est, flag, snap, metrics)): the function
+        `CapturedStep` captures on one device, and the eager step."""
+        state, last_kf = carry
+        if self._sharded is not None:
+            state, metrics = self._sharded.step(state, x["u"], x["obs"],
+                                                self._sharded.local_draws(x["noise"]), x["u0"])
+            est = self._sharded.estimate_pose(state)
+        else:
+            state, metrics = self.slam.step(state, x["u"], x["obs"], x["noise"], x["u0"])
+            est = self.slam.estimate_pose(state)
+        flag = self._kf_test(est, last_kf, x["has_kf"])
+        snap = self._kf_snapshot_impl(state, est)
+        return (state, torch.where(flag, est, last_kf)), (est, flag, snap, metrics)
+
+    def _captured_step(self, x) -> captured.CapturedStep:
+        """The frame's CapturedStep over the system's state and keyframe
+        reference, with static inputs shaped as this frame's (the has_kf
+        flag is the system's own); built at the first frame."""
+        if self._captured is None:
+            inputs = {k: (v if k == "has_kf" else captured.clone(v)) for k, v in x.items()}
+            self._captured = captured.CapturedStep(
+                self._frame, (self.state, self._last_kf_dev), inputs,
+                graph=self.device.type == "cuda")
+        return self._captured
 
     def _step(self, obs, odom_u, motion_noise, resample_u0):
-        """Filter step, estimate, keyframe flag with the reference latch, and
-        the frame's own map snapshot."""
+        """One frame of steps 3-4: eager (sharded or not), or the captured graph."""
         noise, u0 = self._draws(motion_noise, resample_u0)
         u = torch.as_tensor(np.asarray(odom_u, np.float32), device=self.device)
-        if self._sharded is not None:
-            self.state, metrics = self._sharded.step(self.state, u, obs,
-                                                     self._sharded.local_draws(noise), u0)
-            est = self._sharded.estimate_pose(self.state)
-        else:
-            self.state, metrics = self.slam.step(self.state, u, obs, noise, u0)
-            est = self.slam.estimate_pose(self.state)
-        flag = self._kf_test(est, self._last_kf_dev, self._has_kf)
-        self._last_kf_dev = torch.where(flag, est, self._last_kf_dev)
-        snap = self._kf_snapshot_impl(self.state, est)
-        return self._post_step(est, flag, snap, metrics)
+        x = {"u": u, "obs": obs, "noise": noise, "u0": u0, "has_kf": self._has_kf_dev}
+        if not self.capture:
+            (self.state, self._last_kf_dev), out = self._frame((self.state, self._last_kf_dev), x)
+            return self._post_step(*out)
+        cs = self._captured_step(x)
+        captured.copy_into(cs.inputs, x)
+        return self._post_step(*captured.clone(cs()))
 
     # -- main entry -------------------------------------------------------
 
@@ -796,7 +857,7 @@ class SLAMSystem:
                 # after the flush live in the corrected frame
                 kf.anchors.append((self.frame_idx + 1, est.cpu().numpy().astype(np.float32)))
             self.last_kf_pose = kf.pose
-            self._has_kf = True
+            self._set_has_kf(True)
             self._dispatch_loop_closure(kf)
         ce = self.cfg.checkpoint_every
         if ce > 0 and self.cfg.checkpoint_dir and len(self.keyframes) % ce == 0:
@@ -910,9 +971,11 @@ class SLAMSystem:
         if self._sharded is not None:
             tmpl["state"] = self._sharded.global_template(self.state)
         tree, _ = ckpt.load_checkpoint(path_prefix + ".state.npz", tmpl)
-        self.state, self.graph = tree["state"], tree["graph"]
+        self.graph = tree["graph"]
         if self._sharded is not None:
-            self.state = self._sharded.shard_state(self.state, device=self.device)
+            self.state = self._sharded.shard_state(tree["state"], device=self.device)
+        else:
+            self._set_state(tree["state"])
         self.generator.set_state(tree["key"])
         T = lambda a: torch.as_tensor(a, device=self.device)  # noqa: E731
         data = np.load(path_prefix + ".kf.npz")
@@ -921,12 +984,12 @@ class SLAMSystem:
         self.last_kf_pose = None if np.isnan(lkp).any() else lkp
         self._metrics_pending = []
         if "has_kf" in data:
-            self._has_kf = bool(data["has_kf"])
-            self._last_kf_dev = T(data["kf_ref"])
+            self._set_has_kf(bool(data["has_kf"]))
+            self._set_kf_ref(T(data["kf_ref"]))
         else:  # the reference's round-3 layout
-            self._has_kf = self.last_kf_pose is not None
-            self._last_kf_dev = (T(self.last_kf_pose) if self._has_kf
-                                 else _identity_pose(self.device))
+            self._set_has_kf(self.last_kf_pose is not None)
+            self._set_kf_ref(T(self.last_kf_pose) if self._has_kf
+                             else _identity_pose(self.device))
         self._flag_pending = []
         if "p_est" in data:
             for i in range(len(data["p_est"])):

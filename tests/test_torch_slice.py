@@ -96,7 +96,10 @@ def test_filter_routes_through_kernel_wrappers(monkeypatch, use_pallas):
     gen = torch.Generator().manual_seed(0)
     _, _, metrics = run_sequence(slam, state0, *cli.sim_tensors(sim, "cpu"), generator=gen)
     assert calls["ekf"] == 20
-    assert calls["gather"] == sum(m.resampled for m in metrics) > 0
+    # the resample is decided on the device: the gather runs every frame
+    # (at the identity indices on a frame without a resample)
+    assert calls["gather"] == 20
+    assert 0 < sum(bool(m.resampled) for m in metrics) <= 20
 
 
 def test_corridor_ate_bound():
