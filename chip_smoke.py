@@ -101,12 +101,17 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      finite trajectory, one score_3d and one measurement_update_3d launch
      per frame, one gather a frame, hamming_top2 twice per closure
      dispatch, at least one disparity-valid observation a frame on average,
-     landmarks > 0; one frame's keypoint_disparity on the card equal to the
-     CPU's in mask and disparity (within 1e-5), keypoints whose two smallest
-     SADs lie within a relative 1e-6 excused and counted; frames/s (from
-     frame 3), peak device memory, observations, keyframes, closures and
-     the ATEs printed; then 3 more frames under torch.profiler (launches,
-     device busy, idle share) and the frontend's own time;
+     landmarks > 0 (the observations counted again eagerly: the frontend
+     runs inside the frame's graph); one frame's keypoint_disparity on the
+     card equal to the CPU's in mask and disparity (within 1e-5), keypoints
+     whose two smallest SADs lie within a relative 1e-6 excused and
+     counted; frames/s (from frame 3), peak device memory, observations,
+     keyframes, closures and the ATEs printed; the same 20 frames through
+     the eager twin (`capture=False`): estimates, every state leaf, the
+     pose graph, keyframes and closures bit-equal; then 4 more frames of
+     each, the first without a flush and the flush frame under
+     torch.profiler (launches, host CUDA API calls, graph launches, device
+     busy, idle share), and the eager frontend's own time;
   12. the landmark-block inverse-apply kernel (apply_cinv) against its twin:
      the bench shape N=262144, a bucket-sized N=46080, N=262147, 46083, 1,
      3, 1000 and 1001 (no whole block of threads), a non-contiguous C with
@@ -203,30 +208,47 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
   18. `eval/bench_system` at the reference's widths (FastSLAM 1.0, P=256,
      L=2048, Z=64): stereo (`process_stereo_frame` on 376x1241 pairs) and
      pano (`process_frame` on 512x1024 equirect frames), 5 warm-up frames
-     then 20 and 17 timed frames (the reference times 30: cut to keep the
-     renders and the script near its time) and 3 under torch.profiler,
-     rendered in worker processes started before phase 6: the reference's
+     then the reference's 30 timed frames on its 35-step worlds, rendered
+     in worker processes started before phase 6: the reference's
      result line, one measurement_update_3d launch a frame (scoring
      itself, no score_3d), one gather a frame, hamming_top2 twice a
      closure dispatch, >= 2 keyframes, finite estimates; frames/s, ms a
      frame, keyframes, launches a frame, idle share, peak memory and the
      render seconds; the first 2 frames replayed on the twin path (lm_valid
-     and lm_count equal, estimates within 1e-5);
+     and lm_count equal, estimates within 1e-5), and on an eager system with
+     the kernels (every state leaf and estimate bit-equal to the captured
+     one); one eager image frame under the sync check; the last 4 frames
+     on both, profiled as in phase 11b;
   19. (run after phase 11) the captured step against its eager twin
      (`capture=False`) from the same draws: the corridor (config 1, seed 0,
      500 frames) and config 3's filter (10 frames) through `run_sequence`,
-     config 2's system (phase 10's captured run against an eager run over
-     the same 90 frames): every state leaf, estimate and metric (and config
-     2's graph poses, keyframes and closures) bit-equal; frames/s of both,
-     the capture and instantiation seconds, the graph pool's bytes and the
-     launches counted per replay; for each path and mode a few frames under
-     torch.profiler (device launches, host CUDA API calls, device busy,
-     wall, idle share); one eager step of configs 1-4 under
+     config 2's system (phase 10's captured run, whose frames are one graph
+     each with the frontend inside, its closure verification and its
+     pose-graph solves graphs too, against an eager run over the same 90
+     frames): every state leaf, estimate and metric (and config 2's
+     corrected trajectory, graph, keyframes and closures) bit-equal;
+     frames/s of both, the capture and instantiation seconds, the shared
+     graph pool's bytes and the launches counted per replay; for each path
+     and mode frames under torch.profiler (device launches, host CUDA API
+     calls, device busy, wall, idle share; config 2's a frame without a
+     flush, one graph launch with no kernel of the frontend launched from
+     the host, and a flush frame, then 6 frames unprofiled on the host's
+     clock); config 2 with
+     a 2-level pyramid, 3 frames captured against eager; closure
+     verification at Nc = 1, 4, 16 candidates of F = 256 with both refines
+     (rels and inliers bit-equal, one graph launch a verify); the pose-graph
+     solve at K = 64, 256, 2048 with E = 4K, 10 LM iterations (poses and
+     costs bit-equal, one graph launch a solve, ms in turns with eager,
+     capture, instantiation and pool); one eager step of configs 1-4, of
+     the image frame (mono, pyramid, and phase 18's stereo and pano), of
+     both refines and of the solve under
      `torch.cuda.set_sync_debug_mode("error")`.
 On the card phases 4, 5, 7, 10, 11b, 15, 17 and 18 run the captured step
-(the default): each wrapper's launch count holds its launches on the
-warm-up frame and once per replay (`CapturedStep` takes back what the
-capture counted and adds it per replay); the twin paths run eagerly.
+(the default; in 10, 11b, 15 and 18 the frame's graph holds the frontend,
+and closure verification and the pose-graph solve replay graphs too): each
+wrapper's launch count holds its launches on the warm-up frame and once
+per replay (`CapturedStep` takes back what the capture counted and adds it
+per replay); the twin paths run eagerly.
 Every kernel's record carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and its
 operations over the card's peak for their type (67 TFLOP/s float32, 1,979
@@ -794,7 +816,8 @@ def check_update_3d(model, shape, device, fill="holes", timed=True, ext=False, *
         print(f"ekf_update_3d {what}: targets={n_upd} max_abs_err={err:.3g} agrees")
         return err, None
     P = shape[0]
-    reps_k, reps_t = (10, 5) if P <= 1024 else (5, 3)
+    # the twins take 0.1-4.2 s a call: few calls, to keep the script in its time
+    reps_k, reps_t = (10, 3) if P <= 1024 else (5, 2)
 
     def reset(i=0):
         for w, s in zip(work, state):
@@ -1268,7 +1291,7 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
     return {"fps": fps, "launches": launches, "calls": calls, "ates": ates,
             "closures": len(sys_.loop_closures), "peak_gib": peak / 2**30,
             "system": sys_, "est": est, "gt": world.gt_pose, "cfg": cfg, "images": images,
-            "odom": odom, "graph_poses": graph_poses,
+            "odom": odom, "graph_poses": graph_poses, "est_opt": est_opt,
             "state": {f: getattr(sys_.state, f).clone() for f in STATE_KEYS + ("lm_desc",)}}
 
 
@@ -1300,7 +1323,7 @@ def phase_desk_replay(calls, what="desk"):
 # --------------------------------------------------------------------------
 
 STEREO_FRAMES = 20
-STEREO_PROFILE_FRAMES = 3
+STEREO_PROFILE_FRAMES = 4   # frames 20-23: the first without a flush and the flush profiled
 STEREO_CHECK_FRAME = 10
 DISP_TIE_GAP = 1e-6   # relative gap of the two smallest SADs that excuses a flip
 DISP_ATOL = 1e-5
@@ -1336,16 +1359,6 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
     left, right, gt, odom = cli.load_image_dataset(cfg, n_all)
     check(right is not None and len(odom) == n_all, "the KITTI loader gave no stereo pairs")
 
-    n_valid = []
-    captured = {}
-
-    def counting_disparity(img_l, img_r, xy, valid, *a, **kw):
-        disp, ok = keypoint_disparity(img_l, img_r, xy, valid, *a, **kw)
-        n_valid.append(ok.sum())
-        if len(n_valid) == STEREO_CHECK_FRAME + 1:
-            captured.update(args=(img_l, img_r, xy, valid), out=(disp, ok))
-        return disp, ok
-
     dispatches = []
     kf_match = system._batched_kf_match
 
@@ -1360,17 +1373,22 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts_3d()
     match.hamming_top2.launches = 0
-    system.keypoint_disparity, system._batched_kf_match = counting_disparity, counting_match
+    system._batched_kf_match = counting_match
     try:
         est, fps, wall = cli.run_image_sequence(sys_, left, odom[:frames], right=right)
         sys_.flush_flags()
         sys_.flush_metrics()
         launches = _counts_3d() + (match.hamming_top2.launches,)
     finally:
-        system.keypoint_disparity, system._batched_kf_match = keypoint_disparity, kf_match
+        system._batched_kf_match = kf_match
     peak = torch.cuda.max_memory_allocated()
     n_res = sum(resampled)
-    obs_per_frame = float(torch.stack(n_valid).float().mean())
+    # the frontend runs inside the frame's graph: its observations again,
+    # eagerly, from the same images
+    pairs = [tuple(torch.as_tensor(f(i), device=device) for f in (left, right))
+             for i in range(frames)]
+    obs_per_frame = float(torch.stack([sys_._stereo_observation(*p).valid.sum()
+                                       for p in pairs]).float().mean())
     lm = float(sys_.state.lm_valid.sum(dim=1).float().mean())
     est_opt, ates = cli.sequence_ate(sys_, est, gt, odom[:frames], cfg)
     print(f"stereo config 3 from images (FastSLAM 2.0 stereo_3d P={fc.num_particles} "
@@ -1396,11 +1414,13 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
     check(lm > 0, "stereo: no landmarks")
 
     # one frame's disparity on the card against the same on the CPU
-    img_l, img_r, xy, valid = captured["args"]
-    disp, ok = (t.cpu().numpy() for t in captured["out"])
-    c_disp, c_ok = (t.numpy() for t in keypoint_disparity(*(t.cpu() for t in captured["args"])))
+    img_l, img_r = pairs[STEREO_CHECK_FRAME]
+    xy, _, valid = sys_._frontend(img_l)
+    args = (img_l, img_r, xy[:fc.max_observations], valid[:fc.max_observations])
+    disp, ok = (t.cpu().numpy() for t in keypoint_disparity(*args))
+    c_disp, c_ok = (t.numpy() for t in keypoint_disparity(*(t.cpu() for t in args)))
     same = (ok == c_ok) & (np.abs(disp - c_disp) <= DISP_ATOL)
-    ties = near_ties(img_l.cpu().numpy(), img_r.cpu().numpy(), xy.cpu().numpy(),
+    ties = near_ties(img_l.cpu().numpy(), img_r.cpu().numpy(), args[2].cpu().numpy(),
                      gap=DISP_TIE_GAP)
     print(f"stereo keypoint_disparity frame {STEREO_CHECK_FRAME}, card against CPU: "
           f"{int(ok.sum())} of {len(ok)} valid, masks and disparities (within {DISP_ATOL}) equal "
@@ -1409,13 +1429,27 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
     check(bool((same | ties).all()), f"stereo disparity: keypoints {np.where(~(same | ties))[0]} "
           "differ between card and CPU and are no near-ties")
 
-    # where a frame's time goes: the next frames under the profiler, and
-    # the frontend (detect, describe, disparity) alone on the same frames
-    def more():
-        for i in range(frames, n_all):
-            sys_.process_stereo_frame(left(i), right(i), odom[i])
+    # the same frames through the eager twin: bit for bit the same run
+    eager = system.SLAMSystem(cfg, device=device, capture=False)
+    est_e, fps_e, _ = cli.run_image_sequence(eager, left, odom[:frames], right=right)
+    eager.flush_flags()
+    eager.flush_metrics()
+    _same_system("config 3 from images", sys_, eager, est, est_e)
+    bad = ~torch.isfinite(sys_.state.lm_mean).all(-1)
+    print(f"stereo config 3 captured vs eager, {frames} frames: estimates, every state leaf "
+          f"(non-finite lm_mean lanes in both: {int(bad.sum())}, "
+          f"{int((bad & sys_.state.lm_valid).sum())} of them valid), graph poses, keyframes "
+          f"({len(eager.keyframes)}) and closures "
+          f"({len(eager.loop_closures)}) bit-equal; frames/s captured {fps:.3f}, eager "
+          f"{fps_e:.3f}; {_pool_facts(sys_)}")
 
-    n_launch, busy, wall_p, top = _profile(more)
+    # where a frame's time goes: the next frames, a frame without a flush
+    # and a flush frame under the profiler, captured and eager; the
+    # frontend (detect, describe, disparity) alone
+    split = {mode: _frame_split("config 3 from images", mode, s_, lambda s2, i: (
+        s2.process_stereo_frame(left(i), right(i), odom[i])), range(frames, n_all),
+        host=mode == "captured") for mode, s_ in (("captured", sys_), ("eager", eager))}
+    del eager
     fe_ms = []
     for i in range(frames, n_all):
         img_l = torch.as_tensor(left(i), device=device)
@@ -1426,16 +1460,11 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
         keypoint_disparity(img_l, img_r, xy[:fc.max_observations], valid[:fc.max_observations])
         torch.cuda.synchronize()
         fe_ms.append((time.perf_counter() - t1) * 1e3)
-    k = STEREO_PROFILE_FRAMES
-    print(f"stereo profile, {k} frames: {n_launch / k:.0f} device launches, device busy "
-          f"{busy / k:.2f} ms, wall {wall_p / k:.1f} ms per frame with the profiler on; idle "
-          f"share {1 - busy / wall_p:.3f}; frontend alone {np.mean(fe_ms):.2f} ms a frame "
-          f"(host clock), the rest {wall_p / k - np.mean(fe_ms):.1f} ms")
-    for name, ms, n in top:
-        print(f"stereo profile:   {ms / k:8.2f} ms {n / k:7.0f} launches per frame  {name[:90]}")
+    print(f"stereo profile: the eager frontend alone {np.mean(fe_ms):.2f} ms a frame (host "
+          "clock)")
     shutil.rmtree(out, ignore_errors=True)
-    return {"fps": fps, "launches": launches, "ates": ates, "peak_gib": peak / 2**30,
-            "obs_per_frame": obs_per_frame}
+    return {"fps": fps, "fps_eager": fps_e, "launches": launches, "ates": ates,
+            "peak_gib": peak / 2**30, "obs_per_frame": obs_per_frame, "split": split}
 
 
 # --------------------------------------------------------------------------
@@ -1538,18 +1567,21 @@ def phase_cinv(device):
             "bound_laid_out": bnd_laid_out[0], "ms_bucket": ms_bucket}
 
 
-def _profile(fn, api=None):
+def _profile(fn, api=None, names=None, host=False):
     """(launches, device busy ms, wall ms, the five device activities with
     the most time as (name, ms, count)) of fn() under torch.profiler,
     recording the device's activity only (with the host's ops recorded as
     well, the stereo phase took 117.9 s in one call; with the device's
     alone, 51.8 s in the next). `api`, a list, receives the number of host
-    CUDA runtime and driver calls the profile holds (`_is_api`)."""
+    CUDA runtime and driver calls the profile holds (`_is_api`), `names`, a
+    dict, the count of each host event by name; `host` records the host's
+    activity as well."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1560,6 +1592,10 @@ def _profile(fn, api=None):
     if api is not None:
         api.append(sum(1 for e in events if e.device_type != torch.autograd.DeviceType.CUDA
                        and _is_api(e.name)))
+    if names is not None:
+        for e in events:
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                names[e.name] = names.get(e.name, 0) + 1
     by_name = {}
     for e in dev:
         ms, n = by_name.get(e.name, (0.0, 0))
@@ -2514,7 +2550,7 @@ def phase_generic(device):
 # -- phase 18: bench_system ---------------------------------------------------
 
 BENCH_FRAMES = 30   # timed frames: the reference's default, on its 35-step worlds
-BENCH_PROFILE = 3   # the worlds' last frames, under torch.profiler, on a second system
+BENCH_PROFILE = 4   # the worlds' last frames (one flush), a flush frame and one other profiled
 BENCH_REPLAY = 2    # the first frames, replayed on the twin path
 
 
@@ -2621,6 +2657,23 @@ def phase_bench_system(device, rendered):
         finally:
             restore()
         check(_counts_3d() == counts, "the twin path launched a kernel")
+        eager = system_mod.SLAMSystem(cfg, device=device, capture=False)
+        est_e = torch.stack([step(eager, t) for t in range(BENCH_REPLAY)])
+        _same_state(f"bench_system {kind}", kern.state, eager.state)
+        check(_bit_equal(est_k, est_e), f"bench_system {kind}: captured vs eager estimates differ")
+        print(f"bench_system {kind} captured vs eager, {BENCH_REPLAY} frames: every state leaf "
+              f"and estimate bit-equal")
+        images = [torch.as_tensor(a, dtype=torch.float32, device=device)
+                  for a in (inputs[BENCH_REPLAY] if kind == "stereo" else inputs[BENCH_REPLAY:][:1])]
+        xi = {"frame": torch.cat([a.reshape(-1) for a in images] + [torch.as_tensor(
+                  world.odom[BENCH_REPLAY], dtype=torch.float32, device=device)]),
+              "noise": torch.zeros(cfg.filter.num_particles, eager.slam.noise_dim, device=device),
+              "u0": torch.full((), 0.5, device=device),
+              "u0_drawn": torch.ones((), dtype=torch.bool, device=device),
+              "has_kf": eager._has_kf_dev}
+        frame_fn = eager._image_frame(len(images), images[0].shape)
+        _sync_free(f"bench_system {kind} image frame",
+                   lambda: frame_fn((eager.state, eager._last_kf_dev), xi))
         for f in ("lm_valid", "lm_count"):
             a, b = getattr(kern.state, f), getattr(twin.state, f)
             check(torch.equal(a, b), f"{kind} kernel vs twin path: {f} differs in "
@@ -2631,27 +2684,35 @@ def phase_bench_system(device, rendered):
               f"lm_count equal ({int(kern.state.lm_valid.sum())} live lanes), est max |diff| "
               f"{d:.3g}")
 
-        # the kernel-path system on to the worlds' last frames, profiled
-        for t in range(BENCH_REPLAY, frames - BENCH_PROFILE):
-            step(kern, t)
-        prof = _profile(lambda: [step(kern, t) for t in range(frames - BENCH_PROFILE, frames)])
+        # both systems on to the worlds' last frames, a frame of each kind profiled
+        for s_ in (kern, eager):
+            for t in range(BENCH_REPLAY, frames - BENCH_PROFILE):
+                step(s_, t)
+        last = range(frames - BENCH_PROFILE, frames)
+        split = {mode: _frame_split(f"bench_system {kind}", mode, s_, step, last,
+                                    host=mode == "captured")
+                 for mode, s_ in (("captured", kern), ("eager", eager))}
+        quiet = split["captured"]["no flush"][0]
         print(f"bench_system {kind}: {WARMUP} + {BENCH_FRAMES} frames, keyframes="
               f"{len(sys_.keyframes)} dispatches={len(calls)} resamples={n_res} launches "
               f"update_3d={launches[1]} score_3d={launches[0]} gather={launches[2]} "
-              f"hamming_top2={launches[3]}; profile of frames {frames - BENCH_PROFILE}-"
-              f"{frames - 1} on a second run: {prof[0] / BENCH_PROFILE:.0f} launches a frame, "
-              f"device busy {prof[1] / BENCH_PROFILE:.2f} of {prof[2] / BENCH_PROFILE:.2f} ms a "
-              f"frame, idle share {1 - prof[1] / prof[2]:.3f}; peak_mem={peak / 2**30:.3f} GiB; "
-              f"top {prof[3]}")
+              f"hamming_top2={launches[3]}; on a second run, frame {quiet['frame']} (no flush) "
+              f"profiled: {quiet['launches']} launches, device busy {quiet['busy_ms']:.2f} of "
+              f"{quiet['wall_ms']:.2f} ms, idle share {quiet['idle']:.3f}; "
+              f"peak_mem={peak / 2**30:.3f} GiB; {_pool_facts(kern)}")
         out[kind] = dict(row=row, launches=launches, dispatches=len(calls),
-                         peak_gib=peak / 2**30, idle=1 - prof[1] / prof[2])
-        del sys_, kern, twin
+                         peak_gib=peak / 2**30, idle=quiet["idle"], split=split)
+        del sys_, kern, twin, eager
     return out
 
 
 # -- phase 19: the captured step against the eager twin ------------------------
 
-CAPTURE_PROFILE = {"corridor": (20, 20), "config 3": (1, 3), "config 2": (2, 3)}  # eager, captured
+CAPTURE_PROFILE = {"corridor": (20, 20), "config 3": (1, 3)}  # eager, captured
+CAPTURE_SPLIT_FRAMES = 6    # config 2's frames 91-96, timed one by one (flushes at 92, 96)
+VERIFY_BATCHES = (1, 4, 16)  # closure candidates a flush window, F = 256
+POSEGRAPH_K = (64, 256, 2048)  # keyframes of the solve at E = 4K, 10 LM iterations
+POSEGRAPH_TURNS = 2
 
 
 def _api_calls(fn):
@@ -2689,13 +2750,104 @@ def _graph_facts(cs):
             "pool_bytes": cs.pool_bytes, "per_replay": cs.launches_per_replay}
 
 
+def _bit_equal(a, b):
+    """Tensors or arrays equal bit for bit: the same shape, dtype and bits
+    (NaN lanes compare by their bits; -0.0 and 0.0 differ)."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, np.ndarray):
+        a, b = torch.from_numpy(a), torch.from_numpy(np.asarray(b))
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(bits), b.contiguous().view(bits)
+    return torch.equal(a, b)
+
+
 def _same_state(what, a, b):
     import torch
 
     for f in STATE_KEYS + ("lm_desc",):
         x, y = getattr(a, f), getattr(b, f)
-        check(torch.equal(x, y), f"{what}: captured vs eager {f} differs in "
-                                 f"{int((x != y).sum())} entries")
+        check(_bit_equal(x, y), f"{what}: captured vs eager {f} differs in "
+                                f"{int((x != y).sum())} entries (NaN: "
+                                f"{int(torch.isnan(x).sum()) if x.is_floating_point() else 0} and "
+                                f"{int(torch.isnan(y).sum()) if y.is_floating_point() else 0})")
+
+
+def _same_system(what, cap, eager, est_cap, est_eager):
+    """Two SLAMSystem runs over the same frames, captured and eager: the
+    estimates, every state leaf, the keyframe reference, the pose graph,
+    the keyframes and the closures bit-equal."""
+    import numpy as np
+    import torch
+
+    check(_bit_equal(est_cap, est_eager), f"{what}: captured vs eager estimates differ")
+    _same_state(what, cap.state, eager.state)
+    check(_bit_equal(cap._last_kf_dev, eager._last_kf_dev), f"{what}: keyframe references differ")
+    for f in ("poses", "node_valid", "edge_ij", "edge_rel", "edge_info", "edge_valid"):
+        check(_bit_equal(getattr(cap.graph, f), getattr(eager.graph, f)),
+              f"{what}: captured vs eager graph {f} differs")
+    check([(k.index, k.frame, k.pose.tobytes(), k.points_kf.tobytes(), k.desc.tobytes())
+           for k in cap.keyframes]
+          == [(k.index, k.frame, k.pose.tobytes(), k.points_kf.tobytes(), k.desc.tobytes())
+              for k in eager.keyframes], f"{what}: captured vs eager keyframes differ")
+    check(cap.loop_closures == eager.loop_closures, f"{what}: captured vs eager closures differ")
+
+
+def _system_steps(sys_):
+    """Every CapturedStep a system built: its frames, verify batches and
+    pose-graph solves."""
+    steps = list(sys_._frame_steps.values()) + list(sys_._verify_steps.values())
+    return steps + (list(sys_._pg_solver.steps.values()) if sys_._pg_solver else [])
+
+
+def _pool_facts(sys_):
+    """The captured steps of a system with their capture and instantiation
+    seconds and what the shared pool grew by at each capture."""
+    steps = [c for c in _system_steps(sys_) if c._graph is not None]
+    return (f"{len(steps)} graphs captured in {sum(c.capture_s for c in steps):.3f} s, "
+            f"instantiated in {sum(c.instantiate_s for c in steps):.3f} s, the shared pool "
+            f"{sum(c.pool_bytes for c in steps) / 2**20:.1f} MiB")
+
+
+def _frame_split(what, mode, sys_, step, indices, host=True):
+    """Frames i of `indices` through step(sys_, i); the first frame without
+    a flush and the first flush frame (one that reads the keyframe flags:
+    every frame before the first keyframe, then every kf_flag_lag-th) each
+    under a torch.profiler of its own (a profile costs ~1.5 s to set up):
+    the device launches, host CUDA API calls (but the profile's own
+    `cudaDeviceSynchronize`), graph launches, device busy and wall ms and
+    the idle share. `host` records the host's activity too."""
+    rows = {"no flush": [], "flush": []}
+    for i in indices:
+        flush = not sys_._has_kf or (sys_.frame_idx + 1) % sys_.kf_flag_lag == 0
+        if rows["flush" if flush else "no flush"]:
+            step(sys_, i)
+            continue
+        names = {}
+        n_dev, busy, wall, _ = _profile(lambda: step(sys_, i), names=names, host=host)
+        # the profile's own synchronize is no call of the frame's
+        api = sum(n for name, n in names.items() if _is_api(name)
+                  and name != "cudaDeviceSynchronize")
+        rows["flush" if flush else "no flush"].append(
+            {"frame": i, "launches": n_dev, "api_calls": api,
+             "graph_launches": names.get("cudaGraphLaunch", 0), "busy_ms": busy,
+             "wall_ms": wall, "idle": 1 - busy / wall,
+             "api": {k: v for k, v in names.items() if _is_api(k)}})
+    for kind, rs in rows.items():
+        if rs:
+            print(f"captured vs eager {what} {mode}, {kind}: "
+                  + "; ".join(f"frame {r['frame']}: {r['launches']} launches, {r['api_calls']} "
+                              f"host CUDA API calls ({r['graph_launches']} graph launches), "
+                              f"busy {r['busy_ms']:.3f} of {r['wall_ms']:.3f} ms, idle "
+                              f"{r['idle']:.3f}" for r in rs))
+            if mode == "captured" and kind == "no flush":
+                print(f"captured vs eager {what}: the API calls of frame {rs[-1]['frame']}: "
+                      f"{rs[-1]['api']}")
+    return rows
 
 
 def _same_run(what, cap, eager):
@@ -2703,11 +2855,11 @@ def _same_run(what, cap, eager):
     import torch
 
     _same_state(what, cap[0], eager[0])
-    check(torch.equal(cap[1], eager[1]), f"{what}: captured vs eager estimates differ")
+    check(_bit_equal(cap[1], eager[1]), f"{what}: captured vs eager estimates differ")
     for k in ("ess", "num_landmarks", "match_frac", "resampled"):
         a = torch.stack([getattr(m, k) for m in cap[2]])
         b = torch.stack([getattr(m, k) for m in eager[2]])
-        check(torch.equal(a, b), f"{what}: captured vs eager metric {k} differs")
+        check(_bit_equal(a, b), f"{what}: captured vs eager metric {k} differs")
 
 
 def _sync_free(what, fn):
@@ -2786,8 +2938,9 @@ def phase_captured(device, desk):
     """The captured step (`filter/captured.py`) against its eager twin from
     the same draws, on the corridor (config 1, one seed, 500 frames),
     config 3's filter (10 frames) and config 2's system (phase 10's run
-    against an eager run over the same frames); config 4's frame under the
-    sync check."""
+    against an eager run over the same frames); the pyramid frame, closure
+    verification and the pose-graph solve; config 4's frame under the sync
+    check."""
     import dataclasses
 
     import numpy as np
@@ -2847,47 +3000,89 @@ def phase_captured(device, desk):
     print(f"captured vs eager config 3: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
 
-    # config 2's system: phase 10's captured run against an eager run
+    # config 2's system: phase 10's captured run against an eager run, both
+    # through sequence_ate's final flush, closure resolution and solve
     cfg2, images, odom = desk["cfg"], desk["images"], desk["odom"]
+    cap = desk["system"]
     eager = system.SLAMSystem(cfg2, device=device, capture=False)
     est, fps_e, _ = cli.run_image_sequence(eager, images, odom)
     eager.flush_flags()
     eager.flush_metrics()
-    check(np.array_equal(est, desk["est"]), "config 2: captured vs eager estimates differ")
-    check(np.array_equal(eager.graph.poses.cpu().numpy(), desk["graph_poses"]),
+    check(_bit_equal(eager.graph.poses.cpu().numpy(), desk["graph_poses"]),
           "config 2: captured vs eager graph poses differ")
     for f, v in desk["state"].items():
         x = getattr(eager.state, f)
-        check(torch.equal(x, v), f"config 2: captured vs eager {f} differs in "
-                                 f"{int((x != v).sum())} entries")
-    check(len(eager.keyframes) == len(desk["system"].keyframes)
-          and eager.loop_closures == desk["system"].loop_closures,
-          "config 2: captured vs eager keyframes or closures differ")
-    cap = desk["system"]
-    n_e, n_c = CAPTURE_PROFILE["config 2"]
-    last = len(images) - max(n_e, n_c)
-    prof = {"eager": _path_profile("config 2", "eager", lambda: [
-        eager.process_frame(images[i], odom[i]) for i in range(last, last + n_e)], n_e),
-        "captured": _path_profile("config 2", "captured", lambda: [
-            cap.process_frame(images[i], odom[i]) for i in range(last, last + n_c)], n_c)}
-    obs = eager._to_observation(*eager._frontend(torch.as_tensor(images[-1], device=device)))
+        check(_bit_equal(x, v), f"config 2: captured vs eager {f} differs in "
+                                f"{int((x != v).sum())} entries")
+    est_opt, _ = cli.sequence_ate(eager, est, desk["gt"], odom, cfg2)
+    check(_bit_equal(est_opt, desk["est_opt"]),
+          "config 2: captured vs eager corrected trajectories differ")
+    _same_system("config 2", cap, eager, desk["est"], est)
+    frame_keys = [k for k in cap._frame_steps]
+    solves = sorted(cap._pg_solver.steps) if cap._pg_solver else []
+    print(f"captured vs eager config 2: {len(images)} frames, estimates, the corrected "
+          f"trajectory, graph poses, every state leaf, keyframes ({len(eager.keyframes)}) and "
+          f"closures ({len(eager.loop_closures)}) bit-equal; frames/s eager {fps_e:.3f}, captured "
+          f"{desk['fps']:.3f} (phase 10, from frame 3); frame steps {frame_keys}, verify batch "
+          f"shapes {sorted(cap._verify_steps)}, solve views {solves}; {_pool_facts(cap)}; "
+          f"launches counted per frame replay "
+          f"{[c.launches_per_replay for c in cap._frame_steps.values()]}")
+    n = CAPTURE_SPLIT_FRAMES
+    step = lambda s_, i: s_.process_frame(images[i], odom[i])  # noqa: E731
+    split = {"captured": _frame_split("config 2", "captured", cap, step,
+                                      range(len(images) - n, len(images))),
+             "eager": _frame_split("config 2", "eager", eager, step,
+                                   range(len(images) - 2, len(images)), host=False)}
+    # the same kind of frames unprofiled, one by one on the host's clock
+    # (the profiler adds its own time to each of a graph's ~20,000 nodes)
+    host_ms = {"no flush": [], "flush": []}
+    for i in range(len(images) - CAPTURE_SPLIT_FRAMES, len(images)):
+        flush = (cap.frame_idx + 1) % cap.kf_flag_lag == 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cap.process_frame(images[i], odom[i])
+        torch.cuda.synchronize()
+        host_ms["flush" if flush else "no flush"].append((time.perf_counter() - t1) * 1e3)
+    busy = np.median([r["busy_ms"] for r in split["captured"]["no flush"]])
+    print(f"captured vs eager config 2 captured, unprofiled on the host's clock: frames "
+          f"without a flush {[round(t, 3) for t in host_ms['no flush']]} ms, flush frames "
+          f"{[round(t, 3) for t in host_ms['flush']]} ms; idle share of a frame without a flush "
+          f"{1 - busy / np.median(host_ms['no flush']):.3f} (its profiled device busy "
+          f"{busy:.3f} ms over the median)")
+    split["host_ms"] = host_ms
+    quiet = split["captured"]["no flush"]
+    check(quiet and all(r["graph_launches"] == 1 for r in quiet),
+          f"config 2: a captured frame without a flush is not one graph launch: {quiet}")
+    # the frontend is inside the graph: the host launches the draws alone
+    kernels = [r["api"].get("cudaLaunchKernel", 0) for r in quiet]
+    check(max(kernels) <= 2 and min(r["launches"] for r in quiet) > 1000,
+          f"config 2: the host launched {kernels} kernels in frames without a flush")
+    print(f"captured vs eager config 2: the frontend runs inside the frame's graph "
+          f"(frames without a flush: {[r['launches'] for r in quiet]} device launches, "
+          f"{kernels} launched from the host)")
+    img = torch.as_tensor(images[-1], device=device)
+    obs = eager._mono_observation(img)
     x = {"u": torch.as_tensor(odom[-1], dtype=torch.float32, device=device), "obs": obs,
          "noise": torch.zeros(cfg2.filter.num_particles, eager.slam.noise_dim, device=device),
          "u0": torch.full((), 0.5 / cfg2.filter.num_particles, device=device),
          "has_kf": eager._has_kf_dev}
     _sync_free("config 2", lambda: eager._frame((eager.state, eager._last_kf_dev), x))
-    facts = _graph_facts(cap._captured)
-    print(f"captured vs eager config 2: {len(images)} frames, estimates, graph poses, every "
-          f"state leaf, keyframes ({len(eager.keyframes)}) and closures "
-          f"({len(eager.loop_closures)}) bit-equal; frames/s eager {fps_e:.3f}, captured "
-          f"{desk['fps']:.3f} (phase 10, from frame 3); capture {facts['capture_s']:.3f} s, "
-          f"instantiate {facts['instantiate_s']:.3f} s, graph pool "
-          f"{facts['pool_bytes'] / 2**20:.1f} MiB, launches counted per replay "
-          f"{facts['per_replay']}")
-    res["config 2"] = {"fps": {"eager": fps_e, "captured": desk["fps"]}, "graph": facts,
-                       "profile": prof}
+    xi = {"frame": torch.cat([img.reshape(-1), x["u"]]), "noise": x["noise"],
+          "u0": torch.full((), 0.5, device=device),
+          "u0_drawn": torch.ones((), dtype=torch.bool, device=device), "has_kf": x["has_kf"]}
+    frame_fn = eager._image_frame(1, img.shape)
+    _sync_free("config 2 image frame (frontend, observation, step)",
+               lambda: frame_fn((eager.state, eager._last_kf_dev), xi))
+    res["config 2"] = {"fps": {"eager": fps_e, "captured": desk["fps"]},
+                       "graph": {"pool": _pool_facts(cap)}, "split": split}
     del eager
     print(f"captured vs eager config 2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
+    res["pyramid"] = check_pyramid_frame(device, desk)
+    res["verify"] = check_verify(device, cfg2)
+    res["posegraph"] = check_posegraph(device)
+    print(f"captured vs eager pyramid, verify, pose graph: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
 
     # config 4's frame (configs/euroc_mh.yaml) under the sync check, after one frame
@@ -2905,6 +3100,194 @@ def phase_captured(device, desk):
     print(f"captured vs eager config 4: {time.perf_counter() - t0:.1f} s")
     print("captured vs eager paths: " + json.dumps(res))
     return res
+
+
+def check_pyramid_frame(device, desk):
+    """Config 2 with a 2-level pyramid (`frontend.pyramid_levels: 2`),
+    captured against eager over 3 frames (the warm-up, the capture and a
+    replay): every state leaf and estimate bit-equal."""
+    import dataclasses
+
+    import torch
+
+    from parakeet_slam_tpu_torch import system
+
+    cfg = desk["cfg"]
+    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(cfg.frontend, pyramid_levels=2))
+    images, odom = desk["images"], desk["odom"]
+    cap = system.SLAMSystem(cfg, device=device)
+    eager = system.SLAMSystem(cfg, device=device, capture=False)
+    for i in range(3):
+        a, b = cap.process_frame(images[i], odom[i]), eager.process_frame(images[i], odom[i])
+        check(_bit_equal(a, b), f"pyramid frame {i}: captured vs eager estimates differ")
+    _same_state("pyramid", cap.state, eager.state)
+    step = next(iter(cap._frame_steps.values()))
+    check(step._graph is not None, "pyramid: the frame was not captured")
+    img = torch.as_tensor(images[3], device=device)
+    u = torch.as_tensor(odom[3], dtype=torch.float32, device=device)
+    xi = {"frame": torch.cat([img.reshape(-1), u]),
+          "noise": torch.zeros(cfg.filter.num_particles, eager.slam.noise_dim, device=device),
+          "u0": torch.full((), 0.5, device=device),
+          "u0_drawn": torch.ones((), dtype=torch.bool, device=device), "has_kf": eager._has_kf_dev}
+    frame_fn = eager._image_frame(1, img.shape)
+    _sync_free("pyramid image frame", lambda: frame_fn((eager.state, eager._last_kf_dev), xi))
+    print(f"captured vs eager pyramid (config 2, 2 levels): 3 frames, every state leaf and "
+          f"estimate bit-equal; {_pool_facts(cap)}")
+    return {"pool": _pool_facts(cap)}
+
+
+def _correspondences(rng, F, n, outliers):
+    """Closure correspondences in front of a pinhole camera: pa [F, 3] in
+    the keyframe's frame, pb = T(pa) in the old one with 1 cm noise, the
+    first `outliers` rows moved by up to 3 m, the first n rows valid."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch.core import geometry
+
+    pa = np.stack([rng.uniform(-1.5, 1.5, F), rng.uniform(-1, 1, F), rng.uniform(2, 6, F)], 1)
+    q = np.concatenate([0.05 * rng.normal(size=3), [1.0]])
+    rel = np.concatenate([rng.uniform(-0.3, 0.3, 3), q / np.linalg.norm(q)]).astype(np.float32)
+    pb = geometry.se3_apply(torch.as_tensor(rel)[None], torch.as_tensor(pa, dtype=torch.float32))
+    pb = pb.numpy() + 0.01 * rng.normal(size=pa.shape)
+    pb[:outliers] += rng.uniform(-3, 3, (outliers, 3))
+    valid = np.arange(F) < n
+    pa[~valid] = 0.0
+    pb[~valid] = 0.0
+    return pa.astype(np.float32), pb.astype(np.float32), valid
+
+
+def check_verify(device, cfg2):
+    """Closure verification (`SLAMSystem._verify_batch`) captured against
+    eager at Nc = 1, 4, 16 candidates of F = 256 correspondences, with the
+    reprojection refine and the depth-relaxed one: three batches each (the
+    warm-up, the capture, a replay), rels and inliers bit-equal; one graph
+    launch a verify; one eager refine of each under the sync check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch import system
+
+    rng = np.random.default_rng(13)
+    F = cfg2.frontend.max_features
+    out = {}
+    for sigma in (0.0, 0.3):
+        cfg = dataclasses.replace(cfg2, backend=dataclasses.replace(
+            cfg2.backend, loop_refine_depth_sigma=sigma))
+        cap = system.SLAMSystem(cfg, device=device)
+        eager = system.SLAMSystem(cfg, device=device, capture=False)
+        name = "depth-relaxed refine" if sigma else "refine"
+        for Nc in VERIFY_BATCHES:
+            ms = {"captured": [], "eager": []}
+            for _ in range(3):
+                batch = [_correspondences(rng, F, int(rng.integers(20, F)),
+                                          int(rng.integers(0, 10))) for _ in range(Nc)]
+                pa, pb, v = (np.stack([b[i] for b in batch]) for i in range(3))
+                res = {}
+                for mode, s_ in (("captured", cap), ("eager", eager)):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    res[mode] = s_._verify_batch(pa, pb, v)
+                    ms[mode].append((time.perf_counter() - t1) * 1e3)
+                check(_bit_equal(res["captured"][0], res["eager"][0])
+                      and _bit_equal(res["captured"][1], res["eager"][1]),
+                      f"verify {name} Nc={Nc}: captured vs eager differ")
+            names = {}
+            if Nc == VERIFY_BATCHES[-1]:
+                _profile(lambda: cap._verify_batch(pa, pb, v), names=names, host=True)
+                check(names.get("cudaGraphLaunch") == 1,
+                      f"verify {name} Nc={Nc}: {names.get('cudaGraphLaunch')} graph launches")
+            api = sum(n for k, n in names.items() if _is_api(k) and k != "cudaDeviceSynchronize")
+            print(f"captured vs eager verify ({name}) Nc={Nc} F={F}: 3 batches, rels and inliers "
+                  f"bit-equal; " + (f"1 graph launch and {api} host CUDA API calls a verify "
+                                    f"(Horn's rounds eager); " if names else "")
+                  + f"ms a verify on the host's clock captured "
+                  f"{[round(t, 3) for t in ms['captured']]} eager "
+                  f"{[round(t, 3) for t in ms['eager']]} (the first captured one eager, the "
+                  f"second the capture)")
+            out[f"{name} Nc={Nc}"] = {"ms": ms, "api_calls": api}
+        x = next(iter(cap._verify_steps.values())).inputs
+        _sync_free(f"verify {name}", lambda: eager._refine()(x["rel0"], x["pa"], x["pb"],
+                                                            x["valid"]))
+        if not sigma:  # why Horn's consensus runs eagerly before the refine's graph
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eager._horn_consensus_impl(x["pa"], x["pb"], x["valid"])
+                horn = "reads nothing on the host"
+            except RuntimeError as e:
+                horn = f"waits for the device ({str(e).splitlines()[0]})"
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            print(f"captured vs eager verify: Horn's consensus (linalg.svd) {horn}, so it runs "
+                  "eagerly before the refine's graph")
+        print(f"captured vs eager verify ({name}): {_pool_facts(cap)}")
+        del cap, eager
+    return out
+
+
+def check_posegraph(device):
+    """The pose-graph solve (10 LM iterations, `posegraph.CapturedSolver`)
+    captured against eager at K = 64, 256, 2048 keyframes with E = 4K
+    edges (`ab_kernels.posegraph_case`): after the captured solver's
+    warm-up (an eager solve) and capture, in turns, poses and costs
+    bit-equal to the capture's; one graph launch a solve; the captured and
+    eager ms between CUDA events; capture, instantiation, the pool; one
+    eager solve under the sync check."""
+    import torch
+
+    from parakeet_slam_tpu_torch.backend import posegraph as pg
+    from parakeet_slam_tpu_torch.eval.ab_kernels import posegraph_case
+
+    solver = pg.CapturedSolver(iters=10, graph=True, pool=torch.cuda.graph_pool_handle())
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), res
+
+    out = {}
+    reserved = torch.cuda.memory_reserved()
+    for K in POSEGRAPH_K:
+        g = posegraph_case(K, device)
+        eager = lambda: pg.optimize_pose_graph(g, iters=10)  # noqa: E731
+        for _ in range(2):  # the warm-up (the eager solve, on a side stream), the capture
+            got = timed(lambda: solver(g))[1]
+        ref = got
+        ms = {"captured": [], "eager": []}
+        for _ in range(POSEGRAPH_TURNS):
+            for mode, fn in (("eager", eager), ("captured", lambda: solver(g))):
+                t, res = timed(fn)
+                ms[mode].append(t)
+                check(_bit_equal(res[0].poses, ref[0].poses) and _bit_equal(res[1], ref[1]),
+                      f"pose graph K={K}: the {mode} solve differs from the capture's")
+        names = {}
+        _profile(lambda: solver(g), names=names, host=True)
+        check(names.get("cudaGraphLaunch") == 1,
+              f"pose graph K={K}: {names.get('cudaGraphLaunch')} graph launches a solve")
+        step = solver.steps[(K, 4 * K)]
+        print(f"captured vs eager pose graph K={K} E={4 * K}, 10 LM: poses and costs bit-equal "
+              f"(cost {float(ref[1][0]):.6g} -> {float(ref[1][-1]):.6g}); 1 graph launch a solve, "
+              f"{sum(n for k, n in names.items() if _is_api(k) and k != 'cudaDeviceSynchronize')} "
+              f"host CUDA API calls; ms captured "
+              f"{[round(t, 3) for t in ms['captured']]} eager {[round(t, 3) for t in ms['eager']]}"
+              f" (in turns); capture {step.capture_s:.3f} s, instantiate "
+              f"{step.instantiate_s:.3f} s, pool grew by {step.pool_bytes / 2**20:.1f} MiB")
+        out[K] = {"ms": ms, "capture_s": step.capture_s, "instantiate_s": step.instantiate_s,
+                  "pool_bytes": step.pool_bytes}
+        del g, ref, got, res
+    g = posegraph_case(POSEGRAPH_K[0], device)
+    _sync_free("pose graph solve", lambda: pg.optimize_pose_graph(g, iters=10))
+    print(f"captured vs eager pose graph: the shared pool of {len(solver.steps)} graphs "
+          f"{sum(c.pool_bytes for c in solver.steps.values()) / 2**20:.1f} MiB; reserved "
+          f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB more than before")
+    return out
 
 
 def main():

@@ -18,14 +18,20 @@ by a segmented scan, and each run's total is written once. On the card
 `index_put_(accumulate=True)` and `index_add_` add with atomics in arrival
 order, and the rounding of the solve then differed from run to run; the scan
 adds in a fixed order, at O(E log E) cost per iteration.
+
+Nothing in a solve reads the device on the host (the linear solve is
+`solve_ex` without its error check), so `CapturedSolver` replays the whole
+`iters`-step loop, the plan's sort included, as one CUDA graph per view
+shape: the counterpart of the reference's `@jax.jit` with its `lax.scan`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from parakeet_slam_tpu_torch.backend.graph import PoseGraph
+from parakeet_slam_tpu_torch.backend.graph import _FIELDS, PoseGraph
 from parakeet_slam_tpu_torch.core import geometry
+from parakeet_slam_tpu_torch.filter import captured
 
 
 def edge_residual(pose_i, pose_j, rel):
@@ -149,7 +155,7 @@ def optimize_pose_graph(
     mask = free.to(torch.float32)
     fixed_diag = 1.0 - mask.repeat_interleave(6)
     poses = g.poses
-    lam = torch.tensor(damping, device=dev)
+    lam = torch.full((), damping, device=dev)
     cost = cost_at(poses)
     costs = []
     for _ in range(iters):
@@ -162,7 +168,8 @@ def optimize_pose_graph(
         # LM damping proportional to the diagonal; a unit diagonal on the
         # fixed DOFs keeps the system nonsingular
         Hm = Hm + torch.diag(fixed_diag + lam * torch.clamp(torch.diagonal(Hm), min=1e-8))
-        delta = -torch.linalg.solve(Hm, bm).reshape(K, 6) * mask[:, None]
+        # solve_ex: linalg.solve's check of the factorization reads the device
+        delta = -torch.linalg.solve_ex(Hm, bm, check_errors=False)[0].reshape(K, 6) * mask[:, None]
         cand = geometry.se3_compose(poses, geometry.se3_exp(delta))
         new_cost = cost_at(cand)
         accept = torch.isfinite(new_cost) & (new_cost < cost)
@@ -171,3 +178,34 @@ def optimize_pose_graph(
         cost = torch.where(accept, new_cost, cost)
         costs.append(cost)
     return g.replace(poses=poses), torch.stack(costs)
+
+
+class CapturedSolver:
+    """`optimize_pose_graph` with fixed settings as one `CapturedStep` per
+    view shape (max_nodes, max_edges): on the card a CUDA graph of the whole
+    LM loop, captured at the second solve of that shape; `graph=False` runs
+    the same buffer rules eagerly. Calls return (graph with the optimized
+    poses, costs [iters]), both the caller's own copies. The steps draw on
+    `pool` (a shared graph pool) when given."""
+
+    def __init__(self, iters: int = 10, damping: float = 1e-4, huber: float = 3.0, *,
+                 graph: bool, pool=None):
+        self.kw = dict(iters=iters, damping=damping, huber=huber)
+        self.graph, self.pool = graph, pool
+        self.steps: dict[tuple[int, int], captured.CapturedStep] = {}
+
+    def __call__(self, g: PoseGraph) -> tuple[PoseGraph, torch.Tensor]:
+        fields = {f: getattr(g, f) for f in _FIELDS}
+        key = (g.max_nodes, g.max_edges)
+        if key not in self.steps:
+            def solve(state, x):
+                out, costs = optimize_pose_graph(PoseGraph(**x, n_nodes=0, n_edges=0), **self.kw)
+                return state, (out.poses, costs)
+
+            self.steps[key] = captured.CapturedStep(solve, (), captured.clone(fields),
+                                                    graph=self.graph, pool=self.pool)
+        step = self.steps[key]
+        captured.copy_into(step.inputs, fields)
+        step()
+        poses, costs = step.take()
+        return g.replace(poses=poses), costs

@@ -2,7 +2,7 @@
 them, for comparing trees.
 
     python3 parakeet_slam_tpu_torch/eval/ab_kernels.py [--root DIR] [--twin]
-        [--parts kernels,update_3d,hamming,cinv,paths,posegraph]
+        [--parts kernels,update_3d,hamming,cinv,paths,posegraph,eager_solves]
 
 Imports `parakeet_slam_tpu_torch` from DIR (default: the checkout that holds
 this file), so that an older tree unpacked beside it (`git archive` of the
@@ -49,7 +49,14 @@ The parts (default `kernels`):
   - `posegraph`: `optimize_pose_graph` (10 LM iterations) on a drifted
     chain of K keyframes with 4K edges (the chain and seeded loop edges),
     K = 64 (config 2's graph after `shrink_to_active`), 256, 512, 1024,
-    2048, around single calls.
+    2048: eager and, where the tree has it, captured as one CUDA graph a
+    solve (`posegraph.CapturedSolver`), in turns, each call between CUDA
+    events; the captured poses and costs against the eager ones;
+  - `eager_solves`: the eager results of the functions that solve small
+    linear systems (`optimize_pose_graph` at K = 64 and 256, the closure
+    refine and the depth-relaxed refine at config 2's camera on seeded
+    correspondences, Nc = 4 of F = 256), each as the SHA-256 of its output
+    bytes: two trees whose digests agree compute them bit for bit alike.
 Prints one JSON line per kernel, shape, path or K, after the card's name
 and power limit.
 """
@@ -242,15 +249,14 @@ def time_paths(device, single):
     return [corridor, {"path": "fs2_step", "shape": [1024, 8192, 32], "ms": ms}]
 
 
-def time_posegraph(K, device, single):
-    """optimize_pose_graph on K keyframes along a circle, the estimates
-    drifted from the truth by seeded tangent noise, edges measured from the
-    truth: the chain, then loop edges between seeded pairs up to 4K."""
+def posegraph_case(K, device):
+    """A pose graph of K keyframes along a circle, the estimates drifted
+    from the truth by seeded tangent noise, edges measured from the truth:
+    the chain, then loop edges between seeded pairs up to E = 4K."""
     import numpy as np
     import torch
 
     from parakeet_slam_tpu_torch.backend import graph as G
-    from parakeet_slam_tpu_torch.backend import posegraph as PG
     from parakeet_slam_tpu_torch.core import geometry as geo
 
     rng = np.random.default_rng(K)
@@ -265,15 +271,99 @@ def time_posegraph(K, device, single):
     ij = np.concatenate([np.stack([np.arange(K - 1), np.arange(1, K)], 1), loops]).astype(np.int32)
     ij_t = torch.as_tensor(ij, device=device).long()
     rel = geo.se3_between(gt[ij_t[:, 0]], gt[ij_t[:, 1]])
-    g = G.PoseGraph(poses=est, node_valid=torch.ones(K, dtype=torch.bool, device=device),
-                    edge_ij=torch.as_tensor(ij, device=device), edge_rel=rel,
-                    edge_info=torch.ones(E, 6, device=device),
-                    edge_valid=torch.ones(E, dtype=torch.bool, device=device),
-                    n_nodes=K, n_edges=E)
-    ms, (out, costs) = single(lambda: PG.optimize_pose_graph(g, iters=10), 3, True)
-    return {"path": "optimize_pose_graph", "K": K, "E": E, "iters": 10, "ms": ms,
-            "cost_first": float(costs[0]), "cost_last": float(costs[-1]),
-            "finite": bool(torch.isfinite(out.poses).all())}
+    return G.PoseGraph(poses=est, node_valid=torch.ones(K, dtype=torch.bool, device=device),
+                       edge_ij=torch.as_tensor(ij, device=device), edge_rel=rel,
+                       edge_info=torch.ones(E, 6, device=device),
+                       edge_valid=torch.ones(E, dtype=torch.bool, device=device),
+                       n_nodes=K, n_edges=E)
+
+
+def time_posegraph(K, device, turns=3):
+    """optimize_pose_graph (10 LM iterations) on `posegraph_case(K)`:
+    eager, and captured (`posegraph.CapturedSolver`, where the tree has it)
+    in turns after a warm-up of each (the captured one's: its eager first
+    solve and its capture); milliseconds of each call between CUDA events
+    recorded around it."""
+    import torch
+
+    from parakeet_slam_tpu_torch.backend import posegraph as PG
+
+    g = posegraph_case(K, device)
+    solver = (PG.CapturedSolver(iters=10, graph=True, pool=torch.cuda.graph_pool_handle())
+              if hasattr(PG, "CapturedSolver") else None)
+    modes = {"eager": lambda: PG.optimize_pose_graph(g, iters=10)}
+    if solver is not None:
+        modes["captured"] = lambda: solver(g)
+
+    def call(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), out
+
+    out = {m: call(fn)[1] for m, fn in modes.items()}
+    if solver is not None:
+        out["captured"] = call(modes["captured"])[1]  # the capture
+    ms = {m: [] for m in modes}
+    for _ in range(turns):
+        for m, fn in modes.items():
+            t, out[m] = call(fn)
+            ms[m].append(t)
+    poses, costs = out["eager"][0].poses, out["eager"][1]
+    row = {"path": "optimize_pose_graph", "K": K, "E": 4 * K, "iters": 10,
+           "ms": min(ms["eager"]), "ms_turns": ms["eager"], "cost_first": float(costs[0]),
+           "cost_last": float(costs[-1]), "finite": bool(torch.isfinite(poses).all())}
+    if solver is not None:
+        step = solver.steps[(K, 4 * K)]
+        row.update(ms_captured=min(ms["captured"]), ms_captured_turns=ms["captured"],
+                   captured_equal=bool(torch.equal(out["captured"][0].poses, poses)
+                                       and torch.equal(out["captured"][1], costs)),
+                   capture_s=step.capture_s, instantiate_s=step.instantiate_s,
+                   pool_bytes=step.pool_bytes)
+    return row
+
+
+def eager_solves(device):
+    """Rows of `eager_solves` (module docstring): {"case", "sha256"}."""
+    import dataclasses
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch import system
+    from parakeet_slam_tpu_torch.backend import posegraph as PG
+    from parakeet_slam_tpu_torch.core.config import load_config
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return h.hexdigest()
+
+    rows = []
+    for K in (64, 256):
+        out, costs = PG.optimize_pose_graph(posegraph_case(K, device), iters=10)
+        rows.append({"case": f"optimize_pose_graph K={K}", "sha256": digest(out.poses, costs)})
+    rng = np.random.default_rng(7)
+    Nc, F = 4, 256
+    pa = np.stack([rng.uniform(-1.5, 1.5, (Nc, F)), rng.uniform(-1, 1, (Nc, F)),
+                   rng.uniform(2, 6, (Nc, F))], -1).astype(np.float32)
+    t = rng.uniform(-0.3, 0.3, (Nc, 1, 3)).astype(np.float32)
+    pb = (pa + t + 0.01 * rng.normal(size=pa.shape)).astype(np.float32)
+    valid = np.arange(F)[None] < rng.integers(20, F, (Nc, 1))
+    rel0 = np.concatenate([t[:, 0] + 0.02, np.tile([[0.0, 0.0, 0.0, 1.0]], (Nc, 1))], -1)
+    args = [torch.as_tensor(a, device=device) for a in (rel0.astype(np.float32), pa, pb, valid)]
+    cfg = load_config(os.path.join(os.path.dirname(os.path.dirname(HERE)),
+                                   "configs/tum_fr1_desk.yaml"))
+    for sigma, name in ((0.0, "_refine_rel_impl"), (0.3, "_refine_rel_depth_impl")):
+        c = dataclasses.replace(cfg, backend=dataclasses.replace(
+            cfg.backend, loop_refine_depth_sigma=sigma))
+        s = system.SLAMSystem(c, device=device, capture=False)
+        rows.append({"case": name, "sha256": digest(getattr(s, name)(*args))})
+    return rows
 
 
 def main(argv=None):
@@ -281,7 +371,8 @@ def main(argv=None):
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
     ap.add_argument("--twin", action="store_true")
     ap.add_argument("--parts", default="kernels",
-                    help="comma-separated: kernels, update_3d, hamming, cinv, paths, posegraph")
+                    help="comma-separated: kernels, update_3d, hamming, cinv, paths, posegraph, "
+                         "eager_solves")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -330,7 +421,10 @@ def main(argv=None):
             print(json.dumps(row), flush=True)
     if "posegraph" in parts:
         for K in POSEGRAPH_K:
-            print(json.dumps(time_posegraph(K, device, single)), flush=True)
+            print(json.dumps(time_posegraph(K, device)), flush=True)
+    if "eager_solves" in parts:
+        for row in eager_solves(device):
+            print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

@@ -22,13 +22,18 @@ The rules, the same in both modes:
   - `inputs` holds the static inputs. The caller writes the frame's inputs
     into them (`copy_into`) before a call; `fn` may write into them too (a
     frame counter, an output row at that counter).
-  - `outputs` are static as well: the next call overwrites them. Clone what
-    is kept past the frame (`clone`).
+  - `outputs` are static as well: the next call overwrites them. They are
+    views into one byte buffer, so that `take()` copies all of them out in
+    one device copy: call it for what is kept past the frame.
   - The kernel wrappers count their launches in Python, so a capture, which
     launches nothing, counts once and a replay, which runs no Python, not at
     all. The capture's counts are taken back and added once per replay.
   - The random draws stay outside: the caller draws them, or injects them,
     and writes them into the inputs.
+
+Several steps may share one memory pool (`pool=`, from
+`torch.cuda.graph_pool_handle()`): they replay one after another on one
+stream, so a graph's intermediates may take the memory of another's.
 """
 
 from __future__ import annotations
@@ -100,18 +105,20 @@ class CapturedStep:
     """One step function over static buffers, replayed as a CUDA graph on
     the card (see the module docstring). After the capture: `capture_s` and
     `instantiate_s` (seconds on the host's clock), `pool_bytes` (the device
-    memory the capture reserved: the graph's private pool) and
+    memory the capture reserved: what its pool grew by) and
     `launches_per_replay` ({wrapper name: launches})."""
 
-    def __init__(self, fn, state, inputs, *, graph: bool):
+    def __init__(self, fn, state, inputs, *, graph: bool, pool=None):
         devices = {t.device for t in leaves(state) + leaves(inputs)}
         if graph and any(d.type != "cuda" for d in devices):
             raise ValueError(f"CapturedStep: a graph needs CUDA buffers, got {devices}")
         if len(devices) > 1:
             raise ValueError(f"CapturedStep: buffers on more than one device: {devices}")
         self.fn, self.state, self.inputs, self.graph = fn, state, inputs, graph
+        self.pool = pool
         self.device = devices.pop() if devices else None
         self.outputs = None
+        self._packed = None
         self._graph = None
         self._counts = {}
         self.capture_s = self.instantiate_s = 0.0
@@ -125,9 +132,27 @@ class CapturedStep:
 
     def _store(self, out):
         if self.outputs is None:
-            self.outputs = clone(out)
-        else:
-            copy_into(self.outputs, out)
+            self._pack(out)
+        copy_into(self.outputs, out)
+
+    def _pack(self, out):
+        """The static outputs: views shaped as `out` into one byte buffer,
+        each at an offset aligned to 16 bytes."""
+        self._spec, size = [], 0
+        for t in leaves(out):
+            self._spec.append((size, t.dtype, t.shape, t.numel() * t.element_size()))
+            size += -(-self._spec[-1][3] // 16) * 16
+        self._packed = torch.empty(size, dtype=torch.uint8, device=self.device)
+        self.outputs = self._unpack(self._packed, out)
+
+    def _unpack(self, buf, tree):
+        """`tree` with its tensors replaced by their views into `buf`."""
+        views = iter([buf[o:o + n].view(dtype).view(shape) for o, dtype, shape, n in self._spec])
+        return tree_map(lambda _: next(views), tree)
+
+    def take(self):
+        """A copy of the outputs of the last call, made by one device copy."""
+        return self._unpack(self._packed.clone(), self.outputs)
 
     def __call__(self):
         """One step from the static inputs; returns the static outputs."""
@@ -165,7 +190,7 @@ class CapturedStep:
         gc.disable()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(g):
+            with torch.cuda.graph(g, pool=self.pool):
                 copy_into(self.outputs, self._run())
         except RuntimeError as e:
             raise RuntimeError(f"CapturedStep: the step could not be captured: {e}") from e

@@ -21,15 +21,27 @@ then optimized and its correction applied to every particle.
 
 The state lives on one device (`device=`). The kernel wrappers pick the
 route by the tensors' device alone: CUDA tensors launch the hand-written
-kernels, CPU tensors run their twins. On the card, steps 3-4 (filter step,
-estimate, keyframe test, snapshot: the reference's `_fused_obs_impl`
-without the frontend) run as one captured CUDA graph a frame
-(`filter/captured.py`): `self.state` and the keyframe reference are its
-static buffers, written in place by everything that replaces them (the
-pose-graph correction, `load_checkpoint`), and what a frame keeps past
-itself is cloned. `capture=False` asks for the eager twin; `capture=True`
-on the CPU runs the captured path's buffer rules eagerly. The sharded step
-runs eagerly. Random draws come from a `torch.Generator` seeded by
+kernels, CPU tensors run their twins. On the card the reference's compiled
+programs run as captured CUDA graphs (`filter/captured.py`), all on one
+graph pool:
+  - a frame, one graph: steps 1-4 for `process_frame` and
+    `process_stereo_frame` (the reference's `_fused_frame_impl` and
+    `_fused_stereo_impl`: the images and the odometry arrive in one copy
+    from a pinned host slot, the draws are written into the graph's inputs),
+    steps 3-4 for `process_obs` (`_fused_obs_impl`); one step per entry and
+    image shape, all over the same state buffers;
+  - closure verification, one graph per batch shape [Nc, F]: the
+    reprojection refine (Horn's consensus runs eagerly before it: its
+    `linalg.svd` checks its convergence on the host);
+  - the pose-graph solve, one graph per view shape
+    (`backend/posegraph.CapturedSolver`).
+`self.state` and the keyframe reference are the frames' static buffers,
+written in place by everything that replaces them (the pose-graph
+correction, `load_checkpoint`), and what a frame keeps past itself is
+copied out in one copy (`CapturedStep.take`). `capture=False` asks for the
+eager twin; `capture=True` on the CPU runs the captured path's buffer rules
+eagerly. The sharded system runs eagerly. Random draws come from a
+`torch.Generator` seeded by
 `cfg.filter.seed`, or are injected per frame (`motion_noise`,
 `resample_u0`) so that a test can replay the reference's draws. Keyframe descriptors are int32 words carrying the reference's
 uint32 bits.
@@ -87,7 +99,7 @@ from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
 from parakeet_slam_tpu_torch.filter import captured, make_filter
 from parakeet_slam_tpu_torch.filter.runner import draw_noise
 from parakeet_slam_tpu_torch.frontend import camera as camera_mod
-from parakeet_slam_tpu_torch.frontend.describe import describe
+from parakeet_slam_tpu_torch.frontend.describe import describe, make_pattern
 from parakeet_slam_tpu_torch.frontend.detect import detect, top_k_stable
 from parakeet_slam_tpu_torch.frontend.pyramid import detect_pyramid
 from parakeet_slam_tpu_torch.frontend.stereo import keypoint_disparity
@@ -98,6 +110,8 @@ from parakeet_slam_tpu_torch.utils.metrics_log import MetricsLogger
 # hamming_top2 launches per closure dispatch: the forward and the reverse
 # table are one batched launch each.
 MATCH_LAUNCHES_PER_DISPATCH = 2
+# pinned host slots an image entry's frames are copied from, in turn
+STAGING_SLOTS = 8
 
 
 def _batched_kf_match(qd, qv, db, dbv, ratio: float):
@@ -235,14 +249,31 @@ class SLAMSystem:
         self.mesh, self._sharded = self._make_mesh(cfg.dist)
         if capture and self._sharded is not None:
             raise ValueError("SLAMSystem: the sharded step runs eagerly (capture=True)")
-        # the frame's step as one CUDA graph (None: on the card, one device)
+        # the compiled programs as CUDA graphs (None: on the card, one device)
         self.capture = (self.device.type == "cuda" and self._sharded is None
                         if capture is None else bool(capture))
-        self._captured = None  # the CapturedStep, built at the first frame
+        # The CapturedSteps, built at first use: the frames by entry ("obs",
+        # or "mono" / "stereo" with the image and odometry shapes), closure
+        # verification by batch shape; the pose-graph solver; their pool.
+        self._frame_steps: dict = {}
+        self._verify_steps: dict = {}
+        self._pg_solver = None
+        self._pool = None
+        # an image step's u0 input: a drawn uniform (divided in the graph) or
+        # an injected offset, by step key (what the device flag holds)
+        self._u0_drawn: dict = {}
+        # pinned host slots by size, and the uploads since the host last
+        # read the device (`_upload`)
+        self._staging: dict = {}
+        self._uploads = 0
+        self._uploads_unread = 0
         # rank 0 alone prints and writes files
         self.is_writer = process_index() == 0
         self.camera = camera_mod.from_config(fe)
         self.wrap_x = fe.camera == "equirect"
+        # BRIEF's pattern on the device once: a copy from the host inside a
+        # captured frame would be recorded with the capture's host buffer
+        self._pattern = torch.as_tensor(make_pattern(), device=self.device)
         self.keyframes: list[Keyframe] = []
         self.graph = graph_mod.make_pose_graph(be.max_keyframes, 4 * be.max_keyframes,
                                                device=self.device)
@@ -306,7 +337,23 @@ class SLAMSystem:
             xy, _, _, valid = detect_pyramid(img, levels=fe.pyramid_levels, **kw)
         else:
             xy, _, valid = detect(img, **kw)
-        return xy, describe(img, xy, valid, wrap_x=self.wrap_x), valid
+        return xy, describe(img, xy, valid, pattern=self._pattern, wrap_x=self.wrap_x), valid
+
+    def _mono_observation(self, img):
+        """Steps 1-2 of a camera frame [H, W] on the device."""
+        return self._to_observation(*self._frontend(img))
+
+    def _stereo_observation(self, left, right):
+        """Steps 1-2 of a rectified stereo pair: detect and describe on the
+        left image, the SAD disparity of the first Z = max_observations
+        keypoints against the right one, [u, v, d] valid where the keypoint
+        and its disparity are."""
+        xy, desc, valid = self._frontend(left)
+        Z = self.cfg.filter.max_observations
+        xy, desc, valid = xy[:Z], desc[:Z], valid[:Z]
+        disp, dvalid = keypoint_disparity(left, right, xy, valid)
+        uvd = torch.cat([xy, disp[:, None]], dim=1)
+        return self._to_observation(uvd, desc, valid & dvalid)
 
     def _to_observation(self, z, desc, valid) -> Observation:
         """Keypoint measurements -> fixed-capacity filter Observation."""
@@ -499,9 +546,7 @@ class SLAMSystem:
         v_b = np.zeros((Nc, F), bool)
         for i, (_, _, pa, pb, v) in enumerate(cand_rows):
             pa_b[i], pb_b[i], v_b[i] = pa, pb, v
-        rels, n_ins = self._verify_candidates(
-            *(torch.as_tensor(a, device=self.device) for a in (pa_b, pb_b, v_b)))
-        rels, n_ins = rels.cpu(), n_ins.cpu().numpy()
+        rels, n_ins = self._verify_batch(pa_b, pb_b, v_b)
         # -- phase 3 (host): accept edges, innovation-gate the optimize --
         need_opt = False
         for (kidx, oldidx, _, _, _), rel, n_in in zip(cand_rows, rels, n_ins):
@@ -524,13 +569,46 @@ class SLAMSystem:
             need_opt = True
         return need_opt
 
+    def _refine(self):
+        return (self._refine_rel_depth_impl if self.cfg.backend.loop_refine_depth_sigma > 0.0
+                else self._refine_rel_impl)
+
     def _verify_candidates(self, pa, pb, valid):
         """Batched closure verification [Nc, F, ...]: Horn consensus, then the
         reprojection refine. Returns (rel [Nc, 7], inliers [Nc])."""
         rel, n_in = self._horn_consensus_impl(pa, pb, valid)
-        refine = (self._refine_rel_depth_impl if self.cfg.backend.loop_refine_depth_sigma > 0.0
-                  else self._refine_rel_impl)
-        return refine(rel, pa, pb, valid), n_in
+        return self._refine()(rel, pa, pb, valid), n_in
+
+    def _verify_batch(self, pa, pb, valid):
+        """`_verify_candidates` of host arrays pa, pb [Nc, F, 3], valid [Nc,
+        F]; the results come back in one device-to-host copy: (rel [Nc, 7]
+        and inliers [Nc] on the host). Captured, the arrays go into the
+        static inputs of the batch shape's step, Horn's consensus runs
+        eagerly on them and the refine replays."""
+        Nc = pa.shape[0]
+        if not self.capture:
+            rels, n_in = self._verify_candidates(
+                *(torch.as_tensor(a, device=self.device) for a in (pa, pb, valid)))
+        else:
+            cs = self._verify_steps.get(pa.shape)
+            if cs is None:
+                refine = self._refine()
+                inputs = {"rel0": torch.zeros(Nc, 7, device=self.device),
+                          "pa": torch.zeros(pa.shape, device=self.device),
+                          "pb": torch.zeros(pb.shape, device=self.device),
+                          "valid": torch.zeros(valid.shape, dtype=torch.bool, device=self.device)}
+                cs = self._verify_steps[pa.shape] = captured.CapturedStep(
+                    lambda state, x: (state, refine(x["rel0"], x["pa"], x["pb"], x["valid"])),
+                    (), inputs, graph=self.device.type == "cuda", pool=self._graph_pool())
+            x = cs.inputs
+            for k, a in (("pa", pa), ("pb", pb), ("valid", valid)):
+                x[k].copy_(torch.from_numpy(a))
+            rel0, n_in = self._horn_consensus_impl(x["pa"], x["pb"], x["valid"])
+            x["rel0"].copy_(rel0)
+            cs()
+            rels = cs.take()
+        host = torch.cat([rels.reshape(-1), n_in.to(rels.dtype)]).cpu()
+        return host[:Nc * 7].reshape(Nc, 7), host[Nc * 7:].numpy().astype(np.int32)
 
     def _refine_rel_impl(self, rel0, pa, pb, valid):
         """Reprojection-refine closure edges rel0 [..., 7] (Z_{old,kf}: maps
@@ -569,7 +647,8 @@ class SLAMSystem:
             wf = w.repeat_interleave(r0.shape[-1], dim=-1)
             A = J.transpose(-1, -2) @ (wf[..., None] * J) + 1e-4 * eye
             b = (J.transpose(-1, -2) @ (wf * r0.flatten(-2))[..., None])[..., 0]
-            xi = -torch.linalg.solve(A, b)
+            # solve_ex: linalg.solve's error check reads the device
+            xi = -torch.linalg.solve_ex(A, b, check_errors=False)[0]
             xi = torch.where(torch.isfinite(xi), xi, torch.zeros_like(xi))
             cand = geometry.se3_compose(rel, geometry.se3_exp(xi))
             c_old, _ = cost_w(rel)
@@ -634,7 +713,7 @@ class SLAMSystem:
             S = (Hxx - torch.einsum("...fi,...fj->...ij", Hxd / Hdd[..., None], Hxd)
                  + 1e-4 * eye)
             rhs = gx - torch.sum(Hxd * (gd / Hdd)[..., None], dim=-2)
-            dxi = -torch.linalg.solve(S, rhs)
+            dxi = -torch.linalg.solve_ex(S, rhs, check_errors=False)[0]
             dxi = torch.where(torch.isfinite(dxi), dxi, torch.zeros_like(dxi))
             dd = -(gd + (Hxd @ dxi[..., None])[..., 0]) / Hdd
             dd = torch.where(torch.isfinite(dd) & vm, dd, torch.zeros_like(dd))
@@ -664,7 +743,14 @@ class SLAMSystem:
     def _optimize_graph(self):
         """Optimize the pose graph at its live size (a power-of-two view)."""
         view, _, _ = graph_mod.shrink_to_active(self.graph)
-        view, _ = pg_mod.optimize_pose_graph(view, iters=self.cfg.backend.gn_iters)
+        if not self.capture:
+            view, _ = pg_mod.optimize_pose_graph(view, iters=self.cfg.backend.gn_iters)
+        else:
+            if self._pg_solver is None:
+                self._pg_solver = pg_mod.CapturedSolver(
+                    iters=self.cfg.backend.gn_iters, graph=self.device.type == "cuda",
+                    pool=self._graph_pool())
+            view, _ = self._pg_solver(view)
         poses = self.graph.poses.clone()
         poses[: view.poses.shape[0]] = view.poses
         return self.graph.replace(poses=poses)
@@ -759,16 +845,20 @@ class SLAMSystem:
         snap = self._kf_snapshot_impl(state, est)
         return (state, torch.where(flag, est, last_kf)), (est, flag, snap, metrics)
 
-    def _captured_step(self, x) -> captured.CapturedStep:
-        """The frame's CapturedStep over the system's state and keyframe
-        reference, with static inputs shaped as this frame's (the has_kf
-        flag is the system's own); built at the first frame."""
-        if self._captured is None:
-            inputs = {k: (v if k == "has_kf" else captured.clone(v)) for k, v in x.items()}
-            self._captured = captured.CapturedStep(
-                self._frame, (self.state, self._last_kf_dev), inputs,
-                graph=self.device.type == "cuda")
-        return self._captured
+    def _graph_pool(self):
+        """The graph pool that every captured step of this system draws on
+        (None off the card)."""
+        if self._pool is None and self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    def _frame_step(self, key, fn, inputs):
+        """Build the CapturedStep of a frame entry over the system's state
+        and keyframe reference (the same buffers for every entry), with the
+        static inputs `inputs`."""
+        self._frame_steps[key] = captured.CapturedStep(
+            fn, (self.state, self._last_kf_dev), inputs, graph=self.device.type == "cuda",
+            pool=self._graph_pool())
 
     def _step(self, obs, odom_u, motion_noise, resample_u0):
         """One frame of steps 3-4: eager (sharded or not), or the captured graph."""
@@ -778,9 +868,98 @@ class SLAMSystem:
         if not self.capture:
             (self.state, self._last_kf_dev), out = self._frame((self.state, self._last_kf_dev), x)
             return self._post_step(*out)
-        cs = self._captured_step(x)
+        if "obs" not in self._frame_steps:
+            self._frame_step("obs", self._frame, {
+                k: (v if k == "has_kf" else captured.clone(v)) for k, v in x.items()})
+        cs = self._frame_steps["obs"]
         captured.copy_into(cs.inputs, x)
-        return self._post_step(*captured.clone(cs()))
+        cs()
+        return self._post_step(*cs.take())
+
+    def _image_frame(self, n_images: int, shape):
+        """The captured function of an image entry: x["frame"] holds the
+        n_images images [H, W] (left, right) and the odometry increment,
+        flat (`_upload`); x["u0"] is the resample offset, or where
+        x["u0_drawn"] the uniform it is drawn from, divided here by P as
+        `draw_noise` divides it. Steps 1-2, then `_frame`."""
+        H, W = shape
+        n = H * W
+        P = self.slam.cfg.num_particles
+
+        def frame(carry, x):
+            f = x["frame"]
+            images = [f[i * n:(i + 1) * n].view(H, W) for i in range(n_images)]
+            obs = (self._mono_observation(*images) if n_images == 1
+                   else self._stereo_observation(*images))
+            u0 = torch.where(x["u0_drawn"], x["u0"] / P, x["u0"])
+            return self._frame(carry, {"u": f[n_images * n:], "obs": obs, "noise": x["noise"],
+                                       "u0": u0, "has_kf": x["has_kf"]})
+
+        return frame
+
+    def _upload(self, dst, arrays):
+        """Write a frame's host arrays, flat and in order, into the static
+        input `dst`. On the card the copy leaves from a pinned slot and does
+        not wait: the slots are used in turn, and a slot is written again
+        only after the host has read the device since its last copy (the
+        flag flush reads it every kf_flag_lag frames; past STAGING_SLOTS
+        uploads without a read the host waits here)."""
+        if dst.device.type != "cuda":
+            dst.copy_(torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays])))
+            return
+        if self._uploads_unread >= STAGING_SLOTS:
+            torch.cuda.current_stream(self.device).synchronize()
+            self._uploads_unread = 0
+        ring = self._staging.setdefault(dst.numel(), [None] * STAGING_SLOTS)
+        i = self._uploads % STAGING_SLOTS
+        if ring[i] is None:
+            ring[i] = torch.empty(dst.numel(), dtype=torch.float32, pin_memory=True)
+        host, off = ring[i].numpy(), 0
+        for a in arrays:
+            host[off:off + a.size] = a.reshape(-1)
+            off += a.size
+        dst.copy_(ring[i], non_blocking=True)
+        self._uploads += 1
+        self._uploads_unread += 1
+
+    def _draw_into(self, key, x, motion_noise, resample_u0):
+        """This frame's draws in an image step's inputs, as `_draws` makes
+        them: drawn into the buffers (`normal_` as `randn` draws, `uniform_`
+        as `rand`, the division by P in the graph), or injected."""
+        if motion_noise is None or resample_u0 is None:
+            x["noise"].normal_(generator=self.generator)
+            x["u0"].uniform_(generator=self.generator)
+        if motion_noise is not None:
+            x["noise"].copy_(torch.as_tensor(motion_noise, dtype=torch.float32,
+                                             device=self.device).reshape(x["noise"].shape))
+        if resample_u0 is not None:
+            x["u0"].copy_(torch.as_tensor(resample_u0, dtype=torch.float32,
+                                          device=self.device).reshape(()))
+        drawn = resample_u0 is None
+        if self._u0_drawn.get(key) != drawn:
+            x["u0_drawn"].fill_(drawn)
+            self._u0_drawn[key] = drawn
+
+    def _captured_frame(self, kind, images, odom_u, motion_noise, resample_u0):
+        """One frame of an image entry through its captured step."""
+        arrays = [np.asarray(a, np.float32) for a in images]
+        u = np.asarray(odom_u, np.float32).reshape(-1)
+        key = (kind, arrays[0].shape, u.size)
+        if key not in self._frame_steps:
+            dev = self.device
+            self._frame_step(key, self._image_frame(len(arrays), arrays[0].shape), {
+                "frame": torch.zeros(sum(a.size for a in arrays) + u.size, device=dev),
+                "noise": torch.zeros(self.slam.cfg.num_particles, self.slam.noise_dim,
+                                     device=dev),
+                "u0": torch.zeros((), device=dev),
+                "u0_drawn": torch.ones((), dtype=torch.bool, device=dev),
+                "has_kf": self._has_kf_dev})
+            self._u0_drawn[key] = True
+        cs = self._frame_steps[key]
+        self._upload(cs.inputs["frame"], arrays + [u])
+        self._draw_into(key, cs.inputs, motion_noise, resample_u0)
+        cs()
+        return self._post_step(*cs.take())
 
     # -- main entry -------------------------------------------------------
 
@@ -788,10 +967,10 @@ class SLAMSystem:
         """One camera frame [H, W] in [0, 1] + odometry increment [6].
         Returns the pose estimate [7] as a device tensor. `motion_noise`
         [P, noise_dim] and `resample_u0` replace this frame's draws."""
+        if self.capture:
+            return self._captured_frame("mono", (img,), odom_u, motion_noise, resample_u0)
         img = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
-        xy, desc, valid = self._frontend(img)
-        return self._step(self._to_observation(xy, desc, valid), odom_u, motion_noise,
-                          resample_u0)
+        return self._step(self._mono_observation(img), odom_u, motion_noise, resample_u0)
 
     def process_obs(self, obs: Observation, odom_u, motion_noise=None, resample_u0=None):
         """Bypass the image frontend with a ready Observation."""
@@ -807,14 +986,14 @@ class SLAMSystem:
         estimate [7] as a device tensor; the draws as in `process_frame`."""
         if self.cfg.filter.obs_dim != 3:
             raise ValueError("stereo frames need obs_dim=3 (stereo_3d model)")
+        if self.capture:
+            if np.shape(img_left) != np.shape(img_right):
+                raise ValueError(f"stereo pair of {np.shape(img_left)} and {np.shape(img_right)}")
+            return self._captured_frame("stereo", (img_left, img_right), odom_u, motion_noise,
+                                        resample_u0)
         left, right = (torch.as_tensor(np.asarray(a, np.float32), device=self.device)
                        for a in (img_left, img_right))
-        xy, desc, valid = self._frontend(left)
-        Z = self.cfg.filter.max_observations
-        xy, desc, valid = xy[:Z], desc[:Z], valid[:Z]
-        disp, dvalid = keypoint_disparity(left, right, xy, valid)
-        uvd = torch.cat([xy, disp[:, None]], dim=1)
-        return self._step(self._to_observation(uvd, desc, valid & dvalid), odom_u, motion_noise,
+        return self._step(self._stereo_observation(left, right), odom_u, motion_noise,
                           resample_u0)
 
     def _post_step(self, est, kf_flag, snap, metrics):
@@ -840,6 +1019,8 @@ class SLAMSystem:
         window's pending estimates."""
         pend, self._flag_pending = self._flag_pending, []
         flags = torch.stack([f for _, _, f, _ in pend]).tolist() if pend else []
+        if pend:  # the read waited for every copy of `_upload` so far
+            self._uploads_unread = 0
         pend_corr = None
         if self._resolve_closures():
             pend_corr = self._optimize_and_correct()
