@@ -1209,6 +1209,37 @@ def phase_match(device):
     return res, err, l2_launches
 
 
+def recording_dispatches(calls):
+    """Make every `SLAMSystem._dispatch_loop_closure` append what it
+    matched to `calls`: (query descriptors, validity, the store, its
+    validity with the dispatch's eligibility mask, the forward and reverse
+    tables it left pending, the ratio), for the replays through the twin
+    (`phase_desk_replay`). On the card a dispatch replays its store shape's
+    graph, so the record is taken at the dispatch, not inside the match.
+    Returns the function that undoes the wrap."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch import system
+
+    dispatch = system.SLAMSystem._dispatch_loop_closure
+
+    def recording(self, kf):
+        n = len(self._closure_pending)
+        dispatch(self, kf)
+        if len(self._closure_pending) > n:
+            _, n_old, fwd, rev = self._closure_pending[-1]
+            db = self._kf_desc_dev
+            eligible = torch.arange(db.shape[0], device=db.device) < n_old
+            calls.append((torch.as_tensor(kf.desc.view(np.int32), device=db.device),
+                          torch.as_tensor(kf.valid, device=db.device), db.clone(),
+                          self._kf_valid_dev & eligible[:, None], fwd.clone(), rev.clone(),
+                          self.cfg.frontend.match_ratio))
+
+    system.SLAMSystem._dispatch_loop_closure = recording
+    return lambda: setattr(system.SLAMSystem, "_dispatch_loop_closure", dispatch)
+
+
 def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
     """Benchmark config 2 at full width: `cli run`'s TUM loop over the
     in-memory desk world. Captures every keyframe-store match for phase 11."""
@@ -1229,12 +1260,6 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
     t_render = time.perf_counter() - t0
     odom = cli._make_odometry(cfg.data, world.gt_pose, frames)
     calls = []
-    kf_match = system._batched_kf_match
-
-    def capture(qd, qv, db, dbv, ratio):
-        fwd, rev = kf_match(qd, qv, db, dbv, ratio)
-        calls.append(tuple(t.clone() for t in (qd, qv, db, dbv, fwd, rev)) + (ratio,))
-        return fwd, rev
 
     def run():
         resampled = []
@@ -1249,12 +1274,12 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts_3d()
     match.hamming_top2.launches = 0
-    system._batched_kf_match = capture
+    restore = recording_dispatches(calls)
     try:
         sys_, est, fps, wall, n_res, graph_poses = run()
         launches = _counts_3d() + (match.hamming_top2.launches,)
     finally:
-        system._batched_kf_match = kf_match
+        restore()
     peak = torch.cuda.max_memory_allocated()
     # the same run again from the same seed: bit for bit the same
     sys2, est2, _, _, n_res2, graph_poses2 = run()
@@ -1360,12 +1385,6 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
     check(right is not None and len(odom) == n_all, "the KITTI loader gave no stereo pairs")
 
     dispatches = []
-    kf_match = system._batched_kf_match
-
-    def counting_match(*a, **kw):
-        dispatches.append(1)
-        return kf_match(*a, **kw)
-
     resampled = []
     sys_ = system.SLAMSystem(cfg, device=device)
     sys_.metrics.log = lambda frame, **rec: resampled.append(rec["resampled"])
@@ -1373,14 +1392,14 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts_3d()
     match.hamming_top2.launches = 0
-    system._batched_kf_match = counting_match
+    restore = recording_dispatches(dispatches)
     try:
         est, fps, wall = cli.run_image_sequence(sys_, left, odom[:frames], right=right)
         sys_.flush_flags()
         sys_.flush_metrics()
         launches = _counts_3d() + (match.hamming_top2.launches,)
     finally:
-        system._batched_kf_match = kf_match
+        restore()
     peak = torch.cuda.max_memory_allocated()
     n_res = sum(resampled)
     # the frontend runs inside the frame's graph: its observations again,
@@ -1611,8 +1630,15 @@ def _is_api(name):
     return re.match(r"cu[A-Z]|cuda[A-Z]", name) is not None
 
 
+def _ba_results(r):
+    return (r.costs, r.pcg_residuals, r.problem.cam_pose, r.problem.points)
+
+
 def phase_ba(device):
-    """Bundle adjustment at full width with configs/euroc_mh.yaml's backend."""
+    """Bundle adjustment at full width with configs/euroc_mh.yaml's backend:
+    the captured solve (one CUDA graph an LM iteration) against the eager
+    twin (`capture=False`) in turns, bit for bit; the kernel path against
+    the twin path; profiles of both."""
     import torch
 
     from parakeet_slam_tpu_torch.backend import ba, graph
@@ -1633,22 +1659,48 @@ def phase_ba(device):
     kw = dict(lam=be.lm_damping_init, pcg_iters=be.pcg_iters, huber_delta=be.huber_delta,
               solver=be.solver, step_clamp=(be.ba_step_clamp_cam, be.ba_step_clamp_pt))
     cost0 = float(ba.ba_cost(cam, prob, be.huber_delta))
-    ba.optimize_ba(cam, bk, iters=1, **kw)  # warm-up: cuBLAS handles, allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    schur.apply_cinv.launches = 0
-    t0 = time.perf_counter()
-    res = ba.optimize_ba(cam, bk, iters=be.gn_iters, **kw)
-    costs = res.costs.cpu()
-    dt = time.perf_counter() - t0
-    launches = schur.apply_cinv.launches
-    peak = torch.cuda.max_memory_allocated()
+    # warm-ups: cuBLAS handles, the allocator; the captured solver's first
+    # iteration runs eagerly, its second captures the graph
+    ba.optimize_ba(cam, bk, iters=1, capture=False, **kw)
+    solver = ba.captured_solver(device)
+    before = set(solver.steps)
+    ba.optimize_ba(cam, bk, iters=2, **kw)
+    (key,) = set(solver.steps) - before
+    step = solver.steps[key]
+    check(step._graph is not None, "ba: the LM iteration was not captured")
     want = be.gn_iters * len(shapes) * (be.pcg_iters + 3)
+    runs, ms, peak = {}, {"captured": [], "eager": []}, 0
+    for mode in ("eager", "captured", "captured", "eager"):  # in turns
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        schur.apply_cinv.launches = 0
+        t0 = time.perf_counter()
+        res = ba.optimize_ba(cam, bk, iters=be.gn_iters, capture=mode == "captured", **kw)
+        costs = res.costs.cpu()
+        ms[mode].append((time.perf_counter() - t0) / be.gn_iters * 1e3)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        check(schur.apply_cinv.launches == want,
+              f"ba {mode}: apply_cinv launches {schur.apply_cinv.launches} != {be.gn_iters} x "
+              f"{len(shapes)} x ({be.pcg_iters} + 3) = {want}")
+        if mode in runs:
+            check(all(_bit_equal(a, b) for a, b in zip(_ba_results(res), _ba_results(runs[mode]))),
+                  f"ba {mode} is not repeatable")
+        runs[mode] = res
+    launches = want
+    check(all(_bit_equal(a, b) for a, b in zip(_ba_results(runs["captured"]),
+                                               _ba_results(runs["eager"]))),
+          "ba full width: captured vs eager costs, pcg residuals, poses or points differ")
+    res, costs = runs["captured"], runs["captured"].costs.cpu()
     print(f"ba full width (C={prob.num_cams} points={prob.num_points} obs={prob.num_obs}, "
           f"buckets {shapes}, packed in {t_pack:.2f} s; lam0={be.lm_damping_init} "
-          f"iters={be.gn_iters} pcg_iters={be.pcg_iters} huber={be.huber_delta}): "
-          f"{dt:.3f} s, {dt / be.gn_iters * 1e3:.1f} ms per LM iteration, "
-          f"peak_mem={peak / 2**30:.3f} GiB, apply_cinv launches={launches}")
+          f"iters={be.gn_iters} pcg_iters={be.pcg_iters} huber={be.huber_delta}): ms per LM "
+          f"iteration captured {[round(t, 2) for t in ms['captured']]} eager "
+          f"{[round(t, 2) for t in ms['eager']]} (in turns, host clock over the solve), "
+          f"peak_mem={peak / 2**30:.3f} GiB, apply_cinv launches={launches} a solve")
+    print(f"ba full width captured vs eager: {be.gn_iters} LM x {be.pcg_iters} PCG, costs, pcg "
+          f"residuals, poses and points bit-equal; capture {step.capture_s:.3f} s, instantiate "
+          f"{step.instantiate_s:.3f} s, the graph's pool {step.pool_bytes / 2**20:.1f} MiB, "
+          f"launches counted per replay {step.launches_per_replay}")
     print(f"ba full width: cost {cost0:.1f} -> {float(costs[0]):.1f} -> {float(costs[-1]):.1f}, "
           f"accepted {int((costs[1:] < costs[:-1]).sum()) + int(costs[0] < cost0)} of "
           f"{be.gn_iters}, last pcg residual {float(res.pcg_residuals[-1]):.3g}")
@@ -1657,16 +1709,14 @@ def phase_ba(device):
           f"ba cost did not fall: {cost0} -> {costs}")
     check(bool(torch.isfinite(res.problem.cam_pose).all() & torch.isfinite(res.problem.points).all()),
           "ba result not finite")
-    check(launches == want, f"apply_cinv launches {launches} != {be.gn_iters} x {len(shapes)} x "
-          f"({be.pcg_iters} + 3) = {want}")
 
-    # the first iterations again, the kernel path against the twin path
-    kernel = ba.optimize_ba(cam, bk, iters=BA_TWIN_ITERS, **kw)
+    # the first iterations again, the kernel path against the twin path (both eager)
+    kernel = ba.optimize_ba(cam, bk, iters=BA_TWIN_ITERS, capture=False, **kw)
     dispatch = schur.cinv_apply
     schur.cinv_apply = schur.apply_cinv_reference
     try:
         n0 = schur.apply_cinv.launches
-        twin = ba.optimize_ba(cam, bk, iters=BA_TWIN_ITERS, **kw)
+        twin = ba.optimize_ba(cam, bk, iters=BA_TWIN_ITERS, capture=False, **kw)
         check(schur.apply_cinv.launches == n0, "the twin path launched the kernel")
     finally:
         schur.cinv_apply = dispatch
@@ -1680,24 +1730,50 @@ def phase_ba(device):
     print(f"ba kernel vs twin path, {BA_TWIN_ITERS} iterations: costs {kc.tolist()} vs "
           f"{tc.tolist()}, same accepts, max |diff| poses {d_pose:.3g} points {d_pts:.3g}")
 
-    # where an LM iteration's time goes
+    # where an LM iteration's time goes: the captured solve's iterations
+    # are replays (one graph launch each), profiled with the host's calls
     n_prof = 2
-    n_launch, busy, wall, top = _profile(lambda: ba.optimize_ba(cam, bk, iters=n_prof, **kw))
-    print(f"ba profile, {n_prof} LM iterations: {n_launch / n_prof:.0f} device launches, "
-          f"device busy {busy / n_prof:.2f} ms, wall {wall / n_prof:.1f} ms per iteration "
-          f"with the profiler on; idle share {1 - busy / wall:.3f} with it, "
-          f"{1 - busy / n_prof / (dt / be.gn_iters * 1e3):.3f} against the unprofiled "
-          f"{dt / be.gn_iters * 1e3:.1f} ms")
-    for name, ms, n in top:
-        print(f"ba profile:   {ms / n_prof:8.2f} ms {n / n_prof:7.0f} launches per iteration  "
-              f"{name[:90]}")
+    prof = {}
+    for mode in ("captured", "eager"):
+        names = {}
+        n_launch, busy, wall, top = _profile(
+            lambda: ba.optimize_ba(cam, bk, iters=n_prof, capture=mode == "captured", **kw),
+            names=names, host=mode == "captured")
+        unprofiled = min(ms[mode])
+        prof[mode] = {"launches": n_launch / n_prof, "busy_ms": busy / n_prof,
+                      "wall_ms": wall / n_prof, "idle": 1 - busy / n_prof / unprofiled,
+                      "graph_launches": names.get("cudaGraphLaunch", 0) / n_prof,
+                      "api_calls": sum(n for k, n in names.items() if _is_api(k)
+                                       and k != "cudaDeviceSynchronize") / n_prof}
+        p_ = prof[mode]
+        print(f"ba profile {mode}, {n_prof} LM iterations: {p_['launches']:.0f} device launches, "
+              f"device busy {p_['busy_ms']:.2f} ms, wall {p_['wall_ms']:.1f} ms per iteration "
+              f"with the profiler on; idle share {1 - busy / wall:.3f} with it, "
+              f"{p_['idle']:.3f} against the best unprofiled {unprofiled:.1f} ms"
+              + (f"; {p_['graph_launches']:.1f} graph launches and {p_['api_calls']:.1f} host "
+                 f"CUDA API calls per iteration (the solve's own copies included)"
+                 if mode == "captured" else ""))
+        for name, t, n in top:
+            print(f"ba profile {mode}:   {t / n_prof:8.2f} ms {n / n_prof:7.0f} launches per "
+                  f"iteration  {name[:90]}")
+    check(prof["captured"]["graph_launches"] == 1,
+          f"ba: {prof['captured']['graph_launches']} graph launches per LM iteration")
     bench_kernels.run(["schur", "ba_iteration"], device)
-    return {"launches": launches, "per_iter_ms": dt / be.gn_iters * 1e3,
-            "costs": costs.tolist(), "peak_gib": peak / 2**30}
+    return {"launches": launches, "per_iter_ms": ms, "costs": costs.tolist(),
+            "peak_gib": peak / 2**30, "profile": prof,
+            "graph": {"capture_s": step.capture_s, "instantiate_s": step.instantiate_s,
+                      "pool_bytes": step.pool_bytes}}
 
 
 def phase_run_ba(desk):
-    """`run_ba()` on the config 2 system that phase 10 left."""
+    """`run_ba()` on the config 2 system that phase 10 left (captured: the
+    dedup's keyframe steps and the LM iteration replay graphs) against an
+    eager twin loaded from a snapshot of it: the dedup's ids, store and
+    counts, the solve's costs, residuals, poses and points and the keyframe
+    poses bit-equal; the dedup again under the profiler (one graph launch a
+    keyframe); the dedup replayed through `hamming_top2`'s twin."""
+    import shutil
+
     import numpy as np
     import torch
 
@@ -1706,41 +1782,73 @@ def phase_run_ba(desk):
     from parakeet_slam_tpu_torch.kernels import match, schur
 
     sys_, est, gt = desk["system"], desk["est"], desk["gt"]
-    K = len(sys_.keyframes)
     logged = []
     sys_.metrics.log = lambda frame, **rec: logged.append(rec)
+    out = os.path.join(HERE, "build", "chip_smoke_run_ba")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    sys_.save_checkpoint(os.path.join(out, "snap"))
+    eager = system.SLAMSystem(desk["cfg"], device=sys_.device, capture=False)
+    eager.load_checkpoint(os.path.join(out, "snap"))
+    eager.metrics.log = lambda frame, **rec: None
     dedup, assign = [], system._assign_point_ids
 
-    def capture(desc, valid, world, **kw):
-        out = assign(desc, valid, world, **kw)
-        dedup.append(((desc, valid, world), kw, out))
-        return out
+    def recording(desc, valid, world, *, cap, max_ham, **kw):
+        res = assign(desc, valid, world, cap=cap, max_ham=max_ham, **kw)
+        dedup.append(((desc, valid, world), {"cap": cap, "max_ham": max_ham}, res))
+        return res
 
     match.hamming_top2.launches = 0
     schur.apply_cinv.launches = 0
-    system._assign_point_ids = capture
+    system._assign_point_ids = recording
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     try:
+        t0 = time.perf_counter()
         res = sys_.run_ba(iters=BA_SYSTEM_ITERS)
+        costs = res.costs.cpu()
+        dt = time.perf_counter() - t0
+        launches = (match.hamming_top2.launches, schur.apply_cinv.launches)
+        t0 = time.perf_counter()
+        twin = eager.run_ba(iters=BA_SYSTEM_ITERS)
+        twin.costs.cpu()
+        dt_eager = time.perf_counter() - t0
     finally:
         system._assign_point_ids = assign
-    costs = res.costs.cpu()
-    dt = time.perf_counter() - t0
-    launches = (match.hamming_top2.launches, schur.apply_cinv.launches)
+    check(len(dedup) == 2, f"run_ba deduplicated {len(dedup)} times")
+    K = dedup[0][0][0].shape[0]
+    for name, a, b in zip(("store descriptors", "store_valid", "store positions", "count",
+                           "dropped", "pid"), (*dedup[0][2][0], dedup[0][2][1]),
+                          (*dedup[1][2][0], dedup[1][2][1])):
+        check(_bit_equal(a, b), f"run_ba dedup: captured vs eager {name} differs")
+    check(all(_bit_equal(a, b) for a, b in zip(_ba_results(res), _ba_results(twin))),
+          "run_ba: captured vs eager costs, pcg residuals, poses or points differ")
+    check([k.pose.tobytes() for k in sys_.keyframes] == [k.pose.tobytes() for k in eager.keyframes],
+          "run_ba: captured vs eager keyframe poses differ")
+    names = {}
+    _profile(lambda: sys_.build_ba_problem(), names=names, host=True)
+    dedup_graphs = names.get("cudaGraphLaunch", 0)
+    ba_steps = list(sys_._ba_solver.steps.values())
+    print(f"run_ba captured vs eager (a snapshot of phase 10's system loaded into an eager "
+          f"one): dedup ids, store and counts, costs, pcg residuals, poses, points and keyframe "
+          f"poses bit-equal; {dt:.3f} s captured, {dt_eager:.3f} s eager; the dedup again "
+          f"under the profiler: {dedup_graphs} graph launches for {K} keyframes; "
+          f"{len(ba_steps)} BA graph(s), pool grew by "
+          f"{sum(c.pool_bytes for c in ba_steps) / 2**20:.1f} MiB")
+    check(dedup_graphs == K, f"run_ba dedup: {dedup_graphs} graph launches, {K} keyframes")
+    del eager, twin
 
     # The point dedup again through the twin: one match per keyframe against
     # the store as the kernel path left it after the keyframes before, so a
     # wrong match anywhere changes the ids, the store or the counts.
-    check(len(dedup) == 1, f"run_ba deduplicated {len(dedup)} times")
     args, kw, ((sd, sv, sp, cnt, drop), pid) = dedup[0]
     kernel = match.hamming_top2
+    n0 = kernel.launches
     match.hamming_top2 = match.hamming_top2_reference
     try:
         (t_sd, t_sv, t_sp, t_cnt, t_drop), t_pid = assign(*args, **kw)
     finally:
         match.hamming_top2 = kernel
-    check(match.hamming_top2.launches == launches[0], "the twin dedup launched the kernel")
+    check(match.hamming_top2.launches == n0, "the twin dedup launched the kernel")
     for name, a, b in (("pid", pid, t_pid), ("store descriptors", sd, t_sd),
                        ("store_valid", sv, t_sv), ("store positions", sp, t_sp),
                        ("count", cnt, t_cnt), ("dropped", drop, t_drop)):
@@ -1774,7 +1882,8 @@ def phase_run_ba(desk):
     check(launches[0] == K, f"run_ba hamming_top2 launches {launches[0]}, keyframes {K}")
     check(launches[1] > 0 and launches[1] % (len(costs) * (be.pcg_iters + 3)) == 0,
           f"run_ba apply_cinv launches {launches[1]}")
-    return {"launches": launches, "seconds": dt, "ate": ate}
+    return {"launches": launches, "seconds": dt, "seconds_eager": dt_eager, "ate": ate,
+            "dedup_graphs": dedup_graphs}
 
 
 # --------------------------------------------------------------------------
@@ -1855,18 +1964,13 @@ def phase_config4(device):
     # the multi-session run, counted; every closure dispatch, the BA's dedup
     # and the last resample captured for the replays through the twins below
     dispatches, dedups, gathers, resampled = [], [], [], []
-    kf_match, assign, log = system._batched_kf_match, system._assign_point_ids, \
-        metrics_log.MetricsLogger.log
+    assign, log = system._assign_point_ids, metrics_log.MetricsLogger.log
     gather = resample.gather_particles
 
-    def counting_match(qd, qv, db, dbv, ratio):
-        fwd, rev = kf_match(qd, qv, db, dbv, ratio)
-        dispatches.append(tuple(t.clone() for t in (qd, qv, db, dbv, fwd, rev)) + (ratio,))
-        return fwd, rev
-
-    def counting_assign(desc, valid, world, **kw):
-        out = assign(desc, valid, world, **kw)
-        dedups.append(((desc.clone(), valid.clone(), world.clone()), kw, out))
+    def counting_assign(desc, valid, world, *, cap, max_ham, **kw):
+        out = assign(desc, valid, world, cap=cap, max_ham=max_ham, **kw)
+        dedups.append(((desc.clone(), valid.clone(), world.clone()),
+                       {"cap": cap, "max_ham": max_ham}, out))
         return out
 
     def capturing_gather(st, idx):
@@ -1885,7 +1989,8 @@ def phase_config4(device):
     _reset_counts_3d()
     match.hamming_top2.launches = 0
     schur.apply_cinv.launches = 0
-    system._batched_kf_match, system._assign_point_ids = counting_match, counting_assign
+    restore = recording_dispatches(dispatches)
+    system._assign_point_ids = counting_assign
     resample.gather_particles = capturing_gather
     metrics_log.MetricsLogger.log = logging
     t0 = time.perf_counter()
@@ -1894,7 +1999,8 @@ def phase_config4(device):
         torch.cuda.synchronize()
         launches = _counts_3d() + (match.hamming_top2.launches, schur.apply_cinv.launches)
     finally:
-        system._batched_kf_match, system._assign_point_ids = kf_match, assign
+        restore()
+        system._assign_point_ids = assign
         resample.gather_particles = gather
         metrics_log.MetricsLogger.log = log
     wall = time.perf_counter() - t0
@@ -1957,6 +2063,29 @@ def phase_config4(device):
           f"config 4 hamming_top2 launches {launches[3]}, dispatches {len(dispatches)}, "
           f"dedup {dedup_rows}")
     check(launches[4] == want_cinv, f"config 4 apply_cinv launches {launches[4]} != {want_cinv}")
+    # the joint BA's eager twin on the same problem, warm as `cli.joint_ba`
+    # times the captured one
+    sys_.capture = False  # solve_ba's twin; nothing else runs meanwhile
+    try:
+        sys_.solve_ba(prob)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        twin = sys_.solve_ba(prob)
+        twin.costs.cpu()
+        twin_s = time.perf_counter() - t0
+    finally:
+        sys_.capture = True
+    check(all(_bit_equal(a, b) for a, b in (
+        (res.costs, twin.costs), (res.pcg_residuals, twin.pcg_residuals),
+        (res.problem.cam_pose, twin.problem.cam_pose), (res.problem.points, twin.problem.points))),
+        "config 4 joint BA: captured vs eager differ")
+    ba_steps = list(sys_._ba_solver.steps.values())
+    print(f"euroc config 4 joint BA captured vs eager: costs, pcg residuals, poses and points "
+          f"bit-equal; {ba_s / len(costs) * 1e3:.3f} ms per LM iteration captured (one graph "
+          f"launch each), {twin_s / len(costs) * 1e3:.3f} ms eager (warm solves, host clock); "
+          f"{len(ba_steps)} BA graph(s), capture {sum(c.capture_s for c in ba_steps):.3f} s, "
+          f"instantiate {sum(c.instantiate_s for c in ba_steps):.3f} s, pool grew by "
+          f"{sum(c.pool_bytes for c in ba_steps) / 2**20:.1f} MiB")
 
     # The kernels against their twins at config 4's own shapes and data:
     # every closure dispatch (forward and reverse tables) and the BA's dedup
@@ -2074,7 +2203,7 @@ def phase_config4(device):
               f"{name[:90]}")
     shutil.rmtree(out, ignore_errors=True)
     return {"launches": launches, "fps": [r["fps"] for r in per], "peak_gib": peak / 2**30,
-            "ba_s_per_iter": ba_s / len(costs)}
+            "ba_s_per_iter": ba_s / len(costs), "ba_eager_s_per_iter": twin_s / len(costs)}
 
 
 CONFIG5_FRAMES = 10
@@ -2314,21 +2443,29 @@ def phase_config5(device, card):
         check(np.allclose(c, ct, rtol=1e-4, atol=0.0), f"config 5 BA kernel {c} vs twin {ct}")
         check(cinv_launches == CONFIG5_BA_ITERS * (CONFIG5_BA_PCG + 3),
               f"config 5 BA apply_cinv launches {cinv_launches}")
-        ba.optimize_ba(cam, prob, iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG,
-                       huber_delta=config5_demo.BA_HUBER, lam=config5_demo.BA_LAM)  # warm-up
-        torch.cuda.synchronize()
-        t_s = time.perf_counter()
-        one = ba.optimize_ba(cam, prob, iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG,
-                             huber_delta=config5_demo.BA_HUBER, lam=config5_demo.BA_LAM)
-        torch.cuda.synchronize()
-        ms_one = (time.perf_counter() - t_s) / CONFIG5_BA_ITERS * 1e3
+        # ba.optimize_ba on the same problem, captured (its warm-up solve runs
+        # the first iteration eagerly and captures the second) and eager
+        ms_one, one = {}, {}
+        for capture in (True, False):
+            ba_kw = dict(iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG, capture=capture,
+                         huber_delta=config5_demo.BA_HUBER, lam=config5_demo.BA_LAM)
+            ba.optimize_ba(cam, prob, **ba_kw)  # warm-up
+            torch.cuda.synchronize()
+            t_s = time.perf_counter()
+            one[capture] = ba.optimize_ba(cam, prob, **ba_kw)
+            torch.cuda.synchronize()
+            ms_one[capture] = (time.perf_counter() - t_s) / CONFIG5_BA_ITERS * 1e3
+        check(all(_bit_equal(a, b) for a, b in zip(_ba_results(one[True]), _ba_results(one[False]))),
+              "config 5: ba.optimize_ba captured vs eager differ")
         print(f"config 5 distributed BA (C=64 points={prob.num_points} obs={prob.num_obs}, "
               f"{CONFIG5_BA_ITERS} LM x {CONFIG5_BA_PCG} PCG, S=1): {ms_it:.1f} ms per LM "
               f"iteration, cost {' -> '.join(f'{x:.1f}' for x in c)}, through the twin "
               f"{' -> '.join(f'{x:.1f}' for x in ct)}, apply_cinv launches={cinv_launches}; "
-              f"ba.optimize_ba on the same problem {ms_one:.1f} ms per LM iteration, cost "
-              f"{float(one.costs[-1]):.1f} | {card}")
-        out.update(ba_ms=ms_it, ba_one_ms=ms_one, cinv_launches=cinv_launches)
+              f"ba.optimize_ba on the same problem {ms_one[True]:.1f} ms per LM iteration "
+              f"captured, {ms_one[False]:.1f} eager (bit-equal; each with the host's repack of "
+              f"the problem), cost {float(one[True].costs[-1]):.1f} | {card}")
+        out.update(ba_ms=ms_it, ba_one_ms=ms_one[True], ba_one_eager_ms=ms_one[False],
+                   cinv_launches=cinv_launches)
         del res_p, prob, sp
     finally:
         tdist.destroy_process_group()
@@ -2609,14 +2746,7 @@ def phase_bench_system(device, rendered):
         frames = WARMUP + BENCH_FRAMES
         step = frame_step(kind, world, inputs)
         calls = []
-        kf_match = system_mod._batched_kf_match
-
-        def capture(qd, qv, db, dbv, ratio):
-            fwd, rev = kf_match(qd, qv, db, dbv, ratio)
-            calls.append(tuple(t.clone() for t in (qd, qv, db, dbv, fwd, rev)) + (ratio,))
-            return fwd, rev
-
-        system_mod._batched_kf_match = capture
+        restore = recording_dispatches(calls)
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2627,7 +2757,7 @@ def phase_bench_system(device, rendered):
             torch.cuda.synchronize()
             launches = _counts_3d() + (match.hamming_top2.launches,)
         finally:
-            system_mod._batched_kf_match = kf_match
+            restore()
         peak = torch.cuda.max_memory_allocated()
         n_res = sum(bool(p[1][3]) for p in sys_._metrics_pending)
         est = sys_.state.pose
@@ -2798,10 +2928,13 @@ def _same_system(what, cap, eager, est_cap, est_eager):
 
 
 def _system_steps(sys_):
-    """Every CapturedStep a system built: its frames, verify batches and
-    pose-graph solves."""
-    steps = list(sys_._frame_steps.values()) + list(sys_._verify_steps.values())
-    return steps + (list(sys_._pg_solver.steps.values()) if sys_._pg_solver else [])
+    """Every CapturedStep a system built: its frames, verify batches,
+    pose-graph solves, closure matches, dedup steps and BA iterations."""
+    steps = [*sys_._frame_steps.values(), *sys_._verify_steps.values(),
+             *sys_._match_steps.values(), *sys_._dedup_steps.values()]
+    for solver in (sys_._pg_solver, sys_._ba_solver):
+        steps += list(solver.steps.values()) if solver else []
+    return steps
 
 
 def _pool_facts(sys_):
@@ -3082,7 +3215,9 @@ def phase_captured(device, desk):
     res["pyramid"] = check_pyramid_frame(device, desk)
     res["verify"] = check_verify(device, cfg2)
     res["posegraph"] = check_posegraph(device)
-    print(f"captured vs eager pyramid, verify, pose graph: {time.perf_counter() - t0:.1f} s")
+    check_offline_sync(device, cfg2)
+    print(f"captured vs eager pyramid, verify, pose graph, offline programs: "
+          f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
 
     # config 4's frame (configs/euroc_mh.yaml) under the sync check, after one frame
@@ -3288,6 +3423,56 @@ def check_posegraph(device):
           f"{sum(c.pool_bytes for c in solver.steps.values()) / 2**20:.1f} MiB; reserved "
           f"{(torch.cuda.memory_reserved() - reserved) / 2**20:.1f} MiB more than before")
     return out
+
+
+def check_offline_sync(device, cfg2):
+    """One eager call of each offline program under the sync check, after
+    a warm-up call: the bucketed BA iteration with pose edges on both
+    solvers (at the bench problem's width, 16 cameras), a dedup keyframe
+    step and a closure match at config 2's widths."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch import system
+    from parakeet_slam_tpu_torch.backend import ba, graph
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import BA_BENCH_CAMERA, ba_bench_problem
+    from parakeet_slam_tpu_torch.frontend.camera import Pinhole
+
+    C = 16
+    bk = graph.pack_buckets(graph.make_ba_problem(**ba_bench_problem(C, 12500, 2000),
+                                                  device=device))
+    ij = torch.stack([torch.arange(C - 1), torch.arange(1, C)], 1).to(device, torch.int32)
+    rel = torch.tensor([5.0 / (C - 1), 0, 0, 0, 0, 0, 1], device=device).repeat(C - 1, 1)
+    edges = (ij, rel, torch.full((C - 1, 6), 100.0, device=device),
+             torch.ones(C - 1, dtype=torch.bool, device=device))
+    for solver in ("pcg", "dense"):
+        fn, x = ba._program(Pinhole(*BA_BENCH_CAMERA), bk, "buckets", edges, huber_delta=3.0,
+                            solver=solver, pcg_iters=100, pcg_tol=1e-6, step_clamp=(10.0, 50.0))
+        state = (bk.cam_pose, bk.points, ba._lam(1.0, bk.points))
+        fn(state, x)
+        _sync_free(f"ba iteration ({solver}, {C - 1} pose edges)", lambda: fn(state, x))
+    rng = np.random.default_rng(3)
+    F, W = cfg2.frontend.max_features, cfg2.filter.desc_words
+    pool = torch.as_tensor(rng.integers(0, 2**32, (4 * F, W), dtype=np.uint32).view(np.int32),
+                           device=device)
+    cap = 8 * F
+    store = (torch.zeros(cap + 1, W, dtype=torch.int32, device=device),
+             torch.zeros(cap + 1, dtype=torch.bool, device=device),
+             torch.zeros(cap + 1, 3, device=device), torch.zeros((), dtype=torch.int32, device=device),
+             torch.zeros((), dtype=torch.int32, device=device))
+    fn = system._dedup_step(cap, 40)
+    x = {"desc": pool[:F], "valid": torch.ones(F, dtype=torch.bool, device=device),
+         "world": torch.zeros(F, 3, device=device)}
+    store, _ = fn(store, x)
+    x["desc"] = pool[F // 2:F // 2 + F]
+    _sync_free("dedup keyframe step", lambda: fn(store, x))
+    db = pool[torch.randint(0, 4 * F, (64, F), device=device)]
+    x = {"qd": pool[:F], "qv": torch.ones(F, dtype=torch.bool, device=device), "db": db,
+         "dbv": torch.ones(64, F, dtype=torch.bool, device=device),
+         "n_old": torch.full((), 40, dtype=torch.int64, device=device)}
+    fn = system._kf_match_step(cfg2.frontend.match_ratio)
+    fn((), x)
+    _sync_free("closure match (store of 64)", lambda: fn((), x))
 
 
 def main():

@@ -15,13 +15,22 @@ Schur: (B - E C^-1 E^T) dc = -v + E C^-1 w, then dp = -C^-1 (w + E^T dc).
 - Jacobians are closed forms (`linearize`): camera.jac_project chained with
   the SE(3) right perturbation, held to the forward-mode twin
   `linearize_ad` in the tests.
-- Levenberg-Marquardt runs as a Python loop whose accept test and damping
-  stay tensors on the device: no iteration reads a value back to the host.
-  The solver runs under `torch.no_grad()`; nothing differentiates through it.
+- One Levenberg-Marquardt iteration is a function of the problem buffers
+  and the state (poses, points, damping), the body of the reference's
+  `lax.scan`: its accept test and damping stay tensors on the device, and
+  no iteration reads a value back to the host or copies one from it. The
+  solver runs under `torch.no_grad()`; nothing differentiates through it.
+- On CUDA tensors `optimize_ba` runs the iteration as a CUDA graph
+  (`CapturedBA`: the reference's jitted program), one graph per shape key,
+  captured at the second iteration of the key's first solve and replayed
+  from then on; `capture=False` is the eager twin, the same iteration
+  function called from a Python loop. Direct callers share one `CapturedBA`
+  per device (`captured_solver`), kept for the life of the process with a
+  graph pool of its own; `SLAMSystem` keeps its own on the system's pool.
 
 Three layouts, as in the reference: the bucketed point-major one
-(`_optimize_buckets`, what `optimize_ba` runs on a `BAProblem`), the padded
-point-major one (`_optimize_packed`) and the observation-major oracle
+(`_bucket_iteration`, what `optimize_ba` runs on a `BAProblem`), the padded
+point-major one (`_packed_step`) and the observation-major oracle
 (`optimize_ba_obsmajor`). In the bucketed solver the camera-side gathers are
 `index_select` (exact). Every segment sum, in all three layouts, is a
 product with a 0/1 matrix [n, N] (built once per solve in the bucketed
@@ -42,6 +51,7 @@ from parakeet_slam_tpu_torch.backend import graph as graph_mod
 from parakeet_slam_tpu_torch.backend import posegraph
 from parakeet_slam_tpu_torch.backend.graph import BAProblem
 from parakeet_slam_tpu_torch.core import geometry
+from parakeet_slam_tpu_torch.filter import captured
 from parakeet_slam_tpu_torch.kernels import schur
 
 
@@ -158,7 +168,11 @@ def _build_blocks(prob, r, Jc, Jp, w, lam):
 
 
 def _as_scalar(x, like):
-    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    """x as a 0-d tensor of like's dtype on its device (a tensor as it is,
+    a number by a fill: no copy from the host)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=like.dtype, device=like.device)
+    return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
 def _schur_matvec(x, prob, B, C, Jc, Jp, w):
@@ -291,6 +305,7 @@ def optimize_ba(
     solver: str = "pcg",
     step_clamp: tuple = (10.0, 50.0),
     pose_edges=None,
+    capture=None,
 ) -> BAResult:
     """Levenberg-damped Gauss-Newton with Schur elimination of the landmark
     blocks.
@@ -299,27 +314,28 @@ def optimize_ba(
     with `graph.pack_buckets` and pass the `BAProblemBuckets` when the same
     problem is solved repeatedly), a `BAProblemBuckets`, or a
     `BAProblemPacked`. The result's problem has the input's type, with the
-    updated poses and points."""
+    updated poses and points. `pose_edges` fuses relative-pose edges into a
+    bucketed solve (the padded layout ignores them, as the reference's does).
+
+    `capture` picks the program: None captures on CUDA tensors and runs
+    eagerly on CPU ones; True runs the LM iteration through
+    `captured_solver(device)` (a CUDA graph on the card, its buffer rules
+    eagerly on the CPU); False is the eager twin; a `CapturedBA` solves
+    through that one."""
     out_prob = None
     if isinstance(prob, BAProblem):
         packed = graph_mod.pack_buckets(prob)
         out_prob = prob
     else:
         packed = prob
-    if isinstance(packed, graph_mod.BAProblemBuckets):
-        packed_out, costs, pcg_res = _optimize_buckets(
-            camera, packed, iters=iters, lam=lam, pcg_iters=pcg_iters, pcg_tol=pcg_tol,
-            huber_delta=huber_delta, solver=solver, step_clamp=step_clamp,
-            pose_edges=pose_edges,
-        )
-    else:
-        packed_out, costs, pcg_res = _optimize_packed(
-            camera, packed, iters=iters, lam=lam, pcg_iters=pcg_iters, pcg_tol=pcg_tol,
-            huber_delta=huber_delta, solver=solver,
-        )
-    problem = packed_out
-    if out_prob is not None:
-        problem = out_prob.replace(cam_pose=packed_out.cam_pose, points=packed_out.points)
+    layout = "buckets" if isinstance(packed, graph_mod.BAProblemBuckets) else "packed"
+    solver_ = _solver(capture, packed.cam_pose.device)
+    run = _solve_eager if solver_ is None else solver_.solve
+    cam_pose, points, costs, pcg_res = run(
+        camera, packed, layout, iters, lam, pose_edges, huber_delta=huber_delta, solver=solver,
+        pcg_iters=pcg_iters, pcg_tol=pcg_tol, step_clamp=step_clamp)
+    problem = (out_prob if out_prob is not None else packed).replace(cam_pose=cam_pose,
+                                                                      points=points)
     return BAResult(problem=problem, costs=costs, pcg_residuals=pcg_res)
 
 
@@ -351,69 +367,75 @@ def _cost_buckets(camera, bk, cam_pose, points, huber_delta, flat_cam, pt_idx):
     return total
 
 
-@torch.no_grad()
-def _optimize_buckets(
-    camera,
-    bk,
-    iters: int = 10,
-    lam: float = 1e-4,
-    pcg_iters: int = 50,
-    pcg_tol: float = 1e-6,
-    huber_delta: float = 2.0,
-    solver: str = "pcg",
-    step_clamp: tuple = (10.0, 50.0),
-    pose_edges=None,
-):
+def _bucket_constants(bk, pose_edges=None) -> dict:
+    """The constants of a bucketed solve, built once per solve outside the
+    iteration: the gather indices and the segment-sum selectors depend on
+    the observation graph alone; the identities and the damping of locked
+    cameras are made here so that the iteration copies nothing from the
+    host. With pose edges (edge_ij [E, 2], edge_rel [E, 7], edge_info
+    [E, 6], edge_valid [E]): the edges' endpoints, their selectors and the
+    information folded with validity."""
     dev = bk.cam_pose.device
     C_ = bk.num_cams
-    # The gather indices and the segment-sum selectors depend on the
-    # observation graph alone: built once per solve.
-    flat_cam = [p_cam.reshape(-1).long() for p_cam in bk.p_cam]
-    selectors = [_selector(fc, C_) for fc in flat_cam]
-    pt_idx = [p.long() for p in bk.pt_idx]
-    eye6 = torch.eye(6, device=dev)
-    eye3 = torch.eye(3, device=dev)
-    big = torch.tensor(1e12, device=dev)
-    cam_locked = bk.cam_fixed | ~bk.cam_valid
-
-    # Pose-graph fusion (graph-constrained BA): relative-pose edges of the
-    # keyframe graph (odometry chain + verified loop closures) enter the
-    # same normal equations as the reprojection terms: camera-camera 6x6
-    # blocks on B's diagonal plus off-diagonal couplings applied inside the
-    # reduced-system matvec. Pure-reprojection BA fits per-keyframe landmark
-    # measurements that embed the filter's drifted relative geometry, and
-    # descends its cost while undoing the loop-closure corrections; the
-    # fused problem keeps the graph's global anchoring.
+    flat_cam = tuple(p_cam.reshape(-1).long() for p_cam in bk.p_cam)
+    const = {"flat_cam": flat_cam,
+             "selectors": tuple(_selector(fc, C_) for fc in flat_cam),
+             "pt_idx": tuple(p.long() for p in bk.pt_idx),
+             "cam_locked": bk.cam_fixed | ~bk.cam_valid,
+             "eye6": torch.eye(6, device=dev), "eye3": torch.eye(3, device=dev),
+             "big": torch.full((), 1e12, device=dev)}
     if pose_edges is not None:
         pe_ij, pe_rel, pe_info, pe_valid = pose_edges
         ii, jj = pe_ij[:, 0].long(), pe_ij[:, 1].long()
-        sel_i, sel_j = _selector(ii, C_), _selector(jj, C_)
-        we = pe_info * pe_valid[:, None]                    # [E, 6]
-        zero12 = torch.zeros(12, device=dev)
+        const.update(ii=ii, jj=jj, sel_i=_selector(ii, C_), sel_j=_selector(jj, C_),
+                     we=pe_info * pe_valid[:, None], pe_rel=pe_rel,
+                     zero12=torch.zeros(12, device=dev))
+    return const
 
-        def pe_linearize(poses):
-            pi, pj = poses[ii], poses[jj]
-            r = posegraph.edge_residual(pi, pj, pe_rel)
-            J = torch.func.jacfwd(posegraph._edge_residual_perturbed)(zero12, pi, pj, pe_rel)
-            return r, J[..., :6], J[..., 6:]
 
-        def pe_cost(poses):
-            r = posegraph.edge_residual(poses[ii], poses[jj], pe_rel)
-            return 0.5 * torch.sum(we * r * r)
-    else:
-        def pe_cost(poses):
-            return 0.0
+def _bucket_iteration(camera, huber_delta: float, solver: str, pcg_iters: int, pcg_tol: float,
+                      step_clamp: tuple):
+    """One LM iteration of the bucketed solver, the body of the reference's
+    `lax.scan`: fn(state, x) -> (new state, (cost, pcg residual)) with
+    state = (cam_pose [C, 7], points [Lm, 3], lam 0-d) and x = {"prob": the
+    `BAProblemBuckets`, "const": `_bucket_constants`}. The cost is the
+    achieved one: a rejected candidate's cost, which may be non-finite, is
+    not the state the solver returns."""
 
-    def total_cost(cam_pose, points):
-        return (_cost_buckets(camera, bk, cam_pose, points, huber_delta, flat_cam, pt_idx)
-                + pe_cost(cam_pose))
+    def iteration(state, x):
+        cam_pose, points, lam_t = state
+        bk, k = x["prob"], x["const"]
+        C_ = bk.num_cams
+        flat_cam, selectors, pt_idx = k["flat_cam"], k["selectors"], k["pt_idx"]
+        eye3, big = k["eye3"], k["big"]
+        edges = "we" in k
 
-    def step(cam_pose, points, lam_t):
-        B = torch.where(cam_locked, big, lam_t)[:, None, None] * eye6
-        v = torch.zeros(C_, 6, device=dev)
+        # Pose-graph fusion (graph-constrained BA): relative-pose edges of the
+        # keyframe graph (odometry chain + verified loop closures) enter the
+        # same normal equations as the reprojection terms: camera-camera 6x6
+        # blocks on B's diagonal plus off-diagonal couplings applied inside
+        # the reduced-system matvec. Pure-reprojection BA fits per-keyframe
+        # landmark measurements that embed the filter's drifted relative
+        # geometry, and descends its cost while undoing the loop-closure
+        # corrections; the fused problem keeps the graph's global anchoring.
+        def total_cost(cam_pose, points):
+            pe_cost = 0.0
+            if edges:
+                r = posegraph.edge_residual(cam_pose[k["ii"]], cam_pose[k["jj"]], k["pe_rel"])
+                pe_cost = 0.5 * torch.sum(k["we"] * r * r)
+            return (_cost_buckets(camera, bk, cam_pose, points, huber_delta, flat_cam, pt_idx)
+                    + pe_cost)
+
+        B = torch.where(k["cam_locked"], big, lam_t)[:, None, None] * k["eye6"]
+        v = torch.zeros(C_, 6, device=cam_pose.device)
         Hij = None
-        if pose_edges is not None:
-            r_e, Ji, Jj = pe_linearize(cam_pose)
+        if edges:
+            ii, jj, sel_i, sel_j, we = k["ii"], k["jj"], k["sel_i"], k["sel_j"], k["we"]
+            pi, pj = cam_pose[ii], cam_pose[jj]
+            r_e = posegraph.edge_residual(pi, pj, k["pe_rel"])
+            J = torch.func.jacfwd(posegraph._edge_residual_perturbed)(k["zero12"], pi, pj,
+                                                                        k["pe_rel"])
+            Ji, Jj = J[..., :6], J[..., 6:]
             JiW = Ji * we[:, :, None]
             JjW = Jj * we[:, :, None]
             B = B + (sel_i @ torch.einsum("eki,ekj->eij", Ji, JiW).reshape(-1, 36)
@@ -473,7 +495,9 @@ def _optimize_buckets(
             clamp_c / (torch.linalg.vector_norm(dc, dim=1, keepdim=True) + 1e-12), max=1.0)
 
         # back-substitute: dp = -C^-1 (w_g + E^T dc). Every point sits in one
-        # row of one bucket; padding rows (point 0, masked) add zeros.
+        # row of one bucket and padding rows (point 0, masked) add +0.0 to a
+        # sum that starts at +0.0, so the atomic index_add_ on the card gives
+        # the same bits in any order.
         dp_full = torch.zeros_like(points)
         for fc, _, pi, row_valid, shape, Jc, Jp, w, Cb, wg in per_bucket:
             Etdc = _forward_project(Jc, Jp, w, _gather(dc, fc, shape))
@@ -489,57 +513,36 @@ def _optimize_buckets(
         old_cost = total_cost(cam_pose, points)
         new_cost = total_cost(new_cam, new_points)
         accept = torch.isfinite(new_cost) & (new_cost < old_cost)
-        # the achieved cost is reported: a rejected candidate's cost, which
-        # may be non-finite, is not the state the solver returns
-        return (torch.where(accept, new_cam, cam_pose), torch.where(accept, new_points, points),
-                torch.where(accept, lam_t * 0.5, lam_t * 4.0),
-                torch.where(accept, new_cost, old_cost), pcg_res)
+        return ((torch.where(accept, new_cam, cam_pose), torch.where(accept, new_points, points),
+                 torch.where(accept, lam_t * 0.5, lam_t * 4.0)),
+                (torch.where(accept, new_cost, old_cost), pcg_res))
 
-    cam_pose, points = bk.cam_pose, bk.points
-    lam_t = torch.tensor(float(lam), device=dev)
-    costs, residuals = [], []
-    for _ in range(iters):
-        cam_pose, points, lam_t, cost, pcg_res = step(cam_pose, points, lam_t)
-        costs.append(cost)
-        residuals.append(pcg_res)
-    return (bk.replace(cam_pose=cam_pose, points=points), torch.stack(costs),
-            torch.stack(residuals))
+    return iteration
 
 
-def _lm_loop(prob, step, iters, lam):
-    """The LM loop of the padded and the observation-major path: `step`
-    returns (dc, dp, old cost, cost function of a candidate, pcg residual);
-    the candidate's cost is what is reported."""
-    cam_pose, points = prob.cam_pose, prob.points
-    lam_t = torch.tensor(float(lam), device=cam_pose.device)
-    costs, residuals = [], []
-    for _ in range(iters):
+def _lm_iteration(step):
+    """One LM iteration of the padded and the observation-major path, from
+    `step(p, lam) -> (dc, dp, cost function of a problem, pcg residual)`:
+    fn(state, x) -> (new state, (cost, pcg residual)) with state as in
+    `_bucket_iteration` and x = {"prob": the problem}. The candidate's cost
+    is what is reported."""
+
+    def iteration(state, x):
+        cam_pose, points, lam_t = state
+        prob = x["prob"]
         p = prob.replace(cam_pose=cam_pose, points=points)
         dc, dp, cost_of, pcg_res = step(p, lam_t)
         new_cam = _retract(cam_pose, dc, prob.cam_fixed)
         new_points = points + dp * prob.pt_valid[:, None]
         new_cost = cost_of(p.replace(cam_pose=new_cam, points=new_points))
         accept = new_cost < cost_of(p)
-        cam_pose = torch.where(accept, new_cam, cam_pose)
-        points = torch.where(accept, new_points, points)
-        lam_t = torch.where(accept, lam_t * 0.5, lam_t * 4.0)
-        costs.append(new_cost)
-        residuals.append(pcg_res)
-    return (prob.replace(cam_pose=cam_pose, points=points), torch.stack(costs),
-            torch.stack(residuals))
+        return ((torch.where(accept, new_cam, cam_pose), torch.where(accept, new_points, points),
+                 torch.where(accept, lam_t * 0.5, lam_t * 4.0)), (new_cost, pcg_res))
+
+    return iteration
 
 
-@torch.no_grad()
-def _optimize_packed(
-    camera,
-    packed,
-    iters: int = 10,
-    lam: float = 1e-4,
-    pcg_iters: int = 50,
-    pcg_tol: float = 1e-6,
-    huber_delta: float = 2.0,
-    solver: str = "pcg",
-):
+def _packed_step(camera, huber_delta, solver, pcg_iters, pcg_tol):
     def step(p, lam_t):
         r, Jc, Jp, w = linearize_packed(camera, p, huber_delta)
         B, C, v, wg = _build_blocks_packed(p, r, Jc, Jp, w, lam_t)
@@ -553,23 +556,10 @@ def _optimize_packed(
         dp = -schur.cinv_apply(C, wg + _forward_project(Jc, Jp, w, dc[p_cam]))
         return dc, dp, lambda q: ba_cost_packed(camera, q, huber_delta), pcg_res
 
-    return _lm_loop(packed, step, iters, lam)
+    return step
 
 
-@torch.no_grad()
-def optimize_ba_obsmajor(
-    camera,
-    prob: BAProblem,
-    iters: int = 10,
-    lam: float = 1e-4,
-    pcg_iters: int = 50,
-    pcg_tol: float = 1e-6,
-    huber_delta: float = 2.0,
-    solver: str = "pcg",
-) -> BAResult:
-    """Observation-major optimizer on a raw BAProblem: the semantics oracle
-    of the tests (its per-point and per-camera sums are `_segment_sum`
-    selector products, [points, observations] dense: an oracle's sizes)."""
+def _obsmajor_step(camera, huber_delta, solver, pcg_iters, pcg_tol):
     def step(p, lam_t):
         oc, op = p.obs_cam.long(), p.obs_pt.long()
         r, Jc, Jp, w = linearize(camera, p, huber_delta)
@@ -585,7 +575,136 @@ def optimize_ba_obsmajor(
         dp = -schur.cinv_apply(C, wg + Etdc)
         return dc, dp, lambda q: ba_cost(camera, q, huber_delta), pcg_res
 
-    return BAResult(*_lm_loop(prob, step, iters, lam))
+    return step
+
+
+def _program(camera, prob, layout, pose_edges, *, huber_delta, solver, pcg_iters, pcg_tol,
+             step_clamp=(10.0, 50.0)):
+    """(iteration function, its inputs x) of one solve of `prob` in
+    `layout` ("buckets", "packed" or "obsmajor")."""
+    kw = dict(huber_delta=huber_delta, solver=solver, pcg_iters=pcg_iters, pcg_tol=pcg_tol)
+    if layout == "buckets":
+        return (_bucket_iteration(camera, step_clamp=step_clamp, **kw),
+                {"prob": prob, "const": _bucket_constants(prob, pose_edges)})
+    make = _packed_step if layout == "packed" else _obsmajor_step
+    return _lm_iteration(make(camera, **kw)), {"prob": prob}
+
+
+def _lam(lam, like):
+    """The initial damping as a 0-d tensor on the problem's device, made by
+    a fill (no copy from the host)."""
+    return torch.full((), float(lam), dtype=like.dtype, device=like.device)
+
+
+@torch.no_grad()
+def _solve_eager(camera, prob, layout, iters, lam, pose_edges=None, **kw):
+    """The eager LM loop (the twin of `CapturedBA`): (poses, points, costs
+    [iters], pcg residuals [iters])."""
+    fn, x = _program(camera, prob, layout, pose_edges, **kw)
+    state = (prob.cam_pose, prob.points, _lam(lam, prob.points))
+    costs, residuals = [], []
+    for _ in range(iters):
+        state, (cost, pcg_res) = fn(state, x)
+        costs.append(cost)
+        residuals.append(pcg_res)
+    return state[0], state[1], torch.stack(costs), torch.stack(residuals)
+
+
+def _leaf_key(tree) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in captured.leaves(tree))
+
+
+class CapturedBA:
+    """`optimize_ba` (and `optimize_ba_obsmajor`) with the LM iteration as
+    one `captured.CapturedStep` per shape key: on the card a CUDA graph of
+    the reference's `lax.scan` body (`_bucket_iteration`, `_lm_iteration`),
+    run eagerly as the warm-up at the first iteration of a key's first
+    solve, captured at its second and replayed from then on; `graph=False`
+    runs the same buffer rules eagerly. The key holds the layout, the
+    camera, the shapes of every problem buffer and constant (the bucket
+    tables, C, P and E, the number of pose edges, or none), the solver,
+    `pcg_iters`, `pcg_tol`, `huber_delta` and `step_clamp`; the initial
+    damping is written into the state at each solve. A solve writes the
+    problem and its constants into the step's static inputs, calls the step
+    `iters` times, copies each iteration's cost and PCG residual out and
+    returns the caller's own copies of the final poses and points. The
+    steps draw on `pool` (a shared graph pool) when given."""
+
+    def __init__(self, *, graph: bool, pool=None):
+        self.graph, self.pool = graph, pool
+        self.steps: dict[tuple, captured.CapturedStep] = {}
+
+    @torch.no_grad()
+    def solve(self, camera, prob, layout, iters, lam, pose_edges=None, *, huber_delta, solver,
+              pcg_iters, pcg_tol, step_clamp=(10.0, 50.0)):
+        """(poses, points, costs [iters], pcg residuals [iters]) of `prob`
+        in `layout`, as `_solve_eager` returns them."""
+        kw = dict(huber_delta=float(huber_delta), solver=solver, pcg_iters=int(pcg_iters),
+                  pcg_tol=float(pcg_tol), step_clamp=tuple(float(c) for c in step_clamp))
+        fn, x = _program(camera, prob, layout, pose_edges, **kw)
+        key = (layout, camera, _leaf_key(x), tuple(sorted(kw.items())))
+        step = self.steps.get(key)
+        if step is None:
+            state = (prob.cam_pose.clone(), prob.points.clone(), _lam(lam, prob.points))
+            step = self.steps[key] = captured.CapturedStep(fn, state, captured.clone(x),
+                                                           graph=self.graph, pool=self.pool)
+        captured.copy_into(step.inputs, x)
+        captured.copy_into(step.state, (prob.cam_pose, prob.points, _lam(lam, prob.points)))
+        costs, residuals = [], []
+        for _ in range(iters):
+            step()
+            cost, pcg_res = step.take()
+            costs.append(cost)
+            residuals.append(pcg_res)
+        return (step.state[0].clone(), step.state[1].clone(), torch.stack(costs),
+                torch.stack(residuals))
+
+
+# CapturedBA of direct `optimize_ba` callers, one per device, each with a
+# graph pool of its own (`SLAMSystem` keeps its own on the system's pool)
+_SOLVERS: dict = {}
+
+
+def captured_solver(device) -> CapturedBA:
+    """The CapturedBA that `optimize_ba(capture=True)` uses on `device`."""
+    device = torch.device(device)
+    if device not in _SOLVERS:
+        graph = device.type == "cuda"
+        _SOLVERS[device] = CapturedBA(graph=graph,
+                                      pool=torch.cuda.graph_pool_handle() if graph else None)
+    return _SOLVERS[device]
+
+
+def _solver(capture, device):
+    """None for the eager twin, else the CapturedBA to solve with."""
+    if capture is None:
+        capture = device.type == "cuda"
+    if isinstance(capture, CapturedBA):
+        return capture
+    return captured_solver(device) if capture else None
+
+
+@torch.no_grad()
+def optimize_ba_obsmajor(
+    camera,
+    prob: BAProblem,
+    iters: int = 10,
+    lam: float = 1e-4,
+    pcg_iters: int = 50,
+    pcg_tol: float = 1e-6,
+    huber_delta: float = 2.0,
+    solver: str = "pcg",
+    capture=None,
+) -> BAResult:
+    """Observation-major optimizer on a raw BAProblem: the semantics oracle
+    of the tests (its per-point and per-camera sums are `_segment_sum`
+    selector products, [points, observations] dense: an oracle's sizes).
+    `capture` as in `optimize_ba`."""
+    kw = dict(huber_delta=huber_delta, solver=solver, pcg_iters=pcg_iters, pcg_tol=pcg_tol)
+    solver_ = _solver(capture, prob.cam_pose.device)
+    run = _solve_eager if solver_ is None else solver_.solve
+    cam_pose, points, costs, res = run(camera, prob, "obsmajor", iters, lam, **kw)
+    return BAResult(prob.replace(cam_pose=cam_pose, points=points), costs, res)
 
 
 def window_problem(prob: BAProblem, window: int) -> BAProblem:

@@ -209,18 +209,22 @@ def bench_schur(device, N=262144, reps=10):
 def bench_ba(device, C=64, Pts=50000, obs_per_cam=2000, iters=4, pcg_iters=25, reps=3):
     """Whole Schur/PCG bundle-adjustment iterations at EuRoC-config scale: C
     cameras, Pts landmarks, C * obs_per_cam residuals. The problem is packed
-    once outside the timed call; ms is per LM iteration, bytes and
-    operations by the reference's accounting."""
+    once outside the timed call; ms is per LM iteration of the captured
+    solve (the reference's jitted program: on the card one CUDA graph an
+    iteration, captured in the warm-up call), `ms_eager` the same of the
+    eager twin; bytes and operations by the reference's accounting."""
     from parakeet_slam_tpu_torch.backend import ba, graph
     from parakeet_slam_tpu_torch.frontend.camera import Pinhole
 
     prob = graph.make_ba_problem(**ba_bench_problem(C, Pts, obs_per_cam), device=device)
     bk = graph.pack_buckets(prob)
     cam = Pinhole(*BA_BENCH_CAMERA)
-    ms = time_call(lambda: ba.optimize_ba(cam, bk, iters=iters, pcg_iters=pcg_iters,
-                                          huber_delta=50.0), device, reps)
+    ms = {mode: time_call(lambda: ba.optimize_ba(cam, bk, iters=iters, pcg_iters=pcg_iters,
+                                                 huber_delta=50.0, capture=mode), device, reps)
+          for mode in (True, False)}
     O = C * obs_per_cam
-    return (ms / iters, (1 + pcg_iters) * O * (2 + 12 + 6) * 4, O * (500 + pcg_iters * 120))
+    return (ms[True] / iters, (1 + pcg_iters) * O * (2 + 12 + 6) * 4,
+            O * (500 + pcg_iters * 120), {"ms_eager": round(ms[False] / iters, 3)})
 
 
 BENCHES = {
@@ -250,13 +254,15 @@ def run(names, device, shape=None) -> list[dict]:
             kw = dict(zip(_SHAPE_KEYS.get(name, ("P", "L", "Z")), shape))
             if name == "resample":
                 kw.pop("Z", None)
-        ms, bytes_moved, flops = BENCHES[name](device, **kw)
+        # a bench may add fields of its own to its row
+        ms, bytes_moved, flops, *more = BENCHES[name](device, **kw)
         gbs = bytes_moved / ms / 1e6
         row = {
             "kernel": name, "ms": round(ms, 3), "GB/s": round(gbs, 1),
             "sol_bw_frac": round(gbs / peak[0], 3) if peak else None,
             "TFLOP/s": round(flops / ms / 1e9, 2),
             "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+            **(more[0] if more else {}),
         }
         print(json.dumps(row))
         rows.append(row)

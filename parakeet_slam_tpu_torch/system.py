@@ -34,7 +34,15 @@ graph pool:
     reprojection refine (Horn's consensus runs eagerly before it: its
     `linalg.svd` checks its convergence on the host);
   - the pose-graph solve, one graph per view shape
-    (`backend/posegraph.CapturedSolver`).
+    (`backend/posegraph.CapturedSolver`);
+  - the closure match of a keyframe dispatch, one graph per store shape:
+    the store is that step's static input (`_store_buffers`), so a doubling
+    or a rebuild writes into what the graph reads; the query and the count
+    of eligible keyframes are written in before each replay;
+  - offline, the point dedup, one graph per (F, W, cap) replayed once per
+    keyframe (`_dedup_step`, the reference's scan body), and bundle
+    adjustment, one graph of the LM iteration per problem shape
+    (`backend/ba.CapturedBA`).
 `self.state` and the keyframe reference are the frames' static buffers,
 written in place by everything that replaces them (the pose-graph
 correction, `load_checkpoint`), and what a frame keeps past itself is
@@ -127,18 +135,71 @@ def _batched_kf_match(qd, qv, db, dbv, ratio: float):
     return fwd, rev
 
 
-def _assign_point_ids(desc, valid, world, *, cap: int, max_ham: int):
+def _kf_match_step(ratio: float):
+    """One closure dispatch's match as a step function (the program the
+    reference jits): fn(state, x) -> (state, (fwd, rev)) with x = {"qd"
+    [F, W], "qv" [F], "db" [cap, F, W], "dbv" [cap, F], "n_old" 0-d int64}:
+    `_batched_kf_match` of the query against the store's first n_old
+    keyframes, the eligibility mask made on the device from the count."""
+
+    def step(state, x):
+        db = x["db"]
+        eligible = torch.arange(db.shape[0], device=db.device) < x["n_old"]
+        return state, _batched_kf_match(x["qd"], x["qv"], db, x["dbv"] & eligible[:, None],
+                                        ratio)
+
+    return step
+
+
+def _dedup_step(cap: int, max_ham: int):
+    """One keyframe of the point dedup, the body of the reference's
+    `lax.scan`: fn(state, x) -> (new state, pid [F]) with state =
+    (store_desc [cap + 1, W], store_valid [cap + 1], store_pos [cap + 1, 3],
+    count, dropped) and x = {"desc" [F, W], "valid" [F], "world" [F, 3]} of
+    the keyframe. The keyframe's rows match the store built from the
+    keyframes before it (one `hamming_top2` call), and its unmatched valid
+    rows take new slots in row order; the spare row at `cap` takes the
+    writes of the rows a full store drops. The store is written in place."""
+
+    def step(state, x):
+        sd, sv, sp, cnt, drop = state
+        valid = x["valid"]
+        bi, b1, _ = match_mod.hamming_top2(x["desc"], sd[:cap], sv[:cap])
+        matched = valid & (b1 < max_ham)
+        is_new = valid & ~matched
+        slot = cnt + torch.cumsum(is_new.to(torch.int32), dim=0, dtype=torch.int32) - 1
+        ok_new = is_new & (slot < cap)
+        pid = torch.where(matched, bi, torch.where(ok_new, slot, torch.full_like(slot, -1)))
+        widx = torch.where(ok_new, slot, torch.full_like(slot, cap)).long()
+        sd[widx] = x["desc"]
+        # index_fill_: `sv[widx] = True` would copy the True from the host
+        sv.index_fill_(0, widx, True)
+        sp[widx] = x["world"]
+        n_new = torch.sum(is_new.to(torch.int32), dtype=torch.int32)
+        return (sd, sv, sp, torch.clamp(cnt + n_new, max=cap),
+                drop + torch.sum((is_new & ~ok_new).to(torch.int32), dtype=torch.int32)), pid
+
+    return step
+
+
+def _assign_point_ids(desc, valid, world, *, cap: int, max_ham: int, steps: dict | None = None,
+                      pool=None):
     """Deduplicate keyframe landmark snapshots into a global point table.
 
-    Walks the keyframes in order; each step matches the keyframe's F
-    descriptors against the point store built so far (one `hamming_top2`
-    call) and gives unmatched valid rows new store slots in row order.
+    Walks the keyframes in order through `_dedup_step`: each keyframe's F
+    descriptors match against the point store built so far (one
+    `hamming_top2` call), and its unmatched valid rows get new store slots.
 
     desc [K, F, W] int32 words, valid [K, F] bool, world [K, F, 3]
     first-seen world positions, all on one device. Returns ((store_desc
     [cap, W], store_valid [cap], store_pos [cap, 3], count, dropped), pid
     [K, F] int32): pid is the point id per observation (-1 = invalid row, or
     dropped because the store is full); count and dropped are 0-d tensors.
+
+    With `steps`, a dict, each keyframe runs through the `CapturedStep` of
+    (F, W, cap, max_ham) kept there (on the card a CUDA graph, captured at
+    the second keyframe of its first walk; on the CPU its buffer rules
+    eagerly), drawing on `pool`; without, the loop runs eagerly.
 
     A keyframe's rows match only against the store built from earlier
     keyframes (the store update commits after the whole keyframe's match),
@@ -148,28 +209,35 @@ def _assign_point_ids(desc, valid, world, *, cap: int, max_ham: int):
     establishes identity."""
     K, F, W = desc.shape
     dev = desc.device
-    # one spare row past the capacity takes the writes of full-store rows
-    sd = torch.zeros(cap + 1, W, dtype=torch.int32, device=dev)
-    sv = torch.zeros(cap + 1, dtype=torch.bool, device=dev)
-    sp = torch.zeros(cap + 1, 3, dtype=torch.float32, device=dev)
-    cnt = torch.zeros((), dtype=torch.int32, device=dev)
-    drop = torch.zeros((), dtype=torch.int32, device=dev)
     world = world.to(torch.float32)
+    fn = _dedup_step(cap, max_ham)
+    # one spare row past the capacity takes the writes of full-store rows
+    store = (torch.zeros(cap + 1, W, dtype=torch.int32, device=dev),
+             torch.zeros(cap + 1, dtype=torch.bool, device=dev),
+             torch.zeros(cap + 1, 3, dtype=torch.float32, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.zeros((), dtype=torch.int32, device=dev))
     pids = []
-    for k in range(K):
-        bi, b1, _ = match_mod.hamming_top2(desc[k], sd[:cap], sv[:cap])
-        matched = valid[k] & (b1 < max_ham)
-        is_new = valid[k] & ~matched
-        slot = cnt + torch.cumsum(is_new.to(torch.int32), dim=0, dtype=torch.int32) - 1
-        ok_new = is_new & (slot < cap)
-        pids.append(torch.where(matched, bi, torch.where(ok_new, slot, torch.full_like(slot, -1))))
-        widx = torch.where(ok_new, slot, torch.full_like(slot, cap)).long()
-        sd[widx] = desc[k]
-        sv[widx] = True
-        sp[widx] = world[k]
-        n_new = torch.sum(is_new.to(torch.int32), dtype=torch.int32)
-        cnt = torch.clamp(cnt + n_new, max=cap)
-        drop = drop + torch.sum((is_new & ~ok_new).to(torch.int32), dtype=torch.int32)
+    if steps is None:
+        for k in range(K):
+            store, pid = fn(store, {"desc": desc[k], "valid": valid[k], "world": world[k]})
+            pids.append(pid)
+    else:
+        key = (F, W, cap, max_ham)
+        if key not in steps:
+            steps[key] = captured.CapturedStep(
+                fn, store, {"desc": torch.zeros(F, W, dtype=torch.int32, device=dev),
+                            "valid": torch.zeros(F, dtype=torch.bool, device=dev),
+                            "world": torch.zeros(F, 3, device=dev)},
+                graph=dev.type == "cuda", pool=pool)
+        cs = steps[key]
+        captured.copy_into(cs.state, store)
+        for k in range(K):
+            captured.copy_into(cs.inputs, {"desc": desc[k], "valid": valid[k], "world": world[k]})
+            cs()
+            pids.append(cs.take())
+        store = captured.clone(cs.state)
+    sd, sv, sp, cnt, drop = store
     return (sd[:cap], sv[:cap], sp[:cap], cnt, drop), torch.stack(pids)
 
 
@@ -254,10 +322,16 @@ class SLAMSystem:
                         if capture is None else bool(capture))
         # The CapturedSteps, built at first use: the frames by entry ("obs",
         # or "mono" / "stereo" with the image and odometry shapes), closure
-        # verification by batch shape; the pose-graph solver; their pool.
+        # verification by batch shape; the pose-graph solver; their pool;
         self._frame_steps: dict = {}
         self._verify_steps: dict = {}
         self._pg_solver = None
+        # the offline refinement's: the closure match by store shape (whose
+        # static inputs hold the keyframe store), the dedup scan step by
+        # (F, W, cap, max_ham), the bundle adjustment (`ba.CapturedBA`)
+        self._match_steps: dict = {}
+        self._dedup_steps: dict = {}
+        self._ba_solver = None
         self._pool = None
         # an image step's u0 input: a drawn uniform (divided in the graph) or
         # an injected offset, by step key (what the device flag holds)
@@ -432,15 +506,35 @@ class SLAMSystem:
                                             info=[it, it, it, ir, ir, ir])
         return kf
 
+    def _store_buffers(self, cap: int, F: int, W: int):
+        """Zeroed keyframe-store tensors ([cap, F, W] descriptors, [cap, F]
+        validity). Captured, they are the static inputs of that store
+        shape's match step, so that its graph reads the store the system
+        writes, after a doubling or a rebuild as before it."""
+        if not self.capture:
+            return (torch.zeros(cap, F, W, dtype=torch.int32, device=self.device),
+                    torch.zeros(cap, F, dtype=torch.bool, device=self.device))
+        cs = self._match_steps.get((cap, F, W))
+        if cs is None:
+            z = lambda *shape, dtype: torch.zeros(shape, dtype=dtype, device=self.device)  # noqa: E731
+            cs = self._match_steps[(cap, F, W)] = captured.CapturedStep(
+                _kf_match_step(self.cfg.frontend.match_ratio), (),
+                {"qd": z(F, W, dtype=torch.int32), "qv": z(F, dtype=torch.bool),
+                 "db": z(cap, F, W, dtype=torch.int32), "dbv": z(cap, F, dtype=torch.bool),
+                 "n_old": z(dtype=torch.int64)},
+                graph=self.device.type == "cuda", pool=self._graph_pool())
+        else:
+            cs.inputs["db"].zero_()
+            cs.inputs["dbv"].zero_()
+        return cs.inputs["db"], cs.inputs["dbv"]
+
     def _kf_store_append(self, kf: Keyframe):
         """Write a keyframe's descriptors into the stacked device store,
         doubling its capacity as needed (`_store_capacity`)."""
         F, W = kf.desc.shape
         cap = 0 if self._kf_desc_dev is None else self._kf_desc_dev.shape[0]
         if kf.index + 1 > cap:
-            new_cap = _store_capacity(kf.index + 1)
-            desc = torch.zeros(new_cap, F, W, dtype=torch.int32, device=self.device)
-            val = torch.zeros(new_cap, F, dtype=torch.bool, device=self.device)
+            desc, val = self._store_buffers(_store_capacity(kf.index + 1), F, W)
             if cap:
                 desc[:cap] = self._kf_desc_dev
                 val[:cap] = self._kf_valid_dev
@@ -460,8 +554,9 @@ class SLAMSystem:
         for kf in self.keyframes:
             desc[kf.index] = kf.desc.view(np.int32)
             val[kf.index] = kf.valid
-        self._kf_desc_dev = torch.as_tensor(desc, device=self.device)
-        self._kf_valid_dev = torch.as_tensor(val, device=self.device)
+        self._kf_desc_dev, self._kf_valid_dev = self._store_buffers(cap, F, W)
+        self._kf_desc_dev.copy_(torch.from_numpy(desc))
+        self._kf_valid_dev.copy_(torch.from_numpy(val))
 
     def _try_loop_closure(self, kf: Keyframe, min_matches: int = 12):
         """Dispatch this keyframe's closure match and resolve it at once.
@@ -472,18 +567,24 @@ class SLAMSystem:
     def _dispatch_loop_closure(self, kf: Keyframe):
         """Launch the batched match of this keyframe against every eligible
         older keyframe without reading the result: the [K, F] tables stay
-        on the device until the next flush drains them."""
+        on the device until the next flush drains them. Captured, the query
+        and the count go into the static inputs of the store shape's step
+        and its graph replays; the tables are copied out."""
         gap = self.cfg.backend.loop_min_frame_gap
         n_old = sum(1 for k in self.keyframes[: kf.index] if k.frame <= kf.frame - gap)
         if n_old == 0:
             return
-        eligible = torch.arange(self._kf_desc_dev.shape[0], device=self.device) < n_old
-        fwd, rev = _batched_kf_match(
-            torch.as_tensor(kf.desc.view(np.int32), device=self.device),
-            torch.as_tensor(kf.valid, device=self.device),
-            self._kf_desc_dev, self._kf_valid_dev & eligible[:, None],
-            ratio=self.cfg.frontend.match_ratio,
-        )
+        x = {"qd": torch.as_tensor(kf.desc.view(np.int32), device=self.device),
+             "qv": torch.as_tensor(kf.valid, device=self.device),
+             "db": self._kf_desc_dev, "dbv": self._kf_valid_dev,
+             "n_old": torch.full((), n_old, dtype=torch.int64, device=self.device)}
+        if not self.capture:
+            _, (fwd, rev) = _kf_match_step(self.cfg.frontend.match_ratio)((), x)
+        else:
+            cs = self._match_steps[tuple(self._kf_desc_dev.shape)]
+            captured.copy_into(cs.inputs, x)
+            cs()
+            fwd, rev = cs.take()
         self._closure_pending.append((kf.index, n_old, fwd, rev))
 
     def _resolve_closures(self, min_matches: int = 12) -> bool:
@@ -1229,7 +1330,8 @@ class SLAMSystem:
         cap = int(min(K * F, self.cfg.backend.max_landmarks))
         world = geometry.se3_apply(poses[:, None, :], pts_kf)
         (_, sv, sp, _, n_drop), pid = _assign_point_ids(
-            desc, valid, world, cap=cap, max_ham=dedup_max_hamming)
+            desc, valid, world, cap=cap, max_ham=dedup_max_hamming,
+            steps=self._dedup_steps if self.capture else None, pool=self._graph_pool())
         n_drop = int(n_drop)
         if n_drop:
             # recorded in the metrics stream (not just stderr), so that an
@@ -1292,8 +1394,12 @@ class SLAMSystem:
     def solve_ba(self, prob, iters: int | None = None):
         """One single-device LM solve of `prob` with the backend's settings
         (the pose graph's edges fused when `backend.ba_fuse_pose_graph`);
-        the keyframes are left as they are."""
+        the keyframes are left as they are. Captured, the LM iteration
+        replays the system's `ba.CapturedBA` graph of the problem's shapes."""
         be = self.cfg.backend
+        if self.capture and self._ba_solver is None:
+            self._ba_solver = ba_mod.CapturedBA(graph=self.device.type == "cuda",
+                                                pool=self._graph_pool())
         return ba_mod.optimize_ba(
             self.camera, prob,
             iters=iters or be.gn_iters,
@@ -1304,6 +1410,7 @@ class SLAMSystem:
             step_clamp=(be.ba_step_clamp_cam, be.ba_step_clamp_pt),
             pose_edges=(self.graph_pose_edges(be.ba_pose_edge_weight)
                         if be.ba_fuse_pose_graph else None),
+            capture=self._ba_solver if self.capture else False,
         )
 
     def solve_ba_distributed(self, prob, iters: int | None = None):
