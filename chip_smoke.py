@@ -652,6 +652,77 @@ def check_gather_variants(device):
     return err
 
 
+CONFIG5_STATE = (1024, 8192, 8)  # config 5's P, L and descriptor words
+RING_WINDOWS = 4                 # the ring of config 5 on four cards
+
+
+def check_gather_windows(device):
+    """The source-window launch of the gather (the ring gather's form) at
+    config 5's state (P=1024, L=8192, W=8, 3-D landmarks) cut into 4 blocks
+    of 256 rows: for every rank of a 4-rank ring, its 256 resample indices
+    taken window by window in the ring's order (each launch writes the rows
+    whose source its block holds), bit-equal to the twin's windows and to
+    the global take; then rank 0's 4 windows, kernel against twin, timed in
+    turns beside the bound of the bytes they move."""
+    import torch
+
+    from parakeet_slam_tpu_torch.core.state import ParticleState
+    from parakeet_slam_tpu_torch.kernels import resample, resample_cuda
+
+    P, L, W = CONFIG5_STATE
+    S = RING_WINDOWS
+    Pl = P // S
+    g = torch.Generator(device=device).manual_seed(5)
+    st = ParticleState(
+        pose=torch.randn(P, 7, generator=g, device=device), log_w=torch.zeros(P, device=device),
+        lm_mean=torch.randn(P, L, 3, generator=g, device=device),
+        lm_cov=torch.randn(P, L, 3, 3, generator=g, device=device),
+        lm_sig=torch.zeros(P, L, 0, device=device),
+        lm_desc=torch.randint(-2**31, 2**31, (P, L, W), generator=g, device=device,
+                              dtype=torch.int64).to(torch.int32),
+        lm_valid=torch.rand(P, L, generator=g, device=device) > 0.5,
+        lm_count=torch.randint(0, 9, (P, L), generator=g, device=device, dtype=torch.int32))
+    lw = 3.0 * torch.randn(P, generator=g, device=device)
+    idx = resample.systematic_resample_indices(lw, 0.37 / P)
+    blocks = [st.replace(**{f: getattr(st, f)[s * Pl:(s + 1) * Pl] for f in STATE_KEYS
+                            + ("lm_desc",)}) for s in range(S)]
+
+    def windows(fn, me):
+        out = None
+        for k in range(S):
+            src = (me - k) % S
+            out = fn(blocks[src], idx[me * Pl:(me + 1) * Pl], window=src * Pl, out=out)
+        return out
+
+    for me in range(S):
+        got = windows(resample_cuda.gather_state, me)
+        twin = windows(resample_cuda.gather_state_reference, me)
+        whole = resample_cuda.gather_state_reference(st, idx[me * Pl:(me + 1) * Pl])
+        torch.cuda.synchronize()
+        for k in STATE_KEYS + ("lm_desc",):
+            a = getattr(got, k)
+            check(_bit_equal(a, getattr(twin, k)) and _bit_equal(a, getattr(whole, k)),
+                  f"gather_rows source window rank {me}: {k} differs")
+        del got, twin, whole
+    n_bytes = sum(getattr(st, f).numel() * getattr(st, f).element_size()
+                  for f in STATE_KEYS + ("lm_desc",) if f != "log_w") // P * Pl
+    out_k = windows(resample_cuda.gather_state, 0)
+    out_t = windows(resample_cuda.gather_state_reference, 0)
+    kernel = lambda i=0: windows(lambda *a, **k: resample_cuda.gather_state(  # noqa: E731
+        *a, **{**k, "out": out_k}), 0)
+    twin = lambda i=0: windows(lambda *a, **k: resample_cuda.gather_state_reference(  # noqa: E731
+        *a, **{**k, "out": out_t}), 0)
+    turns = [queued_ms(f, reps=10) for f in (kernel, twin, kernel, twin)]
+    # each of the 256 rows read once from its block and written once
+    bnd = bound(2 * n_bytes + nbytes(idx[:Pl]), 0)
+    print(f"gather_rows source window, config 5's state P={P} L={L} W={W} in {S} blocks of "
+          f"{Pl}: every rank's {S} windows bit-equal to the twin's and to the global take; "
+          f"rank 0's {S} launches ({n_bytes / 1e6:.1f} MB moved) kernel={turns[0]:.4f}; "
+          f"{turns[2]:.4f} ms twin={turns[1]:.4f}; {turns[3]:.4f} ms (device time, in turns); "
+          f"bound={bnd[0]:.4f} ms ({bnd[1]})")
+    return (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2, bnd
+
+
 def phase_kernels(device):
     res = {}
     for shape in (CORRIDOR_SHAPE, REAL_SHAPE):
@@ -661,6 +732,7 @@ def phase_kernels(device):
     for shape, fill, flags in UPDATE_VARIANTS:
         err = max(err, check_update_kernel(shape, device, fill, timed=False, **flags)[0])
     res["gather_variants"] = check_gather_variants(device)
+    res["gather_windows"] = check_gather_windows(device)
     return res, err
 
 
@@ -2218,8 +2290,54 @@ CONFIG5_RING = (131072, 256)  # eval/config5_demo's database rows and queries
 
 def phase_config5(device, card):
     """Benchmark config 5's distributed layer at world size 1 under NCCL:
-    the sharded filter at full width against the one-device step, a resume,
-    the ring match and the distributed BA."""
+    the sharded filter at full width captured (one graph a frame, the
+    collectives inside) against the eager sharded step and the one-device
+    step, a resume, the ring match and the distributed BA captured against
+    eager, and the sharded online system captured against eager. The
+    captured programs hold NCCL's communicators, so they are freed (the
+    body's locals, then a collection) before the group is destroyed."""
+    import gc
+
+    import torch
+    import torch.distributed as tdist
+
+    from parakeet_slam_tpu_torch.dist.multihost import free_local_port
+
+    check(tdist.is_available() and tdist.is_nccl_available(), "torch.distributed has no NCCL")
+    torch.cuda.set_device(device)
+    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_local_port()}",
+                             world_size=1, rank=0, device_id=device)
+    try:
+        return _config5_body(device, card)
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        tdist.destroy_process_group()
+
+
+def _config5_sequence(device, cfg, T):
+    """Config 5's frames (panoramic observations of the world) as sequence
+    tensors, and the world."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch.data.panoramic import make_panoramic_world
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import panoramic_observations
+
+    fc = cfg.filter
+    Z, W = fc.max_observations, fc.desc_words
+    world = make_panoramic_world(num_landmarks=300, num_steps=T,
+                                 image_size=tuple(cfg.frontend.image_size))
+    obs = [panoramic_observations(world, t, Z, W, seed=0) for t in range(T)]
+    T_ = lambda a: torch.as_tensor(np.stack(a), device=device)  # noqa: E731
+    return world, {"odom": T_([world.odom[t] for t in range(T)]),
+                   "obs_z": T_([o[0] for o in obs]),
+                   "obs_sig": torch.zeros(T, Z, 0, device=device),
+                   "obs_valid": T_([o[2] for o in obs]),
+                   "obs_desc": T_([o[1].view(np.int32) for o in obs])}
+
+
+def _config5_body(device, card):
     import shutil
 
     import numpy as np
@@ -2229,246 +2347,321 @@ def phase_config5(device, card):
     from parakeet_slam_tpu_torch.backend import ba
     from parakeet_slam_tpu_torch.core.config import load_config
     from parakeet_slam_tpu_torch.core.state import Observation
-    from parakeet_slam_tpu_torch.data.panoramic import make_panoramic_world
     from parakeet_slam_tpu_torch.dist import dist_ba, mesh as mesh_mod
-    from parakeet_slam_tpu_torch.dist.multihost import (
-        free_local_port, resume_or_init, snapshot_every,
-    )
-    from parakeet_slam_tpu_torch.dist.ring_match import ring_hamming_top2
+    from parakeet_slam_tpu_torch.dist.multihost import resume_or_init, snapshot_every
+    from parakeet_slam_tpu_torch.dist.ring_match import ring_hamming_top2, ring_match
     from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
     from parakeet_slam_tpu_torch.eval import config5_demo
-    from parakeet_slam_tpu_torch.eval.kernel_inputs import descriptors, panoramic_observations
-    from parakeet_slam_tpu_torch.filter import make_filter
-    from parakeet_slam_tpu_torch.filter.runner import draw_noise
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import descriptors
+    from parakeet_slam_tpu_torch.filter import make_filter, run_sequence
+    from parakeet_slam_tpu_torch.filter.runner import METRICS, draw_noise
     from parakeet_slam_tpu_torch.kernels import match, schur
 
-    check(tdist.is_available() and tdist.is_nccl_available(), "torch.distributed has no NCCL")
-    torch.cuda.set_device(device)
-    tdist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_local_port()}",
-                             world_size=1, rank=0, device_id=device)
     out = {}
-    try:
-        check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
-              f"process group {tdist.get_backend()} x {tdist.get_world_size()}")
-        mesh = mesh_mod.make_mesh(map_axis=1)
-        print(f"config 5: process group {tdist.get_backend()}, world size "
-              f"{tdist.get_world_size()}, mesh {mesh.shape}")
+    check(tdist.get_backend() == "nccl" and tdist.get_world_size() == 1,
+          f"process group {tdist.get_backend()} x {tdist.get_world_size()}")
+    mesh = mesh_mod.make_mesh(map_axis=1)
+    print(f"config 5: process group {tdist.get_backend()}, world size "
+          f"{tdist.get_world_size()}, mesh {mesh.shape}")
 
-        # -- the sharded filter at full width --------------------------------
-        cfg = load_config(os.path.join(HERE, "configs/panoramic.yaml"))
-        fc = cfg.filter
-        check((fc.algorithm, fc.measurement_model, fc.num_particles, fc.max_landmarks,
-               fc.max_observations, fc.desc_words) == ("fastslam1", "equirect_3d", 1024, 8192,
-                                                       128, 8),
-              f"configs/panoramic.yaml is not config 5 at full width: {fc}")
-        P, L, Z, W = fc.num_particles, fc.max_landmarks, fc.max_observations, fc.desc_words
-        slam = make_filter(fc, cfg.frontend)
-        sharded = ShardedFastSLAM(slam, mesh)
-        T = CONFIG5_FRAMES
-        world = make_panoramic_world(num_landmarks=300, num_steps=T,
-                                     image_size=tuple(cfg.frontend.image_size))
-        frames = []
-        for t in range(T):
-            z, desc, valid = panoramic_observations(world, t, Z, W, seed=0)
-            frames.append((torch.as_tensor(world.odom[t], device=device), Observation(
-                z=torch.as_tensor(z, device=device), sig=torch.zeros(Z, 0, device=device),
-                desc=torch.as_tensor(desc.view(np.int32), device=device),
-                valid=torch.as_tensor(valid, device=device))))
-        n_valid = [int(o.valid.sum()) for _, o in frames]
-        check(min(n_valid) >= CONFIG5_MIN_OBS, f"config 5 valid observations a frame {n_valid}")
-        gen = torch.Generator(device=device).manual_seed(0)
-        noise, u0 = draw_noise(T, P, slam.noise_dim, gen, device)
-        pose0 = world.gt_pose[0]
+    # -- the sharded filter at full width --------------------------------
+    cfg = load_config(os.path.join(HERE, "configs/panoramic.yaml"))
+    fc = cfg.filter
+    check((fc.algorithm, fc.measurement_model, fc.num_particles, fc.max_landmarks,
+           fc.max_observations, fc.desc_words) == ("fastslam1", "equirect_3d", 1024, 8192,
+                                                   128, 8),
+          f"configs/panoramic.yaml is not config 5 at full width: {fc}")
+    P, L, Z, W = fc.num_particles, fc.max_landmarks, fc.max_observations, fc.desc_words
+    slam = make_filter(fc, cfg.frontend)
+    sharded = ShardedFastSLAM(slam, mesh)
+    T = CONFIG5_FRAMES
+    world, seq = _config5_sequence(device, cfg, T)
+    frames = [(seq["odom"][t], Observation(z=seq["obs_z"][t], sig=seq["obs_sig"][t],
+                                           desc=seq["obs_desc"][t], valid=seq["obs_valid"][t]))
+              for t in range(T)]
+    n_valid = seq["obs_valid"].sum(1).tolist()
+    check(min(n_valid) >= CONFIG5_MIN_OBS, f"config 5 valid observations a frame {n_valid}")
+    gen = torch.Generator(device=device).manual_seed(0)
+    noise, u0 = draw_noise(T, P, slam.noise_dim, gen, device)
+    pose0 = world.gt_pose[0]
+    data = [seq[k] for k in ("odom", "obs_z", "obs_sig", "obs_valid")]
+    kw = dict(motion_noise=noise, resample_u0=u0, obs_desc=seq["obs_desc"])
 
-        def run_sharded(st, t0, t1, keep=None):
-            est, res = [], []
-            for t in range(t0, t1):
-                u, obs = frames[t]
-                st, m = sharded.step(st, u, obs, sharded.local_draws(noise[t]), u0[t])
-                est.append(sharded.estimate_pose(st))
-                res.append(m.resampled)
-                if keep is not None and t + 1 in keep:
-                    keep[t + 1] = sharded.gather_state(st).clone()
-            return st, est, res
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _reset_counts_3d()
-        st = sharded.init_state(init_pose=pose0, device=device)
-        keep = {CONFIG5_CUT: None}
-        st, est, res = run_sharded(st, 0, 1, keep)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st, more, more_res = run_sharded(st, 1, T - CONFIG5_PROFILE_FRAMES, keep)
-        torch.cuda.synchronize()
-        n_timed = T - CONFIG5_PROFILE_FRAMES - 1
-        fps = n_timed / (time.perf_counter() - t0)
-        est, res = est + more, res + more_res
-        box = {}
-
-        def profiled():
-            box["out"] = run_sharded(st, T - CONFIG5_PROFILE_FRAMES, T)
-
-        n_dev, busy, wall, top = _profile(profiled)
-        st, more, more_res = box["out"]
-        est, res = est + more, res + more_res
-        launches = _counts_3d()
-        peak = torch.cuda.max_memory_allocated()
-        n_res = sum(res)
-        state_mb = sum(getattr(st, f).numel() * getattr(st, f).element_size()
-                       for f in STATE_KEYS + ("lm_desc",)) / 1e6
-        print(f"config 5 sharded filter (FastSLAM 1.0 equirect_3d P={P} L={L} Z={Z} W={W}, "
-              f"{state_mb:.1f} MB of state): {T} frames, fps={fps:.3f} (frames 2-"
-              f"{T - CONFIG5_PROFILE_FRAMES}) valid obs {min(n_valid)}-{max(n_valid)} a frame "
-              f"resamples={n_res} peak_mem={peak / 2**30:.3f} GiB launches score_3d={launches[0]} "
-              f"update_3d={launches[1]} gather={launches[2]} "
-              f"landmarks/particle={float(st.num_landmarks().float().mean()):.1f}")
-        print(f"config 5 profile, {CONFIG5_PROFILE_FRAMES} frames: "
-              f"{n_dev / CONFIG5_PROFILE_FRAMES:.0f} launches a frame, device busy "
-              f"{busy / CONFIG5_PROFILE_FRAMES:.2f} of {wall / CONFIG5_PROFILE_FRAMES:.2f} ms a "
-              f"frame, idle share {1 - busy / wall:.3f}; top {top}")
-        check(bool(torch.isfinite(torch.stack(est)).all()), "config 5 estimates not finite")
-        check(launches[1] == T and launches[0] == 0,
-              f"config 5 launches update_3d={launches[1]} score_3d={launches[0]}, frames {T}")
-        check(n_res >= 1 and launches[2] == n_res,
-              f"config 5 gather launches {launches[2]}, resamples {n_res}")
-        out.update(fps=fps, launches=launches, peak_gib=peak / 2**30,
-                   idle=1 - busy / wall, launches_frame=n_dev / CONFIG5_PROFILE_FRAMES)
-
-        # the one-device step on the same draws: every leaf and estimate equal
-        ref = slam.init_state(init_pose=pose0, device=device)
-        ref_est = []
-        for t in range(T):
+    def run_sharded(st, t0, t1, keep=None):
+        """The eager sharded step, frame by frame (run_sequence's eager
+        loop, with the gathered state kept after the frames in `keep`)."""
+        est, ms = [], []
+        for t in range(t0, t1):
             u, obs = frames[t]
-            ref, _ = slam.step(ref, u, obs, noise[t], u0[t])
-            ref_est.append(slam.estimate_pose(ref))
-        full = sharded.gather_state(st)
-        for f in STATE_KEYS + ("lm_desc",):
-            a, b = getattr(full, f), getattr(ref, f)
-            check(torch.equal(a, b), f"config 5 sharded vs one device: {f} differs in "
-                                     f"{int((a != b).sum())}")
-        check(torch.equal(torch.stack(est), torch.stack(ref_est)),
-              "config 5 sharded vs one device: estimates differ")
-        print(f"config 5 sharded vs FastSLAM.step, {T} frames: every state leaf and estimate "
-              f"bit-equal ({int(full.lm_valid.sum())} live lanes)")
-        del ref, full
+            st, m = sharded.step(st, u, obs, sharded.local_draws(noise[t]), u0[t])
+            est.append(sharded.estimate_pose(st))
+            ms.append(m)
+            if keep is not None and t + 1 in keep:
+                keep[t + 1] = sharded.gather_state(st).clone()
+        return st, est, ms
 
-        # the first frames on the twin path
-        st_k, est_k, _ = run_sharded(sharded.init_state(init_pose=pose0, device=device), 0,
+    # the captured run first: it is the main path whose launches are counted
+    st0 = sharded.init_state(init_pose=pose0, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts_3d()
+    t0 = time.perf_counter()
+    cap = run_sequence(sharded, st0, *data, capture=True, **kw)
+    torch.cuda.synchronize()
+    fps_first = T / (time.perf_counter() - t0)
+    launches = _counts_3d()
+    peak = torch.cuda.max_memory_allocated()
+    cs = sharded._sequence_step[1]
+    t0 = time.perf_counter()
+    cap = run_sequence(sharded, st0, *data, capture=True, **kw)  # every frame a replay
+    torch.cuda.synchronize()
+    fps = T / (time.perf_counter() - t0)
+    # the eager sharded step from the same draws
+    keep = {CONFIG5_CUT: None}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, est, ms = run_sharded(st0.clone(), 0, T, keep)
+    torch.cuda.synchronize()
+    fps_eager = T / (time.perf_counter() - t0)
+    n_res = int(sum(bool(m.resampled) for m in ms))
+    state_mb = sum(getattr(st, f).numel() * getattr(st, f).element_size()
+                   for f in STATE_KEYS + ("lm_desc",)) / 1e6
+    print(f"config 5 sharded filter (FastSLAM 1.0 equirect_3d P={P} L={L} Z={Z} W={W}, "
+          f"{state_mb:.1f} MB of state): {T} frames captured, fps={fps:.3f} (every frame a "
+          f"replay; {fps_first:.3f} with the warm-up frame and the capture), eager "
+          f"fps={fps_eager:.3f}; valid obs {min(n_valid)}-{max(n_valid)} a frame "
+          f"resamples={n_res} peak_mem={peak / 2**30:.3f} GiB launches score_3d={launches[0]} "
+          f"update_3d={launches[1]} gather={launches[2]} "
+          f"landmarks/particle={float(st.num_landmarks().float().mean()):.1f}")
+    check(launches[1] == T and launches[0] == 0,
+          f"config 5 launches update_3d={launches[1]} score_3d={launches[0]}, frames {T}")
+    # the resample is decided on the device: the gather runs every frame
+    check(n_res >= 1 and launches[2] == T,
+          f"config 5 gather launches {launches[2]}, frames {T}, resamples {n_res}")
+
+    # captured == eager == the one-device step, every leaf, estimate, metric
+    _same_state("config 5 sharded", cap[0], st)
+    check(_bit_equal(cap[1], torch.stack(est)), "config 5: captured vs eager estimates differ")
+    for k in METRICS:
+        check(_bit_equal(torch.stack([getattr(m, k) for m in cap[2]]),
+                         torch.stack([getattr(m, k) for m in ms])),
+              f"config 5: captured vs eager metric {k} differs")
+    ref = run_sequence(slam, slam.init_state(init_pose=pose0, device=device), *data,
+                       capture=False, **kw)
+    full = sharded.gather_state(st)
+    _same_state("config 5 sharded vs FastSLAM.step", full, ref[0])
+    check(_bit_equal(torch.stack(est), ref[1]), "config 5 sharded vs one device: estimates differ")
+    for k in METRICS:
+        check(_bit_equal(torch.stack([getattr(m, k) for m in ref[2]]),
+                         torch.stack([getattr(m, k) for m in ms])),
+              f"config 5 sharded vs one device: metric {k} differs")
+    print(f"config 5 sharded captured vs eager vs FastSLAM.step, {T} frames: every state leaf, "
+          f"estimate and metric bit-equal ({int(full.lm_valid.sum())} live lanes)")
+    del ref, full
+
+    # profiles: replays of the captured step, and eager frames
+    prof = {}
+    for mode in ("captured", "eager"):
+        names = {}
+        if mode == "captured":
+            cs.inputs["t"].zero_()
+            fn = lambda: [cs() for _ in range(CONFIG5_PROFILE_FRAMES)]  # noqa: E731
+        else:
+            fn = lambda: run_sharded(st0.clone(), 0, CONFIG5_PROFILE_FRAMES)  # noqa: E731
+        n_dev, busy, wall, top = _profile(fn, names=names, host=True)
+        n = CONFIG5_PROFILE_FRAMES
+        api = sum(c for name, c in names.items() if _is_api(name)
+                  and name != "cudaDeviceSynchronize")
+        prof[mode] = {"launches": n_dev / n, "api_calls": api / n,
+                      "graph_launches": names.get("cudaGraphLaunch", 0) / n,
+                      "busy_ms": busy / n, "wall_ms": wall / n, "idle": 1 - busy / wall}
+        r = prof[mode]
+        print(f"config 5 profile {mode}, {n} frames: {r['launches']:.0f} device launches, "
+              f"{r['api_calls']:.0f} host CUDA API calls ({r['graph_launches']:.0f} graph "
+              f"launches) a frame, device busy {r['busy_ms']:.3f} of {r['wall_ms']:.3f} ms a "
+              f"frame, idle share {r['idle']:.3f}; top {top}")
+    check(prof["captured"]["graph_launches"] == 1,
+          f"config 5 captured: {prof['captured']['graph_launches']} graph launches a frame")
+    facts = _graph_facts(cs)
+    print(f"config 5 captured step: capture {facts['capture_s']:.3f} s, instantiate "
+          f"{facts['instantiate_s']:.3f} s, graph pool {facts['pool_bytes'] / 2**20:.1f} MiB, "
+          f"launches counted per replay {facts['per_replay']}")
+    u, obs = frames[1]
+    st_x = st.clone()  # the kernels update log_w in place
+    _sync_free("config 5 sharded step", lambda: (
+        sharded.estimate_pose(sharded.step(st_x, u, obs, sharded.local_draws(noise[1]),
+                                           u0[1])[0]),
+        sharded.best_particle_lanes(st_x)))
+    del st_x
+    out.update(fps=fps, fps_eager=fps_eager, fps_first=fps_first, launches=launches,
+               peak_gib=peak / 2**30, profile=prof, graph=facts, resamples=n_res)
+    del cap
+
+    # the first frames on the twin path (eager: the twins replace the
+    # wrappers, which a captured graph would not see)
+    st_k, est_k, _ = run_sharded(sharded.init_state(init_pose=pose0, device=device), 0,
+                                 CONFIG5_TWIN_FRAMES)
+    restore = _twin_path()
+    try:
+        st_t, est_t, _ = run_sharded(sharded.init_state(init_pose=pose0, device=device), 0,
                                      CONFIG5_TWIN_FRAMES)
-        restore = _twin_path()
-        try:
-            st_t, est_t, _ = run_sharded(sharded.init_state(init_pose=pose0, device=device), 0,
-                                         CONFIG5_TWIN_FRAMES)
-        finally:
-            restore()
-        for k in ("lm_valid", "lm_count"):
-            a, b = getattr(st_k, k), getattr(st_t, k)
-            check(torch.equal(a, b), f"config 5 kernel vs twin path: {k} differs in "
-                                     f"{int((a != b).sum())}")
-        err = float((torch.stack(est_k) - torch.stack(est_t)).abs().max())
-        check(err <= 1e-5, f"config 5 kernel vs twin path: estimates differ by {err}")
-        print(f"config 5 kernel vs twin path, {CONFIG5_TWIN_FRAMES} frames: lm_valid and "
-              f"lm_count equal ({int(st_k.lm_valid.sum())} live lanes), est max |diff| {err:.3g}")
-        del st_k, st_t
+    finally:
+        restore()
+    for k in ("lm_valid", "lm_count"):
+        a, b = getattr(st_k, k), getattr(st_t, k)
+        check(torch.equal(a, b), f"config 5 kernel vs twin path: {k} differs in "
+                                 f"{int((a != b).sum())}")
+    err = float((torch.stack(est_k) - torch.stack(est_t)).abs().max())
+    check(err <= 1e-5, f"config 5 kernel vs twin path: estimates differ by {err}")
+    print(f"config 5 kernel vs twin path, {CONFIG5_TWIN_FRAMES} frames: lm_valid and "
+          f"lm_count equal ({int(st_k.lm_valid.sum())} live lanes), est max |diff| {err:.3g}")
+    del st_k, st_t
 
-        # resume: the gathered state after frame 5 through the snapshot store
-        ckpt_dir = os.path.join(HERE, "build", "chip_smoke_config5")
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-        t_s = time.perf_counter()
-        snapshot_every(ckpt_dir, CONFIG5_CUT)(keep[CONFIG5_CUT], CONFIG5_CUT)
-        t_save = time.perf_counter() - t_s
-        t_s = time.perf_counter()
-        glob, start = resume_or_init(ckpt_dir, sharded.global_template(st),
-                                     lambda: None)
-        back = sharded.shard_state(glob, device=device)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t_s
-        check(start == CONFIG5_CUT, f"config 5 resumed at step {start}")
-        back, est_r, _ = run_sharded(back, CONFIG5_CUT, T)
-        for f in STATE_KEYS + ("lm_desc",):
-            check(torch.equal(getattr(back, f), getattr(st, f)), f"config 5 resume: {f} differs")
-        check(torch.equal(torch.stack(est_r), torch.stack(est[CONFIG5_CUT:])),
-              "config 5 resume: estimates differ")
-        mb = sum(os.path.getsize(os.path.join(ckpt_dir, n)) for n in os.listdir(ckpt_dir)) / 1e6
-        print(f"config 5 resume: snapshot after frame {CONFIG5_CUT} ({mb:.1f} MB, saved in "
-              f"{t_save:.2f} s, loaded and sharded in {t_load:.2f} s), frames "
-              f"{CONFIG5_CUT + 1}-{T} bit-equal in every state leaf and estimate")
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-        del back, st, keep
+    # resume: the gathered state after frame 5 through the snapshot store,
+    # continued by the captured step
+    ckpt_dir = os.path.join(HERE, "build", "chip_smoke_config5")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t_s = time.perf_counter()
+    snapshot_every(ckpt_dir, CONFIG5_CUT)(keep[CONFIG5_CUT], CONFIG5_CUT)
+    t_save = time.perf_counter() - t_s
+    t_s = time.perf_counter()
+    glob, start = resume_or_init(ckpt_dir, sharded.global_template(st), lambda: None)
+    back = sharded.shard_state(glob, device=device)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t_s
+    check(start == CONFIG5_CUT, f"config 5 resumed at step {start}")
+    rest = [d[CONFIG5_CUT:] for d in data]
+    back, est_r, _ = run_sequence(sharded, back, *rest, motion_noise=noise[CONFIG5_CUT:],
+                                  resample_u0=u0[CONFIG5_CUT:],
+                                  obs_desc=seq["obs_desc"][CONFIG5_CUT:], capture=True)
+    _same_state("config 5 resume", back, st)
+    check(_bit_equal(est_r, torch.stack(est[CONFIG5_CUT:])), "config 5 resume: estimates differ")
+    mb = sum(os.path.getsize(os.path.join(ckpt_dir, n)) for n in os.listdir(ckpt_dir)) / 1e6
+    print(f"config 5 resume: snapshot after frame {CONFIG5_CUT} ({mb:.1f} MB, saved in "
+          f"{t_save:.2f} s, loaded and sharded in {t_load:.2f} s), frames "
+          f"{CONFIG5_CUT + 1}-{T} captured bit-equal in every state leaf and estimate")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del back, st, keep, glob, st0
+    sharded._sequence_step = None
 
-        # -- the ring match at the demo's shape ---------------------------------
-        M, N = CONFIG5_RING
-        rng = np.random.default_rng(0)
-        qd = torch.as_tensor(descriptors(rng, (N, 8)), device=device)
-        db = torch.as_tensor(descriptors(rng, (M, 8)), device=device)
-        dbv = torch.as_tensor(rng.random(M) > 0.05, device=device)
-        qv = torch.ones(N, dtype=torch.bool, device=device)
-        match.hamming_top2.launches = 0
-        bi, b1, b2 = ring_hamming_top2(qd, qv, db, dbv, mesh)
-        ring_launches = match.hamming_top2.launches
-        ri, r1, r2 = match.hamming_top2_reference(qd, db, dbv)
-        ties = r1 == r2
-        check(torch.equal(b1, r1) and torch.equal(b2, r2), "config 5 ring match: b1/b2 differ")
-        check(torch.equal(bi[~ties], ri[~ties]), "config 5 ring match: idx differs off ties")
-        ms_ring = cuda_ms(lambda: ring_hamming_top2(qd, qv, db, dbv, mesh), reps=20)
-        ms_alone = cuda_ms(lambda: match.hamming_top2(qd, db, dbv), reps=20)
-        print(f"config 5 ring match M={M} N={N} W=8 over {mesh.size} rank: b1, b2 equal to the "
-              f"twin, idx equal off {int(ties.sum())} ties ({int((bi == ri).sum())} of {N} equal); "
-              f"ring {ms_ring:.4f} ms, hamming_top2 alone on the whole database "
-              f"{ms_alone:.4f} ms (median of 20 calls) | {card}")
-        out.update(ring_launches=ring_launches, ms_ring=ms_ring, ms_ring_alone=ms_alone)
+    # -- the ring match at the demo's shape, captured and eager -----------
+    M, N = CONFIG5_RING
+    rng = np.random.default_rng(0)
+    qd = torch.as_tensor(descriptors(rng, (N, 8)), device=device)
+    db = torch.as_tensor(descriptors(rng, (M, 8)), device=device)
+    dbv = torch.as_tensor(rng.random(M) > 0.05, device=device)
+    qv = torch.ones(N, dtype=torch.bool, device=device)
+    match.hamming_top2.launches = 0
+    got = [ring_hamming_top2(qd, qv, db, dbv, mesh) for _ in range(3)]  # warm-up, capture, replay
+    ring_launches = match.hamming_top2.launches
+    eager = ring_hamming_top2(qd, qv, db, dbv, mesh, capture=False)
+    check(all(_bit_equal(a, b) for g in got for a, b in zip(g, eager)),
+          "config 5 ring match: captured vs eager differ")
+    bi, b1, b2 = got[-1]
+    ri, r1, r2 = match.hamming_top2_reference(qd, db, dbv)
+    ties = r1 == r2
+    check(torch.equal(b1, r1) and torch.equal(b2, r2), "config 5 ring match: b1/b2 differ")
+    check(torch.equal(bi[~ties], ri[~ties]), "config 5 ring match: idx differs off ties")
+    m_cap = [ring_match(qd, qv, db, dbv, mesh) for _ in range(3)]
+    m_eager = ring_match(qd, qv, db, dbv, mesh, capture=False)
+    check(all(_bit_equal(a, b) for g in m_cap for a, b in zip(g, m_eager)),
+          "config 5 ring_match: captured vs eager differ")
+    calls = {"captured": lambda: ring_hamming_top2(qd, qv, db, dbv, mesh),
+             "eager": lambda: ring_hamming_top2(qd, qv, db, dbv, mesh, capture=False),
+             "alone": lambda: match.hamming_top2(qd, db, dbv)}
+    ms_ring = {k: [] for k in calls}
+    for _ in range(2):
+        for k, f in calls.items():
+            ms_ring[k].append(cuda_ms(f, reps=20))
+    ms_ring = {k: sum(v) / len(v) for k, v in ms_ring.items()}
+    print(f"config 5 ring match M={M} N={N} W=8 over {mesh.size} rank: captured equal to eager "
+          f"(top-2 and ratio test, {ring_launches} hamming_top2 launches over 3 captured calls), "
+          f"b1, b2 equal to the twin, idx equal off {int(ties.sum())} ties "
+          f"({int((bi == ri).sum())} of {N} equal); captured {ms_ring['captured']:.4f} ms, "
+          f"eager {ms_ring['eager']:.4f} ms, hamming_top2 alone on the whole database "
+          f"{ms_ring['alone']:.4f} ms (median of 20 calls, two turns) | {card}")
+    out.update(ring_launches=ring_launches, ms_ring=ms_ring["captured"],
+               ms_ring_eager=ms_ring["eager"], ms_ring_alone=ms_ring["alone"])
+    del qd, db, dbv, got, eager, m_cap, m_eager
 
-        # -- the distributed BA at the demo's size ------------------------------
-        cam, prob = config5_demo.make_big_ba(device=device, **CONFIG5_BA)
-        sp = dist_ba.shard_problem(prob, 1)
-        kw = dict(iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG,
-                  huber_delta=config5_demo.BA_HUBER, lam=config5_demo.BA_LAM)
-        dist_ba.optimize_ba_distributed(cam, sp, mesh, **kw)  # warm-up
-        torch.cuda.synchronize()
-        schur.apply_cinv.launches = 0
-        t_s = time.perf_counter()
-        res_p, costs = dist_ba.optimize_ba_distributed(cam, sp, mesh, **kw)
-        torch.cuda.synchronize()
-        ms_it = (time.perf_counter() - t_s) / CONFIG5_BA_ITERS * 1e3
-        cinv_launches = schur.apply_cinv.launches
-        saved = schur.cinv_apply
-        schur.cinv_apply = lambda C, u, eps=1e-12: schur.apply_cinv_reference(C, u, eps)
-        try:
-            _, costs_twin = dist_ba.optimize_ba_distributed(cam, sp, mesh, **kw)
-        finally:
-            schur.cinv_apply = saved
-        c, ct = costs.cpu().numpy(), costs_twin.cpu().numpy()
-        check(np.isfinite(c).all() and c[-1] < c[0], f"config 5 BA costs {c}")
-        check(np.allclose(c, ct, rtol=1e-4, atol=0.0), f"config 5 BA kernel {c} vs twin {ct}")
-        check(cinv_launches == CONFIG5_BA_ITERS * (CONFIG5_BA_PCG + 3),
-              f"config 5 BA apply_cinv launches {cinv_launches}")
-        # ba.optimize_ba on the same problem, captured (its warm-up solve runs
-        # the first iteration eagerly and captures the second) and eager
-        ms_one, one = {}, {}
-        for capture in (True, False):
-            ba_kw = dict(iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG, capture=capture,
-                         huber_delta=config5_demo.BA_HUBER, lam=config5_demo.BA_LAM)
-            ba.optimize_ba(cam, prob, **ba_kw)  # warm-up
+    # -- the distributed BA at the demo's size, captured and eager ----------
+    cam, prob = config5_demo.make_big_ba(device=device, **CONFIG5_BA)
+    sp = dist_ba.shard_problem(prob, 1)
+    bkw = dict(iters=CONFIG5_BA_ITERS, pcg_iters=CONFIG5_BA_PCG,
+               huber_delta=config5_demo.BA_HUBER, lam=config5_demo.BA_LAM)
+    dist_ba.optimize_ba_distributed(cam, sp, mesh, **bkw)  # warm-up and capture
+    torch.cuda.synchronize()
+    schur.apply_cinv.launches = 0
+    res_c = dist_ba.optimize_ba_distributed(cam, sp, mesh, **bkw)  # every iteration a replay
+    torch.cuda.synchronize()
+    cinv_launches = schur.apply_cinv.launches
+    res_e = dist_ba.optimize_ba_distributed(cam, sp, mesh, capture=False, **bkw)
+    check(_bit_equal(res_c[1], res_e[1]) and _bit_equal(res_c[0].cam_pose, res_e[0].cam_pose)
+          and _bit_equal(res_c[0].points, res_e[0].points),
+          "config 5 distributed BA: captured vs eager differ")
+    names = {}
+    _profile(lambda: dist_ba.optimize_ba_distributed(cam, sp, mesh, **bkw), names=names,
+             host=True)
+    graph_launches = names.get("cudaGraphLaunch", 0)
+    check(graph_launches == CONFIG5_BA_ITERS,
+          f"config 5 distributed BA: {graph_launches} graph launches for {CONFIG5_BA_ITERS} "
+          f"LM iterations")
+    saved = schur.cinv_apply
+    schur.cinv_apply = lambda C, u, eps=1e-12: schur.apply_cinv_reference(C, u, eps)
+    try:
+        _, costs_twin = dist_ba.optimize_ba_distributed(cam, sp, mesh, capture=False, **bkw)
+    finally:
+        schur.cinv_apply = saved
+    c, ct = res_c[1].cpu().numpy(), costs_twin.cpu().numpy()
+    check(np.isfinite(c).all() and c[-1] < c[0], f"config 5 BA costs {c}")
+    check(np.allclose(c, ct, rtol=1e-4, atol=0.0), f"config 5 BA kernel {c} vs twin {ct}")
+    check(cinv_launches == CONFIG5_BA_ITERS * (CONFIG5_BA_PCG + 3),
+          f"config 5 BA apply_cinv launches {cinv_launches}")
+    # ms an LM iteration in turns: the distributed BA and ba.optimize_ba on
+    # the same problem, each captured and eager
+    solves = {
+        "dist captured": lambda: dist_ba.optimize_ba_distributed(cam, sp, mesh, **bkw),
+        "dist eager": lambda: dist_ba.optimize_ba_distributed(cam, sp, mesh, capture=False,
+                                                              **bkw),
+        "optimize_ba captured": lambda: ba.optimize_ba(cam, prob, capture=True, **bkw),
+        "optimize_ba eager": lambda: ba.optimize_ba(cam, prob, capture=False, **bkw),
+    }
+    one = {k: f() for k, f in solves.items() if k.startswith("optimize_ba")}  # warm-up
+    ms_it = {k: [] for k in solves}
+    for _ in range(2):
+        for k, f in solves.items():
             torch.cuda.synchronize()
             t_s = time.perf_counter()
-            one[capture] = ba.optimize_ba(cam, prob, **ba_kw)
+            f()
             torch.cuda.synchronize()
-            ms_one[capture] = (time.perf_counter() - t_s) / CONFIG5_BA_ITERS * 1e3
-        check(all(_bit_equal(a, b) for a, b in zip(_ba_results(one[True]), _ba_results(one[False]))),
-              "config 5: ba.optimize_ba captured vs eager differ")
-        print(f"config 5 distributed BA (C=64 points={prob.num_points} obs={prob.num_obs}, "
-              f"{CONFIG5_BA_ITERS} LM x {CONFIG5_BA_PCG} PCG, S=1): {ms_it:.1f} ms per LM "
-              f"iteration, cost {' -> '.join(f'{x:.1f}' for x in c)}, through the twin "
-              f"{' -> '.join(f'{x:.1f}' for x in ct)}, apply_cinv launches={cinv_launches}; "
-              f"ba.optimize_ba on the same problem {ms_one[True]:.1f} ms per LM iteration "
-              f"captured, {ms_one[False]:.1f} eager (bit-equal; each with the host's repack of "
-              f"the problem), cost {float(one[True].costs[-1]):.1f} | {card}")
-        out.update(ba_ms=ms_it, ba_one_ms=ms_one[True], ba_one_eager_ms=ms_one[False],
-                   cinv_launches=cinv_launches)
-        del res_p, prob, sp
-    finally:
-        tdist.destroy_process_group()
+            ms_it[k].append((time.perf_counter() - t_s) / CONFIG5_BA_ITERS * 1e3)
+    check(all(_bit_equal(a, b) for a, b in zip(_ba_results(one["optimize_ba captured"]),
+                                               _ba_results(one["optimize_ba eager"]))),
+          "config 5: ba.optimize_ba captured vs eager differ")
+    print(f"config 5 distributed BA (C={prob.num_cams} points={prob.num_points} obs={prob.num_obs}, "
+          f"{CONFIG5_BA_ITERS} LM x {CONFIG5_BA_PCG} PCG, S=1): captured bit-equal to eager "
+          f"(costs, poses, points), {graph_launches} graph launches for {CONFIG5_BA_ITERS} LM "
+          f"iterations, cost {' -> '.join(f'{x:.1f}' for x in c)}, through the twin "
+          f"{' -> '.join(f'{x:.1f}' for x in ct)}, apply_cinv launches={cinv_launches}; ms "
+          f"per LM iteration in two turns: "
+          + ", ".join(f"{k} {v[0]:.2f}; {v[1]:.2f}" for k, v in ms_it.items())
+          + f" (each solve with its host set-up); ba.optimize_ba cost "
+          f"{float(one['optimize_ba captured'].costs[-1]):.1f} | {card}")
+    mean = {k: sum(v) / len(v) for k, v in ms_it.items()}
+    out.update(ba_ms=mean["dist captured"], ba_eager_ms=mean["dist eager"],
+               ba_one_ms=mean["optimize_ba captured"], ba_one_eager_ms=mean["optimize_ba eager"],
+               cinv_launches=cinv_launches)
+    del res_c, res_e, prob, sp, one
+
+    # -- the sharded online system, captured against eager ------------------
+    row = config5_demo.demo_online_sharded(device=device)
+    check(row["captured"] and row["captured_equals_eager"] and row["parity_vs_one_device"],
+          f"config 5 online system: {row}")
+    print(f"config 5 online system (P={row['particles']} L={row['map_capacity']}, mesh "
+          f"{row['mesh']}): captured {row['frames_per_s']} frames/s, eager "
+          f"{row['frames_per_s_eager']}, captured == eager == one device bit for bit, "
+          f"keyframes {row['keyframes']} | {card}")
+    out.update(online=row)
     return out
 
 
@@ -3553,6 +3746,9 @@ def main():
               plain_ms_corridor_single_call=k[("gather", CORRIDOR_SHAPE)][5],
               launches_stereo=stereo["launches"][2], launches_config4=config4["launches"][2],
               launches_config5=config5["launches"][2],
+              ms_source_window_config5=k["gather_windows"][0],
+              plain_ms_source_window_config5=k["gather_windows"][1],
+              bound_ms_source_window_config5=k["gather_windows"][2][0],
               launches_bench_stereo=bench["stereo"]["launches"][2],
               launches_bench_pano=bench["pano"]["launches"][2]),
         entry("measurement_update_3d", "ekf_update_3d.cu",
@@ -3587,7 +3783,8 @@ def main():
               launches_config4=config4["launches"][3], launches_config5=config5["ring_launches"],
               launches_bench_stereo=bench["stereo"]["launches"][3],
               launches_bench_pano=bench["pano"]["launches"][3],
-              ms_ring_config5=config5["ms_ring"], ms_config5_whole_database=config5["ms_ring_alone"],
+              ms_ring_config5=config5["ms_ring"], ms_ring_config5_eager=config5["ms_ring_eager"],
+              ms_config5_whole_database=config5["ms_ring_alone"],
               ms_closure_config2_forward=c2f[0], ms_closure_config2_reverse=c2r[0],
               plain_ms_closure_config2_forward=c2f[1], bound_ms_closure_config2_forward=c2f[2][0],
               ms_closure_panoramic_forward=pnf[0], ms_closure_panoramic_reverse=pnr[0],

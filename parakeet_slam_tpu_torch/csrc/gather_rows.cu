@@ -1,7 +1,13 @@
 // Resampling payload gather: out_leaf[i, :] = in_leaf[idx[i], :] for every
 // leaf of the particle state, in ONE launch. The P output rows may be fewer
-// than the P_src source rows (the ring gather of the sharded filter takes
-// a block's resident rows only).
+// than the P_src source rows.
+//
+// Source window (the ring gather of the sharded filter): with lo >= 0 the
+// sources are the block of global rows [lo, lo + P_src) that is resident at
+// this ring step. An output row whose index falls inside the window takes
+// source row idx[i] - lo; every other output row is left as it was, so the
+// S launches of a ring write each output row exactly once, and a launch
+// moves the bytes of its window's rows and no more.
 //
 // Replaces the TPU kernel parakeet_slam_tpu/kernels/resample_pallas.py
 // (gather_rows, called once per leaf by gather_state). Each leaf is viewed
@@ -60,16 +66,24 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // Entry i of the index vector, int64 (`wide`) or int32 as the caller holds
-// it; every entry is a row of the source leaves, which have n_src rows.
+// it. Without a window (lo < 0) every entry is a row of the source leaves,
+// which have n_src rows; with one, entries inside [lo, lo + n_src) are
+// rebased by lo and the others mark their output row as skipped.
 struct Index {
   const void* data;
   int wide;
   int n_src;
+  long long lo;
 };
 
+// The source row of output row i, or -1 when it lies outside the window.
 __device__ __forceinline__ int checked(Index idx, int i) {
-  const long long j = idx.wide ? static_cast<const long long*>(idx.data)[i]
-                               : static_cast<const int32_t*>(idx.data)[i];
+  long long j = idx.wide ? static_cast<const long long*>(idx.data)[i]
+                         : static_cast<const int32_t*>(idx.data)[i];
+  if (idx.lo >= 0) {
+    j -= idx.lo;
+    return (j < 0 || j >= idx.n_src) ? -1 : (int)j;
+  }
   if (j < 0 || j >= idx.n_src) __trap();  // indices come from searchsorted, clamped
   return (int)j;
 }
@@ -103,7 +117,8 @@ __device__ __forceinline__ void copy_rows(const LeafTable& t, int k, Index idx, 
   for (long long e = lane; e < (r1 - r0) * w; e += 32) {
     const int r = r0 + (int)(e / w);
     const long long c = e % w;
-    d[r * w + c] = s[checked(idx, r) * w + c];
+    const int src = checked(idx, r);
+    if (src >= 0) d[r * w + c] = s[src * w + c];
   }
 }
 
@@ -167,8 +182,16 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 
+  // the source row of the chunk in each stage (-1: outside the window)
+  int stage_row[kStages];
   auto load = [&](int j, const Piece& p, int row) {
     const uint32_t bar = smem_u32(&full[j % kStages]);
+    stage_row[j % kStages] = row;
+    if (row < 0) {
+      // nothing to copy: a plain arrival completes the stage's phase at once
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+      return;
+    }
     const uint8_t* src = t.src[p.k] + row * t.row_bytes[p.k] + p.off;
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
                  "r"(p.bytes)
@@ -193,16 +216,24 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
       row_n = checked(idx, pn.r);
     }
     const Piece p = piece_of(t, me + j * stride, chunk);
-    uint8_t* dst = t.dst[p.k] + p.r * t.row_bytes[p.k] + p.off;
+    const bool stored = stage_row[j % kStages] >= 0;
     wait_parity(smem_u32(&full[j % kStages]), (j / kStages) & 1);
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
-                 "r"(smem_u32(ring + (size_t)(j % kStages) * chunk)), "r"(p.bytes)
-                 : "memory");
-    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    if (stored) {
+      uint8_t* dst = t.dst[p.k] + p.r * t.row_bytes[p.k] + p.off;
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+                   "r"(smem_u32(ring + (size_t)(j % kStages) * chunk)), "r"(p.bytes)
+                   : "memory");
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
     if (jn < n_mine) {
-      // chunk jn goes where chunk j - 1 was: wait until that store (all but
-      // the newest group) has read its stage
-      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      // chunk jn goes where chunk j - 1 was: wait until that store has read
+      // its stage (all groups but the newest, or all of them when chunk j
+      // lay outside the window and committed none)
+      if (stored) {
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      } else {
+        asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+      }
       load(jn, pn, row_n);
     }
   }
@@ -213,12 +244,15 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
 
 // Leaves [0, n_bulk) and then [n_bulk, n_bulk + n_small) in the arrays, as
 // LeafTable lays them out. `chunk` is the size of a ring stage in bytes. P
-// rows are written; every index is a row in [0, P_src) of the sources.
+// rows are written; without a window (lo < 0) every index is a row in
+// [0, P_src) of the sources, with one the sources are global rows
+// [lo, lo + P_src) and only the output rows whose index lies there are
+// written.
 extern "C" int gather_rows_launch(const void* const* srcs, void* const* dsts,
                                   const long long* row_bytes, const int* per, const int* first,
                                   int n_bulk, int n_small, int n_bulk_items, int n_small_items,
                                   int chunk, const void* idx, int idx_is_int64, int P,
-                                  int P_src, void* stream) {
+                                  int P_src, long long lo, void* stream) {
   const int n = n_bulk + n_small;
   if (n_bulk < 0 || n_small < 0 || n < 1 || n > kMaxLeaves || P < 1 || P_src < 1 || chunk < 16 ||
       chunk % 16 != 0 || n_bulk_items < 0 || n_small_items < 0) {
@@ -251,6 +285,6 @@ extern "C" int gather_rows_launch(const void* const* srcs, void* const* dsts,
   // as many blocks as fit on the card at once, and no more than there are items
   const int per_sm = max(1, min(8, (227 * 1024) / (smem + 1024)));
   gather_rows_kernel<<<max(1, min(items, per_sm * n_sm)), kThreads, smem, (cudaStream_t)stream>>>(
-      t, Index{idx, idx_is_int64, P_src}, P, chunk, n_bulk_items, n_small_items);
+      t, Index{idx, idx_is_int64, P_src, lo}, P, chunk, n_bulk_items, n_small_items);
   return (int)cudaGetLastError();
 }

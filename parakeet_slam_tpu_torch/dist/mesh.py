@@ -51,12 +51,17 @@ class Mesh:
     ranks row-major; `rank` is this process's global rank, None when it is
     not in the mesh (a mesh carved from part of the group). `groups` holds
     this rank's process group along `dcn`, along `ici` and over the whole
-    mesh (`all`), each None when no process group is initialized."""
+    mesh (`all`), each None when no process group is initialized.
+    `programs` holds the captured programs that run over this mesh's groups
+    (the ring match's, the distributed BA's), by key: they live and die
+    with the mesh, so that no graph outlives the communicators it holds
+    (drop the mesh and collect it before the process group is destroyed)."""
 
     shape: dict
     ranks: tuple
     rank: int | None
     groups: dict
+    programs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def size(self) -> int:

@@ -8,12 +8,22 @@ collectives are:
 
 1. **weights**: an all-gather of the [P] log-weights. The ESS, the resample
    decision and the systematic indices are computed from the gathered
-   weights, so every rank takes the same branch;
-2. **payload**: when resampling, the survivors' whole states move between
-   ranks round a ring (`ring_gather_rows`): S - 1 transfers of one block
-   each, every leaf packed into one byte buffer, with each rank taking the
-   rows whose source block is resident through the `gather_rows` kernel
-   before each rotation.
+   weights, so every rank decides alike;
+2. **payload**: the survivors' whole states move between ranks round a
+   ring (`ring_gather_rows`): S - 1 transfers of one block each, every
+   leaf packed into one byte buffer, with each rank taking the rows whose
+   source block is resident through the source-window launch of the
+   `gather_rows` kernel before each rotation.
+
+The resample is decided on the device, as in `FastSLAM._resample_and_metrics`
+(the reference's `lax.cond`): the ring gather runs every frame, at the
+identity indices where the ESS asks for no resample, and log_w is reset
+only where it does; so a frame without a resample leaves the state bit for
+bit as the cond's untouched branch does. Nothing in `step`,
+`ring_gather_rows` or `best_particle_lanes` reads the device on the host,
+so the step captures as one CUDA graph with NCCL's collectives and
+transfers inside (`filter/captured.py`; `filter/runner.run_sequence` takes
+a `ShardedFastSLAM` as it takes a `FastSLAM`).
 
 Estimates, the best particle's map and checkpoints read across particles,
 so they are collectives too (`estimate_pose`, `best_particle_lanes`,
@@ -72,18 +82,41 @@ def _take(block, rows: torch.Tensor):
     return {k: v.index_select(0, rows) for k, v in block.items()}
 
 
+def _take_window(block, idx: torch.Tensor, lo: int, out):
+    """`out` with the rows whose index lies in the block's window [lo, lo +
+    Pl) taken from it (row idx - lo) and the others left as they are: a
+    state through the source-window launch of `gather_rows` (its twin on
+    the CPU), a dict of tensors in the reference's form (a take of clamped
+    rows merged with `where`). `out` None: a new payload of len(idx) rows
+    (a dict's zeros, as the reference's)."""
+    if isinstance(block, ParticleState):
+        return resample_cuda.gather_state(block, idx, window=lo, out=out)
+    Pl = next(iter(block.values())).shape[0]
+    sel = (idx >= lo) & (idx < lo + Pl)
+    rows = torch.clamp(idx - lo, 0, Pl - 1)
+    merged = {}
+    for k, v in block.items():
+        o = out[k] if out is not None else v.new_zeros((idx.shape[0],) + tuple(v.shape[1:]))
+        merged[k] = torch.where(sel.reshape((-1,) + (1,) * (v.dim() - 1)),
+                                v.index_select(0, rows), o)
+    return merged
+
+
 def ring_gather_rows(payload, global_idx: torch.Tensor, mesh: Mesh, axis: str = PARTICLE_AXIS):
     """out[i] = global_payload[global_idx[i]], where `payload` (a
     ParticleState or a dict of tensors, every leaf [Pl, ...]) is this rank's
     block of a [S * Pl, ...] payload sharded along `axis`. Returns the
     payload's type with len(global_idx) rows (a state's log_w set to 0).
 
-    Step s holds the block of rank me - s: the rows whose source is that
-    block are taken and written to their output rows once (index_copy_ at
-    distinct rows), while the block moves on to rank me + 1 (a batched send
-    and receive of one byte buffer). S - 1 transfers; the reference's last
-    one, which only brings the block home, is skipped, and at S = 1 the
-    gather is the one-device gather."""
+    The reference's form (`parakeet_slam_tpu/dist/sharded_filter.py:20-52`)
+    with fixed shapes and no read of the device on the host: step s holds
+    the block of rank me - s, and the rows whose index lies in that block's
+    window take their row from it while the others are left as they were
+    (`_take_window`), so every output row is written once over the S steps;
+    meanwhile the block moves on to rank me + 1 (a batched send and receive
+    of one byte buffer). S - 1 transfers; the reference's last one, which
+    only brings the block home, is skipped, and at S = 1 the gather is the
+    one-device gather."""
     S = mesh.axis_size(axis)
     idx = global_idx.long()
     if S == 1:
@@ -93,7 +126,6 @@ def ring_gather_rows(payload, global_idx: torch.Tensor, mesh: Mesh, axis: str = 
     group = mesh.axis_group(axis)
     names, leaves = _payload_leaves(payload)
     Pl = leaves[0].shape[0]
-    src_of = (idx // Pl).cpu()
     buf, layout = mesh_mod.pack_bytes(leaves)
     out = None
     for s in range(S):
@@ -104,21 +136,14 @@ def ring_gather_rows(payload, global_idx: torch.Tensor, mesh: Mesh, axis: str = 
                 tdist.P2POp(tdist.isend, buf, ring[(me + 1) % S], group=group),
                 tdist.P2POp(tdist.irecv, nxt, ring[(me - 1) % S], group=group),
             ])
-        src = (me - s) % S
-        pos = torch.nonzero(src_of == src).flatten().to(idx.device)
-        if pos.numel():
-            block = _rebuild(payload, names, mesh_mod.unpack_bytes(buf, layout))
-            got = _take(block, idx.index_select(0, pos) - src * Pl)
-            _, got_leaves = _payload_leaves(got)
-            if out is None:
-                out = [g.new_empty((idx.shape[0],) + tuple(g.shape[1:])) for g in got_leaves]
-            for o, g in zip(out, got_leaves):
-                o.index_copy_(0, pos, g)
+        src = (me - s) % S  # whose block is resident after s rotations
+        block = _rebuild(payload, names, mesh_mod.unpack_bytes(buf, layout))
+        out = _take_window(block, idx, src * Pl, out)
         if reqs is not None:
             for r in reqs:
                 r.wait()
             buf = nxt
-    return _rebuild(payload, names, out)
+    return out
 
 
 class ShardedFastSLAM:
@@ -148,13 +173,25 @@ class ShardedFastSLAM:
         """This rank's rows of the frame's global [P, noise_dim] draws."""
         return noise[self.rows]
 
+    @property
+    def cfg(self):
+        return self.slam.cfg
+
+    @property
+    def noise_dim(self) -> int:
+        return self.slam.noise_dim
+
     def step(self, state: ParticleState, u, obs: Observation, noise, u0):
-        """One frame on this rank's rows: `noise` [P / S, noise_dim] (this
-        rank's rows of the global draws, `local_draws`), u0 the common comb
-        offset. Returns (state, StepMetrics) with the global ESS, landmark
-        mean and resample decision."""
+        """One frame on this rank's rows: `noise` this rank's rows of the
+        global draws [P / S, noise_dim] (`local_draws`), or the global
+        draws [P, noise_dim] themselves, of which it takes its rows; u0 the
+        common comb offset. Returns (state, StepMetrics) with the global
+        ESS, landmark mean and the resample decision (a 0-dim bool
+        tensor)."""
         slam = self.slam
         cfg = slam.cfg
+        if noise.shape[0] != self.local_particles:
+            noise = self.local_draws(noise)
         log_w0 = state.log_w.clone() if cfg.likelihood_temper != 1.0 else None
         if isinstance(slam, FastSLAM2):
             # the proposal is per particle; it weights the frame itself and
@@ -168,11 +205,14 @@ class ShardedFastSLAM:
         state = slam._temper(state, log_w0)
 
         lw_all = mesh_mod.all_gather_rows(state.log_w, self.mesh, self.axis)
+        P = lw_all.shape[0]
         ess = resample_kernel.effective_sample_size(lw_all)
-        need = bool(ess < cfg.resample_frac * lw_all.shape[0])  # equal on every rank
-        if need:
-            idx = resample_kernel.systematic_resample_indices(lw_all, u0)
-            state = ring_gather_rows(state, idx[self.rows], self.mesh, self.axis)
+        need = ess < cfg.resample_frac * P  # a 0-dim bool, equal on every rank
+        keep = torch.arange(P, device=lw_all.device)
+        idx = torch.where(need, resample_kernel.systematic_resample_indices(lw_all, u0), keep)
+        log_w = state.log_w
+        state = ring_gather_rows(state, idx[self.rows], self.mesh, self.axis)
+        state = state.replace(log_w=torch.where(need, state.log_w, log_w))
         S = self.mesh.axis_size(self.axis)
         counts = mesh_mod.all_gather_rows(state.num_landmarks(), self.mesh, self.axis)
         n_obs = torch.clamp(obs.valid.to(torch.float32).sum(), min=1.0)
@@ -192,17 +232,21 @@ class ShardedFastSLAM:
     def best_particle_lanes(self, state: ParticleState):
         """(lm_mean [L, Dl], lm_valid [L], lm_desc [L, W], lm_count [L]) of
         the highest-weight particle (the first on a tie, as argmax over all
-        P): the rank that owns it sends them to the others."""
+        P), on every rank and with no read of the device on the host: every
+        rank finds the global argmax in the gathered weights, offers its own
+        row at the argmax's local index, and keeps the owner's among the
+        gathered offers (a copy: a sum of masked lanes would turn -0.0 into
+        0.0)."""
         lw_all = mesh_mod.all_gather_rows(state.log_w, self.mesh, self.axis)
-        best = torch.argmax(lw_all)
+        best = torch.argmax(lw_all).reshape(1)
+        Pl = self.local_particles
+        fields = (state.lm_mean, state.lm_valid, state.lm_desc, state.lm_count)
+        # index_select: indexing with a 0-dim tensor reads it on the host
+        mine = [t.index_select(0, best % Pl) for t in fields]
         if self.mesh.axis_group(self.axis) is None:
-            return state.lm_mean[best], state.lm_valid[best], state.lm_desc[best], \
-                state.lm_count[best]
-        b = int(best)
-        owner, local = divmod(b, self.local_particles)
-        lanes = [state.lm_mean[local], state.lm_valid[local], state.lm_desc[local],
-                 state.lm_count[local]]
-        return tuple(mesh_mod.broadcast_packed(lanes, self.mesh, self.axis, owner))
+            return tuple(t[0] for t in mine)
+        offers = mesh_mod.all_gather_packed(mine, self.mesh, self.axis)
+        return tuple(t.index_select(0, best // Pl)[0] for t in offers)
 
     def gather_state(self, state: ParticleState) -> ParticleState:
         """The global state (all P rows) on every rank of the `ici` line."""

@@ -13,7 +13,11 @@ on N processes with COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID set
 (`dist/multihost.py`; NCCL with one card per rank); one process alone
 starts a process group of one rank, so the sharded program runs through its
 collectives at world size 1. Rank 0 prints, and writes the rows to --out
-when given. The BA problem is `eval/kernel_inputs.ba_bench_problem`'s
+when given. Each part runs as the port runs by default (on CUDA the
+captured programs: the system's frame graph with the sharded step's
+collectives inside, the ring match's graph, the distributed BA's graph an
+LM iteration) and again eagerly (`capture=False`) in the same process:
+the rows hold both times and whether the two agree bit for bit. The BA problem is `eval/kernel_inputs.ba_bench_problem`'s
 (numpy draws, where the reference draws with jax.random).
 """
 
@@ -21,6 +25,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
+import hashlib
 import json
 import os
 import time
@@ -47,11 +53,28 @@ def _world() -> int:
     return torch.distributed.get_world_size() if mesh_mod.is_distributed() else 1
 
 
-def demo_online_sharded(n_frames=6, L=131072, P=32, Z=16, device="cuda", image_size=(128, 256)):
+def _ranks_agree(tensors, group=None) -> bool:
+    """Whether every rank of `group` (the default group when None) holds
+    the same bits in `tensors`: their SHA-256 digests, all-gathered."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    if not mesh_mod.is_distributed():
+        return True
+    got = [None] * torch.distributed.get_world_size(group)
+    torch.distributed.all_gather_object(got, h.hexdigest(), group=group)
+    return len(set(got)) == 1
+
+
+def demo_online_sharded(n_frames=6, L=131072, P=32, Z=16, device="cuda", image_size=(128, 256),
+                        capture=None):
     """The panoramic online system with a 131,072-slot map, its particle
     axis sharded over every rank (dcn = 2 when the world size is even, as
-    the reference's 2 x 4 mesh); rank 0 then runs the same frames on one
-    device and reports whether the estimates and keyframes are bit-equal."""
+    the reference's 2 x 4 mesh), run with `capture` (None: captured on
+    CUDA) and again eagerly on the same frames and draws; rank 0 then runs
+    the frames on one device and reports whether the estimates and
+    keyframes are bit-equal. Frames 3 to n_frames are timed (the first
+    runs eagerly, the second captures)."""
     from parakeet_slam_tpu_torch.core.config import (
         BackendConfig, DistConfig, FilterConfig, FrontendConfig, SLAMConfig,
     )
@@ -79,17 +102,26 @@ def demo_online_sharded(n_frames=6, L=131072, P=32, Z=16, device="cuda", image_s
     )
     scene = make_panoramic_world(num_landmarks=300, num_steps=n_frames, image_size=(H, W),
                                  seed=11)
-    sys_ = SLAMSystem(cfg, device=device)
-    if sys_._sharded is None:
-        raise RuntimeError("the online system did not shard: no process group is up")
     images = [scene.render(t) for t in range(n_frames)]
-    est = [sys_.process_frame(images[0], scene.odom[0])]  # warm-up
-    _sync(device)
-    t0 = time.perf_counter()
-    est += [sys_.process_frame(images[t], scene.odom[t]) for t in range(1, n_frames)]
-    _sync(device)
-    fps = (n_frames - 1) / (time.perf_counter() - t0)
-    sys_.flush_flags()
+
+    def run(capture_):
+        sys_ = SLAMSystem(cfg, device=device, capture=capture_)
+        if sys_._sharded is None:
+            raise RuntimeError("the online system did not shard: no process group is up")
+        est = [sys_.process_frame(images[t], scene.odom[t]) for t in range(min(2, n_frames))]
+        _sync(device)
+        t0 = time.perf_counter()
+        est += [sys_.process_frame(images[t], scene.odom[t]) for t in range(2, n_frames)]
+        _sync(device)
+        fps = (n_frames - 2) / (time.perf_counter() - t0) if n_frames > 2 else None
+        sys_.flush_flags()
+        return sys_, torch.stack(est), fps
+
+    sys_, est, fps = run(capture)
+    eager, est_e, fps_e = run(False)
+    same = (_bits_equal(est, est_e) and [k.frame for k in sys_.keyframes]
+            == [k.frame for k in eager.keyframes])
+    ranks = _ranks_agree([est, est_e, *(torch.as_tensor(k.pose) for k in sys_.keyframes)])
     parity = None
     if process_index() == 0:
         # the same frames and draws on one device (dist 1 x 1 fits no world
@@ -97,23 +129,38 @@ def demo_online_sharded(n_frames=6, L=131072, P=32, Z=16, device="cuda", image_s
         one = SLAMSystem(dataclasses.replace(cfg, dist=DistConfig()), device=device)
         est1 = [one.process_frame(images[t], scene.odom[t]) for t in range(n_frames)]
         one.flush_flags()
-        parity = (torch.equal(torch.stack(est), torch.stack(est1))
+        parity = (torch.equal(est, torch.stack(est1))
                   and [k.frame for k in one.keyframes] == [k.frame for k in sys_.keyframes])
     return _say({
         "bench": "online_sharded_filter",
         "mesh": dict(sys_.mesh.shape),
         "particles": P,
         "map_capacity": L,
-        "frames_per_s": round(fps, 3),
+        "captured": sys_.capture,
+        "frames_per_s": None if fps is None else round(fps, 3),
+        "frames_per_s_eager": None if fps_e is None else round(fps_e, 3),
         "keyframes": len(sys_.keyframes),
+        "captured_equals_eager": same,
+        "ranks_agree": ranks,
         "parity_vs_one_device": parity,
     })
 
 
-def demo_ring_match(M=131072, N=256, W=8, device="cuda", reps=5):
+def _bits_equal(a, b) -> bool:
+    """Two tensors equal bit for bit (NaN by its bits, -0.0 apart from 0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(bits), b.contiguous().view(bits)
+    return torch.equal(a, b)
+
+
+def demo_ring_match(M=131072, N=256, W=8, device="cuda", reps=5, capture=None):
     """Matching against the whole database, sharded over every rank and
-    streamed round the ring (`dist/ring_match.py`), checked against the
-    dense twin on the whole database."""
+    streamed round the ring (`dist/ring_match.py`), with `capture` (None:
+    the ring's graph on CUDA) and eagerly, checked against the dense twin
+    on the whole database and against each other."""
     from parakeet_slam_tpu_torch.dist.ring_match import ring_hamming_top2
     from parakeet_slam_tpu_torch.kernels import match as match_mod
 
@@ -126,13 +173,19 @@ def demo_ring_match(M=131072, N=256, W=8, device="cuda", reps=5):
     rows = mesh_mod.particle_sharding(mesh).rows(M)
     db_l, dbv_l = db[rows].contiguous(), dbv[rows].contiguous()
     qv = torch.ones(N, dtype=torch.bool, device=device)
-    out = ring_hamming_top2(qd, qv, db_l, dbv_l, mesh)
-    _sync(device)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        out = ring_hamming_top2(qd, qv, db_l, dbv_l, mesh)
-    _sync(device)
-    dt = (time.perf_counter() - t0) / reps
+
+    def timed(capture_):
+        for _ in range(2):  # warm-up (and, captured, the capture)
+            out = ring_hamming_top2(qd, qv, db_l, dbv_l, mesh, capture=capture_)
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = ring_hamming_top2(qd, qv, db_l, dbv_l, mesh, capture=capture_)
+        _sync(device)
+        return out, (time.perf_counter() - t0) / reps
+
+    out, dt = timed(capture)
+    out_e, dt_e = timed(False)
     _, b1, b2 = out
     _, r1, r2 = match_mod.hamming_top2_reference(qd, db, dbv)
     return _say({
@@ -140,7 +193,10 @@ def demo_ring_match(M=131072, N=256, W=8, device="cuda", reps=5):
         "db_size": M,
         "queries": N,
         "devices": mesh.size,
-        "ms": round(dt * 1e3, 2),
+        "ms": round(dt * 1e3, 4),
+        "ms_eager": round(dt_e * 1e3, 4),
+        "captured_equals_eager": all(torch.equal(a, b) for a, b in zip(out, out_e)),
+        "ranks_agree": _ranks_agree(out),
         "parity_vs_reference": bool(torch.equal(b1, r1) and torch.equal(b2, r2)),
     })
 
@@ -192,7 +248,7 @@ def _sharded_cost(cam, sp, mesh, cam_pose, points):
 
 
 def demo_dist_ba(Pts=110000, iters=3, pcg_iters=15, map_axes=(1, 2, 4), device="cuda",
-                 obs_per_cam=2000, lam=BA_LAM, problem="bench"):
+                 obs_per_cam=2000, lam=BA_LAM, problem="bench", capture=None):
     """The distributed BA, point blocks sharded over `dcn`; weak scaling
     over the map axis (the sizes that fit the world). `problem` "bench" is
     the 100,000+ point layout, most points seen once; "ring" is
@@ -200,7 +256,10 @@ def demo_dist_ba(Pts=110000, iters=3, pcg_iters=15, map_axes=(1, 2, 4), device="
     holds the last candidate's cost (`final_cost`, the reference's key), the
     last accepted cost and the number of accepted LM steps, replayed from
     the candidates' costs with the solver's own rule and cost arithmetic,
-    and the largest camera-position difference from the S=1 solve."""
+    and the largest camera-position difference from the S=1 solve. The
+    solve runs with `capture` (None: one graph an LM iteration on CUDA)
+    and again eagerly: `lm_iters_per_s_eager` and whether costs, poses and
+    points agree bit for bit (`captured_equals_eager`)."""
     from parakeet_slam_tpu_torch.dist import dist_ba
 
     if problem == "ring":
@@ -216,16 +275,25 @@ def demo_dist_ba(Pts=110000, iters=3, pcg_iters=15, map_axes=(1, 2, 4), device="
             continue
         sp = dist_ba.shard_problem(prob, S)
 
-        def call():
+        def call(capture_):
             return dist_ba.optimize_ba_distributed(cam, sp, mesh, iters=iters, lam=lam,
-                                                   pcg_iters=pcg_iters, huber_delta=BA_HUBER)
+                                                   pcg_iters=pcg_iters, huber_delta=BA_HUBER,
+                                                   capture=capture_)
 
-        call()
-        _sync(device)
-        t0 = time.perf_counter()
-        out, costs = call()
-        _sync(device)
-        ips = iters / (time.perf_counter() - t0)
+        def timed(capture_):
+            call(capture_)  # warm-up (and, captured, the capture)
+            _sync(device)
+            t0 = time.perf_counter()
+            res = call(capture_)
+            _sync(device)
+            return res, iters / (time.perf_counter() - t0)
+
+        (out, costs), ips = timed(capture)
+        (out_e, costs_e), ips_e = timed(False)
+        same = (_bits_equal(costs, costs_e) and _bits_equal(out.cam_pose, out_e.cam_pose)
+                and _bits_equal(out.points, out_e.points))
+        ranks = _ranks_agree([costs, out.cam_pose, out.points],
+                             mesh.axis_group(mesh_mod.BOTH_AXES))
         base = ips if base is None else base
         # the solver accepts a candidate whose cost is below the current one
         accepted = _sharded_cost(cam, sp, mesh, sp.cam_pose, sp.points)
@@ -242,6 +310,9 @@ def demo_dist_ba(Pts=110000, iters=3, pcg_iters=15, map_axes=(1, 2, 4), device="
             "obs": int(prob.obs_valid.sum()),
             "map_shards": S,
             "lm_iters_per_s": round(ips, 3),
+            "lm_iters_per_s_eager": round(ips_e, 3),
+            "captured_equals_eager": same,
+            "ranks_agree": ranks,
             "efficiency_vs_1shard": round(ips / base, 3),
             "final_cost": float(costs[-1]),
             "accepted_cost": accepted,
@@ -294,6 +365,11 @@ def main(argv=None):
                 json.dump(art, f, indent=1)
             print(f"wrote {args.out}")
     finally:
+        # the captured programs hold NCCL's communicators: free their graphs
+        # (kept in reference cycles with their meshes) before the group goes
+        gc.collect()
+        if args.device == "cuda":
+            torch.cuda.synchronize()
         if own_group:
             torch.distributed.destroy_process_group()
 

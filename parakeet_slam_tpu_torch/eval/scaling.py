@@ -7,8 +7,13 @@ the efficiency. Weak scaling (the default): particles per rank fixed, so
 eff(N) = frames/s(N) / frames/s(1); strong: eff(N) = frames/s(N) /
 (N * frames/s(1)).
 
-Beside each mesh's frames/s it times the two latencies under the sharded
-step: an all-reduce of one float and one ring shift of 1 MiB. Every rank of
+The step runs as it runs by default: on CUDA one captured graph a frame
+(`filter/captured.CapturedStep` over `ShardedFastSLAM.step`, NCCL's
+collectives and the ring's transfers inside), on the CPU eagerly; each row
+also holds the eager step's frames/s from the same process
+(`steps_per_s_eager`), for the A/B. Beside each mesh's frames/s it times
+the two latencies under the sharded step: an all-reduce of one float and
+one ring shift of 1 MiB. Every rank of
 the group runs `measure_scaling` (the meshes are made with collective
 calls); ranks outside a mesh sit its run out, and rank 0 prints one JSON
 row per mesh:
@@ -34,7 +39,7 @@ from parakeet_slam_tpu_torch.dist import mesh as mesh_mod
 from parakeet_slam_tpu_torch.dist.mesh import PARTICLE_AXIS
 from parakeet_slam_tpu_torch.dist.multihost import process_index
 from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
-from parakeet_slam_tpu_torch.filter import FastSLAM
+from parakeet_slam_tpu_torch.filter import FastSLAM, captured
 from parakeet_slam_tpu_torch.filter.runner import draw_noise
 
 
@@ -44,12 +49,17 @@ def _sync(device):
 
 
 def _filter_throughput(n_devices: int, particles_per_device: int = 256, max_landmarks: int = 512,
-                       steps: int = 20, device="cuda"):
+                       steps: int = 20, device="cuda", capture=None):
     """(frames/s, the warm-up frames' ms) of the corridor-model filter
     sharded over the first `n_devices` ranks (None on a rank outside them):
     the reference's fixed frame of 16 range-bearing observations, every draw
     from one generator, timed after `steps` frames of warm-up, each of those
-    timed alone (NCCL sets a connection up at its first use)."""
+    timed alone (NCCL sets a connection up at its first use; the captured
+    step's first frame runs eagerly and its second captures). `capture`:
+    None for the captured step on CUDA and the eager step on the CPU, False
+    for the eager step, True for the captured one (its buffer rules, eager,
+    on the CPU). Every frame's draws are copied into the captured step's
+    inputs before its replay."""
     cfg = FilterConfig(
         num_particles=particles_per_device * n_devices, max_landmarks=max_landmarks,
         max_observations=16, sig_dim=3, motion_noise=(0.3, 0.1, 0.3, 0.1),
@@ -68,15 +78,33 @@ def _filter_throughput(n_devices: int, particles_per_device: int = 256, max_land
     u = torch.tensor([0.1, 0.0, 0.02], device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     noise, u0 = draw_noise(2 * steps, cfg.num_particles, slam.noise_dim, gen, device)
+    if capture is None:
+        capture = torch.device(device).type == "cuda"
+    if capture:
+        cs = captured.CapturedStep(
+            lambda st, x: (sharded.step(st, x["u"], x["obs"], x["noise"], x["u0"])[0], ()),
+            state, {"u": u, "obs": obs, "noise": sharded.local_draws(noise[0]).clone(),
+                    "u0": u0[0].clone()},
+            graph=torch.device(device).type == "cuda")
+
+        def frame(t):
+            cs.inputs["noise"].copy_(sharded.local_draws(noise[t]))
+            cs.inputs["u0"].copy_(u0[t])
+            cs()
+    else:
+        box = [state]
+
+        def frame(t):
+            box[0], _ = sharded.step(box[0], u, obs, sharded.local_draws(noise[t]), u0[t])
     warm = []
     for t in range(steps):
         t0 = time.perf_counter()
-        state, _ = sharded.step(state, u, obs, sharded.local_draws(noise[t]), u0[t])
+        frame(t)
         _sync(device)
         warm.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
     for t in range(steps, 2 * steps):
-        state, _ = sharded.step(state, u, obs, sharded.local_draws(noise[t]), u0[t])
+        frame(t)
     _sync(device)
     return steps / (time.perf_counter() - t0), warm
 
@@ -126,21 +154,27 @@ def _collective_ms(n_devices: int, device="cuda", reps: int = 20, nbytes: int = 
 
 def measure_scaling(device_counts=None, weak: bool = True, device="cuda", **kw):
     """One row per mesh size ({"devices", "steps_per_s", "efficiency",
-    "all_reduce_ms", "ring_shift_ms", "warmup_frame_ms"}) on rank 0 (printed
-    as JSON), [] on the other ranks. `kw` goes to `_filter_throughput`."""
+    "steps_per_s_eager", "efficiency_eager", "all_reduce_ms",
+    "ring_shift_ms", "warmup_frame_ms"}) on rank 0 (printed as JSON), [] on
+    the other ranks: the default step (captured on CUDA) and the eager
+    step, one after the other. `kw` goes to `_filter_throughput`."""
     world = torch.distributed.get_world_size() if mesh_mod.is_distributed() else 1
     if device_counts is None:
         device_counts = [c for c in (1, 2, 4, 8) if c <= world]
-    rows, base = [], None
+    rows, base, base_eager = [], None, None
     for c in device_counts:
         out = _filter_throughput(c, device=device, **kw)
+        eager = _filter_throughput(c, device=device, capture=False, **kw)
         lat = _collective_ms(c, device=device)
         if process_index() != 0:
             continue
-        fps, warm = out
+        (fps, warm), fps_e = out, eager[0]
         base = fps if base is None else base
+        base_eager = fps_e if base_eager is None else base_eager
         eff = fps / base if weak else fps / (c * base)
+        eff_e = fps_e / base_eager if weak else fps_e / (c * base_eager)
         rows.append({"devices": c, "steps_per_s": round(fps, 2), "efficiency": round(eff, 3),
+                     "steps_per_s_eager": round(fps_e, 2), "efficiency_eager": round(eff_e, 3),
                      "all_reduce_ms": round(lat[0], 4), "ring_shift_ms": round(lat[1], 4),
                      "warmup_frame_ms": [round(x, 2) for x in warm]})
         print(json.dumps(rows[-1]))

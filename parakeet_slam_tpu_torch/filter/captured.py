@@ -34,6 +34,19 @@ The rules, the same in both modes:
 Several steps may share one memory pool (`pool=`, from
 `torch.cuda.graph_pool_handle()`): they replay one after another on one
 stream, so a graph's intermediates may take the memory of another's.
+
+Collectives inside (the sharded programs of `dist/`): NCCL's all-gathers,
+all-reduces and batched sends and receives are captured into the graph and
+replayed with it. The warm-up call runs them eagerly first, so that NCCL
+sets up each communicator and each point-to-point connection outside the
+capture (it cannot inside one). Every rank of the group must make the same
+calls in the same order, eager and replayed alike: each rank captures at
+the same call and replays in lockstep with the others. While a process
+group is up the capture runs in `capture_error_mode="thread_local"`:
+ProcessGroupNCCL's watchdog thread queries the events of earlier
+collectives while the capture runs, and under the default "global" mode
+such a query from another thread invalidates the capture. gloo cannot be
+captured: on the CPU the sharded programs run with `graph=False`.
 """
 
 from __future__ import annotations
@@ -189,8 +202,10 @@ class CapturedStep:
         collecting = gc.isenabled()
         gc.disable()
         t0 = time.perf_counter()
+        distributed = torch.distributed.is_available() and torch.distributed.is_initialized()
         try:
-            with torch.cuda.graph(g, pool=self.pool):
+            with torch.cuda.graph(g, pool=self.pool,
+                                  capture_error_mode="thread_local" if distributed else "global"):
                 copy_into(self.outputs, self._run())
         except RuntimeError as e:
             raise RuntimeError(f"CapturedStep: the step could not be captured: {e}") from e

@@ -13,6 +13,11 @@ the graph against; on CPU tensors the eager loop is the default, and
 per-frame random draws (the motion or proposal noise [P, noise_dim] and the
 resampling comb offset u0) come from an explicit `torch.Generator`, or are
 injected, so that a test can replay the reference's exact draws.
+
+`slam` may also be a `dist.sharded_filter.ShardedFastSLAM`: the state is
+then this rank's rows, the draws are the global [T, P, noise_dim] of which
+each rank takes its own, and the captured frame holds the sharded step's
+collectives and ring transfers (config 5's compiled step).
 """
 
 from __future__ import annotations
@@ -94,7 +99,7 @@ def run_sequence(
     on CPU tensors, False for the eager loop, True for the captured path
     (eager under its buffer rules on the CPU)."""
     T, Z = obs_valid.shape
-    P = state.num_particles
+    P = slam.cfg.num_particles  # the global count: a sharded state holds P / S rows
     dev = state.pose.device
     if motion_noise is None or resample_u0 is None:
         if generator is None:

@@ -10,6 +10,13 @@ of `parakeet_slam_tpu/kernels/resample_pallas.py::gather_state`.
 
 Both reset the weights to 0, as `kernels/resample.py::gather_particles` of
 the reference does after its gather.
+
+The source window (`window=lo`, `out=`) is the ring gather's form
+(`dist/sharded_filter.py::ring_gather_rows`): `state` is the block of global
+rows [lo, lo + P_block) resident at one ring step, and only the rows of
+`out` whose index falls inside it are written, each from row idx - lo; the
+others are left as they are. Its twin is the reference's take of clamped
+rows merged with `where` (`parakeet_slam_tpu/dist/sharded_filter.py:58-70`).
 """
 
 from __future__ import annotations
@@ -26,10 +33,31 @@ from parakeet_slam_tpu_torch.kernels import _build
 _LEAVES = ("pose", "lm_mean", "lm_cov", "lm_sig", "lm_desc", "lm_valid", "lm_count")
 
 
-def gather_state_reference(state: ParticleState, idx: torch.Tensor) -> ParticleState:
+def gather_state_reference(state: ParticleState, idx: torch.Tensor, *, window: int | None = None,
+                           out: ParticleState | None = None) -> ParticleState:
     idx = idx.long()
-    out = {f: torch.index_select(getattr(state, f), 0, idx) for f in _LEAVES}
-    return state.replace(log_w=state.log_w.new_zeros(idx.shape[0]), **out)
+    if window is None:
+        got = {f: torch.index_select(getattr(state, f), 0, idx) for f in _LEAVES}
+        return state.replace(log_w=state.log_w.new_zeros(idx.shape[0]), **got)
+    Pb = state.num_particles
+    sel = (idx >= window) & (idx < window + Pb)
+    rows = torch.clamp(idx - window, 0, Pb - 1)
+    if out is None:
+        out = _new_out(state, idx.shape[0], zeros=True)
+    merged = {}
+    for f in _LEAVES:
+        a = torch.index_select(getattr(state, f), 0, rows)
+        merged[f] = torch.where(sel.reshape((-1,) + (1,) * (a.dim() - 1)), a, getattr(out, f))
+    return out.replace(**merged)
+
+
+def _new_out(state: ParticleState, n: int, zeros: bool = False) -> ParticleState:
+    """A state of n rows shaped as `state`'s (log_w 0; the other leaves 0
+    or uninitialized)."""
+    make = torch.zeros if zeros else torch.empty
+    return state.replace(log_w=state.log_w.new_zeros(n), **{
+        f: make((n,) + tuple(getattr(state, f).shape[1:]), dtype=getattr(state, f).dtype,
+                device=getattr(state, f).device) for f in _LEAVES})
 
 
 # The kernel streams rows in chunks of this many bytes through a ring of
@@ -82,13 +110,24 @@ def _launch_plan(row_bytes: tuple, shaped: tuple, P: int, chunk: int):
     )
 
 
-def gather_state(state: ParticleState, idx: torch.Tensor) -> ParticleState:
-    """Gathered state (new tensors) with out[i] = state[idx[i]] for every
-    leaf and log_w = 0. idx [N] integer, every entry in [0, P); the result
-    has N rows (N = P when resampling; fewer in the sharded filter's ring
-    gather, which takes a block's resident rows)."""
+def gather_state(state: ParticleState, idx: torch.Tensor, *, window: int | None = None,
+                 out: ParticleState | None = None) -> ParticleState:
+    """Gathered state with out[i] = state[idx[i]] for every leaf and log_w =
+    0. idx [N] integer, every entry in [0, P); the result has N rows (new
+    tensors).
+
+    With `window=lo` (the module docstring) `state` holds global rows [lo,
+    lo + P): output row i becomes state[idx[i] - lo] where idx[i] lies in
+    that window and is left as it was elsewhere. The rows are written into
+    `out` (N rows, contiguous; allocated when None, its rows outside the
+    window then undefined on the card and 0 in the twin), which is
+    returned with its own log_w (0 when allocated here)."""
+    if window is not None and window < 0:
+        raise ValueError(f"gather_state: window {window} < 0")
+    if out is not None and window is None:
+        raise ValueError("gather_state: out= is the source window's (give window=)")
     if state.pose.device.type == "cpu":
-        return gather_state_reference(state, idx)
+        return gather_state_reference(state, idx, window=window, out=out)
     if state.pose.device.type != "cuda":
         raise ValueError(f"gather_state: unsupported device {state.pose.device}")
     P = state.num_particles
@@ -100,13 +139,17 @@ def gather_state(state: ParticleState, idx: torch.Tensor) -> ParticleState:
     if idx.dtype not in (torch.int32, torch.int64):
         idx = idx.long()
     idx = idx.contiguous()
-    srcs, dsts, nbytes, out = [], [], [], {}
+    if out is None:
+        out = _new_out(state, N)
+    srcs, dsts, nbytes = [], [], []
     for f in _LEAVES:
-        a = getattr(state, f)
+        a, o = getattr(state, f), getattr(out, f)
         if a.device != dev or a.shape[0] != P or not a.is_contiguous():
             raise ValueError(f"gather_state: leaf {f} must be contiguous [{P}, ...] on {dev}")
-        o = a.new_empty((N,) + tuple(a.shape[1:]))
-        out[f] = o
+        if o.device != dev or o.shape != (N,) + a.shape[1:] or o.dtype != a.dtype \
+                or not o.is_contiguous():
+            raise ValueError(f"gather_state: out leaf {f} must be contiguous "
+                             f"{(N,) + tuple(a.shape[1:])} {a.dtype} on {dev}")
         srcs.append(a.data_ptr())
         dsts.append(o.data_ptr())
         nbytes.append(a.numel() // P * a.element_size())
@@ -116,11 +159,12 @@ def gather_state(state: ParticleState, idx: torch.Tensor) -> ParticleState:
     err = _build.library().gather_rows_launch(
         (ctypes.c_void_p * n)(*(srcs[k] for k in order)),
         (ctypes.c_void_p * n)(*(dsts[k] for k in order)),
-        *table, _CHUNK, idx.data_ptr(), idx.dtype == torch.int64, N, P, _build.stream_ptr(idx),
+        *table, _CHUNK, idx.data_ptr(), idx.dtype == torch.int64, N, P,
+        -1 if window is None else window, _build.stream_ptr(idx),
     )
     _build.check(err, "gather_rows")
     gather_state.launches += 1
-    return state.replace(log_w=state.log_w.new_zeros(N), **out)
+    return out
 
 
 gather_state.launches = 0

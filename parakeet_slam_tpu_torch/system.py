@@ -48,7 +48,11 @@ written in place by everything that replaces them (the pose-graph
 correction, `load_checkpoint`), and what a frame keeps past itself is
 copied out in one copy (`CapturedStep.take`). `capture=False` asks for the
 eager twin; `capture=True` on the CPU runs the captured path's buffer rules
-eagerly. The sharded system runs eagerly. Random draws come from a
+eagerly. The sharded system captures the same programs: its frame graph
+holds the sharded step's all-gathers, all-reduces and ring transfers
+(NCCL on the card; gloo on the CPU, where `capture=True` runs the buffer
+rules eagerly), and `run_ba(distributed=True)` replays the distributed BA's
+graph an LM iteration. Random draws come from a
 `torch.Generator` seeded by
 `cfg.filter.seed`, or are injected per frame (`motion_noise`,
 `resample_u0`) so that a test can replay the reference's draws. Keyframe descriptors are int32 words carrying the reference's
@@ -315,11 +319,9 @@ class SLAMSystem:
         be = cfg.backend
         self.slam = make_filter(cfg.filter, fe)
         self.mesh, self._sharded = self._make_mesh(cfg.dist)
-        if capture and self._sharded is not None:
-            raise ValueError("SLAMSystem: the sharded step runs eagerly (capture=True)")
-        # the compiled programs as CUDA graphs (None: on the card, one device)
-        self.capture = (self.device.type == "cuda" and self._sharded is None
-                        if capture is None else bool(capture))
+        # the compiled programs as CUDA graphs (None: on the card, on one
+        # device or on a mesh)
+        self.capture = self.device.type == "cuda" if capture is None else bool(capture)
         # The CapturedSteps, built at first use: the frames by entry ("obs",
         # or "mono" / "stereo" with the image and odometry shapes), closure
         # verification by batch shape; the pose-graph solver; their pool;
@@ -933,7 +935,8 @@ class SLAMSystem:
         obs, noise, u0, has_kf): filter step, estimate, keyframe flag with
         the reference latch, and the frame's own map snapshot. Returns
         ((state, reference), (est, flag, snap, metrics)): the function
-        `CapturedStep` captures on one device, and the eager step."""
+        `CapturedStep` captures, on one device or with the sharded step's
+        collectives inside, and the eager step."""
         state, last_kf = carry
         if self._sharded is not None:
             state, metrics = self._sharded.step(state, x["u"], x["obs"],
@@ -1255,7 +1258,7 @@ class SLAMSystem:
         tree, _ = ckpt.load_checkpoint(path_prefix + ".state.npz", tmpl)
         self.graph = tree["graph"]
         if self._sharded is not None:
-            self.state = self._sharded.shard_state(tree["state"], device=self.device)
+            self._set_state(self._sharded.shard_state(tree["state"], device=self.device))
         else:
             self._set_state(tree["state"])
         self.generator.set_state(tree["key"])
@@ -1419,7 +1422,9 @@ class SLAMSystem:
         ranks made for it when the system's does not fit: 1 x 1 on one
         process with map_axis = 1, as the reference's
         `make_mesh(n_devices=map_axis)` on one device). The pose graph's
-        edges are not fused, as in the reference. Returns a `BAResult`."""
+        edges are not fused, as in the reference. Captured (`self.capture`),
+        an LM iteration replays the mesh's graph of the problem's shapes
+        (`dist_ba.CapturedDistBA`). Returns a `BAResult`."""
         be, d = self.cfg.backend, self.cfg.dist
         mesh = self.mesh
         if mesh is None or mesh.shape[mesh_mod.MAP_AXIS] != d.map_axis:
@@ -1429,7 +1434,7 @@ class SLAMSystem:
         sp = dist_ba.shard_problem(prob, d.map_axis)
         res_prob, costs = dist_ba.optimize_ba_distributed(
             self.camera, sp, mesh, iters=iters or be.gn_iters, lam=be.lm_damping_init,
-            pcg_iters=be.pcg_iters, huber_delta=be.huber_delta)
+            pcg_iters=be.pcg_iters, huber_delta=be.huber_delta, capture=self.capture)
         return ba_mod.BAResult(problem=res_prob, costs=costs,
                                pcg_residuals=torch.zeros_like(costs))
 

@@ -26,7 +26,6 @@ resample and `lax.scan` runner.
     captured system.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +48,8 @@ from parakeet_slam_tpu_torch.data.panoramic import make_panoramic_world
 from parakeet_slam_tpu_torch.eval.kernel_inputs import drive_observations, panoramic_observations
 from parakeet_slam_tpu_torch.filter import captured, make_filter, run_sequence
 from parakeet_slam_tpu_torch.filter.runner import draw_noise
+from tests import torch_dist_worker as W
+from tests.torch_dist_worker import HostRead
 
 FIELDS = ("pose", "log_w", "lm_mean", "lm_cov", "lm_sig", "lm_desc", "lm_valid", "lm_count")
 SMALL = dict(num_particles=16, max_landmarks=64, max_observations=8, sig_dim=3,
@@ -78,37 +79,22 @@ def _assert_states_equal(a, b, what):
 # -- (a) capture safety --------------------------------------------------------
 
 
-class HostRead(AssertionError):
-    pass
-
-
-def _refuse(name):
-    def refuse(*args, **kwargs):
-        raise HostRead(f"{name} inside the step")
-
-    return refuse
-
-
-def _device_index_only(get):
-    def checked(self, idx, *value):
-        for i in (idx if isinstance(idx, tuple) else (idx,)):
-            if isinstance(i, torch.Tensor) and (i.dim() == 0 or i.dtype == torch.bool):
-                raise HostRead("indexing with a 0-dim or boolean tensor inside the step")
-        return get(self, idx, *value)
-
-    return checked
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test, restored after it: a test of many
+    small ops slows by orders of magnitude in torch's thread pool when the
+    test workers oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def no_host_reads(mp):
     """Make the Python-level host reads and host-to-device copies raise
     (module docstring, (a)) for the rest of the monkeypatch context."""
-    for name in ("__bool__", "item", "tolist", "cpu", "numpy", "__int__", "__float__",
-                 "__index__", "nonzero"):
-        mp.setattr(torch.Tensor, name, _refuse(f"Tensor.{name}"))
-    for name in ("tensor", "as_tensor", "nonzero", "masked_select"):
-        mp.setattr(torch, name, _refuse(f"torch.{name}"))
-    mp.setattr(torch.Tensor, "__getitem__", _device_index_only(torch.Tensor.__getitem__))
-    mp.setattr(torch.Tensor, "__setitem__", _device_index_only(torch.Tensor.__setitem__))
+    for obj, name, fn in W.host_read_patches():
+        mp.setattr(obj, name, fn)
 
 
 def _corridor_frames(frames=2):
@@ -447,8 +433,35 @@ def test_captured_system_equals_the_eager_system(desk, tmp_path):
     assert not torch.equal(est[0], est[1])
 
 
-def test_capture_is_refused_on_the_sharded_path(desk, monkeypatch):
-    cfg, _, _ = desk
-    monkeypatch.setattr(system.SLAMSystem, "_make_mesh", lambda self, d: (None, object()))
-    with pytest.raises(ValueError, match="sharded"):
-        system.SLAMSystem(dataclasses.replace(cfg), device="cpu", capture=True)
+def test_capture_is_refused_on_the_sharded_path(desk, monkeypatch, tmp_path, one_thread):
+    """The sharded system no longer refuses capture=True: on the 1 x 1 mesh
+    (no process group; every collective the identity) the captured sharded
+    system equals the eager sharded system and the one-device system bit
+    for bit, its state written into its static buffers, across a
+    save/load round trip into a fresh captured sharded system. The
+    2-rank case is tests/test_torch_config5.py's."""
+    from parakeet_slam_tpu_torch.dist import mesh as mesh_mod
+    from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
+
+    cfg, images, odom = desk
+    one = system.SLAMSystem(cfg, device="cpu", capture=False)
+    monkeypatch.setattr(system.SLAMSystem, "_make_mesh",
+                        lambda self, d: (lambda m: (m, ShardedFastSLAM(self.slam, m)))(
+                            mesh_mod.make_mesh()))
+    eager = system.SLAMSystem(cfg, device="cpu", capture=False)
+    static = system.SLAMSystem(cfg, device="cpu", capture=True)
+    assert static._sharded is not None and static.capture and not eager.capture
+    prefix = str(tmp_path / "snap")
+    for t in range(SYS_FRAMES):
+        if t == SAVE_AT:
+            static.save_checkpoint(prefix)
+            static = system.SLAMSystem(cfg, device="cpu", capture=True)
+            static.load_checkpoint(prefix)
+        buffers = [t_.data_ptr() for t_ in captured.leaves((static.state, static._last_kf_dev))]
+        a, b, c = (s.process_frame(images[t], odom[t]) for s in (eager, static, one))
+        assert torch.equal(a, b) and torch.equal(a, c), f"frame {t}: estimates differ"
+        _assert_states_equal(static.state, eager.state, f"frame {t}")
+        _assert_states_equal(static.state, one.state, f"frame {t}")
+        assert [t_.data_ptr() for t_ in
+                captured.leaves((static.state, static._last_kf_dev))] == buffers
+    assert static._frame_steps and not eager._frame_steps

@@ -49,6 +49,30 @@ def test_sharded_system_equals_one_device(run, what):
     np.testing.assert_array_equal(r1[what], r0[what])
 
 
+@pytest.mark.parametrize("what", RECORD)
+def test_captured_sharded_system_equals_eager_and_one_device(run, what):
+    """`SLAMSystem(capture=True)` on the 2-rank mesh (the captured path's
+    buffer rules: one CapturedStep a frame over the sharded step, eager on
+    the CPU) against the eager sharded system and the one-device system on
+    the same frames and draws, bit for bit, on both ranks."""
+    _, (r0, r1) = run
+    assert bool(r0["cap_capture"]) and bool(r1["cap_capture"])
+    np.testing.assert_array_equal(r0[f"cap_{what}"], r0[what])
+    np.testing.assert_array_equal(r0[f"cap_{what}"], r0[f"one_{what}"])
+    np.testing.assert_array_equal(r1[f"cap_{what}"], r0[what])
+
+
+def test_captured_sharded_system_resumes_and_solves(run):
+    """The captured mesh system's own snapshot after frame 6, loaded into a
+    fresh captured mesh system (written into its static state buffers),
+    continues as the uninterrupted run; its distributed BA through the
+    captured step costs what the eager system's does."""
+    _, (r0, r1) = run
+    for r in (r0, r1):
+        np.testing.assert_array_equal(r["cap_est_resumed"], r0["est"][W.SYSTEM_CUT:])
+        np.testing.assert_array_equal(r["cap_ba_cost_sharded"], r0["ba_cost_sharded"])
+
+
 def test_sharded_snapshot_resumes_on_the_mesh_and_on_one_device(run):
     """The snapshot the mesh wrote after frame 6 (the reference's global
     layout, from rank 0) continued by a sharded system and by a one-device
@@ -81,7 +105,12 @@ def test_config5_demo_rows(run):
     assert online["bench"] == "online_sharded_filter" and online["mesh"] == {"dcn": 2, "ici": 1}
     assert online["keyframes"] >= 1 and online["frames_per_s"] > 0
     assert online["parity_vs_one_device"] is True
+    # the eager twin beside the default (eager as well on the CPU)
+    assert online["frames_per_s_eager"] > 0 and online["captured_equals_eager"] is True
     assert ring["parity_vs_reference"] and ring["devices"] == 2
+    assert ring["ms_eager"] > 0 and ring["captured_equals_eager"] is True
+    assert all(r["lm_iters_per_s_eager"] > 0 and r["captured_equals_eager"] for r in ba)
+    assert online["ranks_agree"] and ring["ranks_agree"] and all(r["ranks_agree"] for r in ba)
     assert [r["map_shards"] for r in ba] == [1, 2]
     assert all(np.isfinite(r["final_cost"]) and r["obs"] == 12800 for r in ba)
     np.testing.assert_allclose(ba[1]["final_cost"], ba[0]["final_cost"], rtol=1e-4)

@@ -45,6 +45,21 @@ def _state_inputs(rng, P=16, L=8):
     }
 
 
+def _lanes_inputs(rng, P=16, L=8):
+    """States for `best_particle_lanes`: maps with -0.0 lanes, and weights
+    whose top value ties within rank 0, within rank 1 and across ranks."""
+    mean = rng.normal(size=(P, L, 2)).astype(np.float32)
+    mean[:, ::3] = -0.0
+    inp = {"lanes_lm_mean": mean, "lanes_lm_valid": rng.random((P, L)) > 0.5,
+           "lanes_lm_desc": rng.integers(-2**31, 2**31, (P, L, 3)).astype(np.int32),
+           "lanes_lm_count": rng.integers(0, 9, (P, L)).astype(np.int32)}
+    for case, top in (("tie_rank0", (5, 2)), ("tie_rank1", (14, 12)), ("tie_across", (11, 6))):
+        lw = rng.normal(size=P).astype(np.float32) - 10.0
+        lw[list(top)] = 3.0
+        inp[f"lanes_log_w_{case}"] = lw
+    return inp
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     out = tmp_path_factory.mktemp("torch_dist")
@@ -56,6 +71,7 @@ def run(tmp_path_factory):
         tree_b=np.ones((32, 3, 2), np.float32) * np.arange(32, dtype=np.float32)[:, None, None],
         tree_idx=np.arange(32)[::-1].copy(),
         **_state_inputs(rng),
+        **_lanes_inputs(rng),
     )
     np.savez(out / "inputs.npz", **inp)
     stdout = W.spawn("dist", out)
@@ -90,12 +106,25 @@ def test_mesh_layout_groups_and_row_blocks(run):
 
 
 def test_ring_gather_matches_global_take_and_jax(run):
+    """The ring gather in the reference's form (fixed shapes, each output
+    row taken at the ring step whose block holds its source): an array
+    payload and a ParticleState payload, whose leaves travel through the
+    source-window gather's twin, equal the global take and JAX's
+    `ring_gather_rows` under `shard_map` on the same indices."""
     out, inp, _ = run
-    got = np.concatenate([g["array"] for g in _both(out, "ring_gather")])
+    parts = _both(out, "ring_gather")
+    got = np.concatenate([g["array"] for g in parts])
     want = inp["array_payload"][inp["array_idx"]]
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, _jax_ring_gather(jnp.asarray(inp["array_payload"]),
                                                         inp["array_idx"]))
+    # (the zero-width lm_sig leaf is held to the global take below)
+    leaves = [f for f in STATE_FIELDS if f != "log_w" and inp[f"state_{f}"].size]
+    ref = _jax_ring_gather({f: jnp.asarray(inp[f"state_{f}"]) for f in leaves}, inp["state_idx"])
+    for f in leaves:
+        got = np.concatenate([g[f"state_{f}"] for g in parts])
+        np.testing.assert_array_equal(got.view(ref[f].dtype) if f == "lm_desc" else got, ref[f],
+                                      err_msg=f)
 
 
 def test_ring_gather_pytree_payload(run):
@@ -140,6 +169,64 @@ def test_sharded_step_equals_one_device(run, case):
     assert d["o_lm_valid"].sum() > 0
 
 
+@pytest.mark.parametrize("case", ["corridor", "equirect_fs1", "pinhole_fs2"])
+def test_sharded_step_captured_equals_eager_and_one_device(run, case):
+    """2 ranks: the sharded step through `CapturedStep(graph=False)` (the
+    captured path's buffer rules), frame by frame, against the eager
+    sharded step and `FastSLAM.step` on the same draws: the global state
+    after every frame (its digest), every estimate, ESS, resample decision
+    and match fraction bit-equal; `run_sequence` over the sharded filter
+    with capture=True ends in the same state and estimates. The corridor
+    has frames without a resample, where the ring gather runs at the
+    identity indices and must leave the state as it was."""
+    out, _, _ = run
+    d = W.load(out, case)
+    np.testing.assert_array_equal(d["digests_c"], d["digests"])
+    np.testing.assert_array_equal(d["digests"], d["digests1"])
+    for k in ("est", "ess", "resampled", "match_frac"):
+        np.testing.assert_array_equal(d[f"{k}_c"], d[k], err_msg=k)
+    np.testing.assert_array_equal(d["est_seq"], d["est"])
+    np.testing.assert_array_equal(d["resampled_seq"], d["resampled"])
+    for f in STATE_FIELDS:
+        np.testing.assert_array_equal(d[f"c_{f}"], d[f"o_{f}"], err_msg=f)
+        np.testing.assert_array_equal(d[f"q_{f}"], d[f"o_{f}"], err_msg=f)
+    np.testing.assert_array_equal(W.load(out, case, 1)["digests_c"], d["digests"])
+    if case == "corridor":
+        assert (~d["resampled"]).sum() >= 2 and d["resampled"].sum() >= 2
+
+
+def test_sharded_step_reads_nothing_on_the_host(run):
+    """An eager sharded step with a resample and one without (the ring
+    gather and its transfers run in both), the estimate and
+    `best_particle_lanes`, on 2 ranks with `Tensor.__bool__`, `item`,
+    `tolist`, `cpu`, `__int__` (and the other host reads of
+    tests/test_torch_capture.py's guard) made to raise."""
+    out, _, _ = run
+    for r in (0, 1):
+        rec = json.loads((out / f"guard_r{r}.json").read_text())
+        for name in ("frame_1", "frame_2", "estimate", "best_particle_lanes"):
+            assert rec[name] == "ok", (r, name, rec[name])
+        assert rec["frame_1_resampled"] and not rec["frame_2_resampled"], rec
+
+
+@pytest.mark.parametrize("case", ["tie_rank0", "tie_rank1", "tie_across"])
+def test_best_particle_lanes_on_a_tie_across_ranks(run, case):
+    """The best particle's lanes on every rank bit for bit as the
+    one-device argmax row (the first of the tied weights), -0.0 lanes
+    kept: each rank offers its row and keeps the owner's, no sum."""
+    out, inp, _ = run
+    b = int(np.argmax(inp[f"lanes_log_w_{case}"]))
+    for r in (0, 1):
+        d = W.load(out, "lanes", r)
+        for k, f in (("mean", "lm_mean"), ("valid", "lm_valid"), ("desc", "lm_desc"),
+                     ("count", "lm_count")):
+            want = inp[f"lanes_{f}"][b]
+            got = d[f"{case}_{k}"]
+            assert got.dtype == want.dtype or f == "lm_desc", f
+            np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8), err_msg=f)
+    assert (np.signbit(inp["lanes_lm_mean"][b]) & (inp["lanes_lm_mean"][b] == 0)).any()
+
+
 def test_resampling_preserves_global_semantics(run):
     """tests/test_dist.py's case: degenerate weights on particle 5 (rank 0's
     rows); after the sharded resample every particle on both ranks carries
@@ -172,6 +259,8 @@ def test_scaling_harness_rows(run):
     assert all(r["steps_per_s"] > 0 for r in rows) and rows[0]["efficiency"] == 1.0
     assert rows[0]["ring_shift_ms"] == 0.0 and rows[1]["ring_shift_ms"] > 0.0
     assert all(r["all_reduce_ms"] > 0.0 and len(r["warmup_frame_ms"]) == 3 for r in rows)
+    # the eager step's A/B beside the default (on the CPU both are eager)
+    assert all(r["steps_per_s_eager"] > 0 for r in rows) and rows[0]["efficiency_eager"] == 1.0
     assert json.loads((out / "scaling_r1.json").read_text()) == []
     assert [json.loads(line) for line in stdout[0].splitlines()] == rows
 

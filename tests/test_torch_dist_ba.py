@@ -85,6 +85,29 @@ def test_2d_matches_jax_distributed(problem, run):
 
 
 @pytest.mark.parametrize("two_d", [False, True])
+def test_captured_equals_eager_and_jax(problem, run, two_d):
+    """2 ranks: `capture=True` (the captured path's buffer rules, one
+    CapturedStep an LM iteration, eager on the CPU) equals `capture=False`
+    bit for bit in costs, poses and points, on both ranks; its costs stay
+    within the bar above (rtol 1e-3) of JAX's distributed solver."""
+    cam, prob, _, _ = problem
+    key = "2d" if two_d else "1d"
+    if two_d:
+        _, jc = j_dist_ba.optimize_ba_distributed_2d(
+            cam, j_dist_ba.shard_problem_2d(prob, 1, 2), j_make_mesh(n_devices=2, map_axis=1),
+            **W.BA_KW)
+    else:
+        _, jc = j_dist_ba.optimize_ba_distributed(
+            cam, j_dist_ba.shard_problem(prob, 2), j_make_mesh(n_devices=2, map_axis=2),
+            **W.BA_KW)
+    for g in run:
+        for what in ("cam", "pts", "costs"):
+            np.testing.assert_array_equal(g[f"cap_{what}_{key}"], g[f"{what}_{key}"],
+                                          err_msg=what)
+        np.testing.assert_allclose(g[f"cap_costs_{key}"], np.asarray(jc), rtol=1e-3)
+
+
+@pytest.mark.parametrize("two_d", [False, True])
 def test_two_ranks_match_one_rank(problem, run, two_d):
     """World size 2 against the 1 x 1 mesh (no process group): costs within
     rtol 1e-4, poses within 1e-4."""

@@ -73,6 +73,28 @@ def test_ring_top2_matches_jax_and_dense(run, case):
         assert ties.sum() >= 10
 
 
+@pytest.mark.parametrize("case", ["random", "ties"])
+def test_captured_ring_equals_eager_and_jax(run, case):
+    """The ring under its CapturedStep (the captured path's buffer rules,
+    the batched sends and receives inside; called twice, the second time
+    over the same step's static buffers) equals the eager ring bit for bit,
+    and so the dense match and JAX's ring as above; `ring_match` with its
+    ratio test in the same step finds the exact hits."""
+    inp, got = run
+    qd, db, dbv = inp[f"{case}_qd"], inp[f"{case}_db"], inp[f"{case}_dbv"]
+    _, jb1, jb2 = _jax_ring(qd, db, dbv)
+    for g in got:
+        for k in (0, 1):
+            for n in ("bi", "b1", "b2"):
+                np.testing.assert_array_equal(g[f"cap{k}_{case}_{n}"], g[f"{case}_{n}"])
+            np.testing.assert_array_equal(g[f"cap{k}_{case}_b1"], jb1)
+            np.testing.assert_array_equal(g[f"cap{k}_{case}_b2"], jb2)
+            np.testing.assert_array_equal(g[f"cap{k}_hit_idx"], [77, 78])
+            np.testing.assert_array_equal(g[f"cap{k}_hit_dist"], [0, 0])
+        # one step for each query shape's top-2 (32 and 48 queries), one for the match
+        assert int(g["programs"]) == 3
+
+
 def test_ring_match_exact_hit(run):
     """tests/test_ring_match.py::test_ring_match_exact_hit: copies of global
     rows 77 and 78 (rank 1's block) match them at distance 0."""

@@ -174,14 +174,28 @@ def vision_case(model, algorithm, frames=6, P=16, L=32, Z=8, n_valid=6, W=8, see
     return fc, fe, np.concatenate([t0, q], 1).astype(np.float32), steps
 
 
-def run_filter(fc, fe, init, steps, mesh=None, seed=0):
-    """Run the steps with the draws of one generator: sharded over `mesh`,
-    or on one device. Returns (per-frame est [T, D], ess [T], resampled
-    [T], match_frac [T], the global final state)."""
+def _digest(st) -> str:
+    """SHA-256 of every leaf's bytes of a state, in field order."""
+    import hashlib
+
+    from parakeet_slam_tpu_torch.core.state import state_to_numpy
+
+    h = hashlib.sha256()
+    for v in state_to_numpy(st).values():
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def run_filter(fc, fe, init, steps, mesh=None, seed=0, captured_step=False):
+    """Run the steps with the draws of one generator: sharded over `mesh`
+    (eagerly, or with `captured_step` through `CapturedStep(graph=False)`,
+    the captured path's buffer rules, frame by frame), or on one device.
+    Returns (per-frame est [T, D], ess [T], resampled [T], match_frac [T],
+    the global final state, the global state's digest after each frame)."""
     import torch
 
     from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
-    from parakeet_slam_tpu_torch.filter import make_filter
+    from parakeet_slam_tpu_torch.filter import captured, make_filter
     from parakeet_slam_tpu_torch.filter.runner import draw_noise
 
     slam = make_filter(fc, fe)
@@ -197,19 +211,65 @@ def run_filter(fc, fe, init, steps, mesh=None, seed=0):
         init = torch.as_tensor(init)
         full = init.expand(P, -1) if init.dim() == 1 else init
         st = st.replace(pose=(full if mesh is None else sh.local_draws(full)).clone())
-    est, ess, res, mf = [], [], [], []
+    cs = None
+    if captured_step:
+        u, obs = steps[0]
+
+        def frame(state, x):
+            state, m = sh.step(state, x["u"], x["obs"], x["noise"], x["u0"])
+            return state, (sh.estimate_pose(state), m)
+
+        cs = captured.CapturedStep(frame, st, {"u": u.clone(), "obs": captured.clone(obs),
+                                               "noise": noise[0].clone(), "u0": u0[0].clone()},
+                                   graph=False)
+    est, ess, res, mf, digests = [], [], [], [], []
     for t, (u, obs) in enumerate(steps):
         if mesh is None:
             st, m = slam.step(st, u, obs, noise[t], u0[t])
             est.append(slam.estimate_pose(st))
+        elif cs is not None:
+            captured.copy_into(cs.inputs, {"u": u, "obs": obs, "noise": noise[t], "u0": u0[t]})
+            cs()
+            e, m = cs.take()
+            st = cs.state
+            est.append(e)
         else:
             st, m = sh.step(st, u, obs, sh.local_draws(noise[t]), u0[t])
             est.append(sh.estimate_pose(st))
         ess.append(float(m.ess))
         res.append(bool(m.resampled))
         mf.append(float(m.match_frac))
+        digests.append(_digest(st if mesh is None else sh.gather_state(st)))
     final = st if mesh is None else sh.gather_state(st)
-    return torch.stack(est), np.array(ess), np.array(res), np.array(mf), final
+    return torch.stack(est), np.array(ess), np.array(res), np.array(mf), final, digests
+
+
+def run_sequence_sharded(fc, fe, init, steps, mesh, seed=0):
+    """`filter.run_sequence` over the sharded filter with the captured
+    path's buffer rules (capture=True, eager on the CPU), on the draws of
+    `run_filter`: (est [T, D], resampled [T], the global final state)."""
+    import torch
+
+    from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
+    from parakeet_slam_tpu_torch.filter import make_filter, run_sequence
+    from parakeet_slam_tpu_torch.filter.runner import draw_noise
+
+    slam = make_filter(fc, fe)
+    P = fc.num_particles
+    noise, u0 = draw_noise(len(steps), P, slam.noise_dim, torch.Generator().manual_seed(seed),
+                           "cpu")
+    sh = ShardedFastSLAM(slam, mesh)
+    st = sh.init_state(device="cpu")
+    if init is not None:
+        init = torch.as_tensor(init)
+        st = st.replace(pose=sh.local_draws(init.expand(P, -1) if init.dim() == 1
+                                            else init).clone())
+    seq = [torch.stack([getattr(o, k) for _, o in steps]) for k in ("z", "sig", "valid")]
+    st, est, metrics = run_sequence(sh, st, torch.stack([u for u, _ in steps]), *seq,
+                                    motion_noise=noise, resample_u0=u0,
+                                    obs_desc=torch.stack([o.desc for _, o in steps]),
+                                    capture=True)
+    return est, np.array([bool(m.resampled) for m in metrics]), sh.gather_state(st)
 
 
 def _filter_runs(out, mesh, rank):
@@ -219,12 +279,20 @@ def _filter_runs(out, mesh, rank):
         "pinhole_fs2": vision_case("pinhole_3d", "fastslam2"),
     }
     for name, (fc, fe, init, steps) in cases.items():
-        est, ess, res, mf, final = run_filter(fc, fe, init, steps, mesh)
+        est, ess, res, mf, final, dig = run_filter(fc, fe, init, steps, mesh)
+        estc, essc, resc, mfc, finalc, digc = run_filter(fc, fe, init, steps, mesh,
+                                                         captured_step=True)
+        ests, ress, finals = run_sequence_sharded(fc, fe, init, steps, mesh)
+        rec = dict(est=est, ess=ess, resampled=res, match_frac=mf, digests=np.array(dig),
+                   est_c=estc, ess_c=essc, resampled_c=resc, match_frac_c=mfc,
+                   digests_c=np.array(digc), est_seq=ests, resampled_seq=ress,
+                   **_state_arrays("s_", final), **_state_arrays("c_", finalc),
+                   **_state_arrays("q_", finals))
         if rank == 0:
-            est1, ess1, res1, mf1, final1 = run_filter(fc, fe, init, steps)
-            _save(out, name, est=est, ess=ess, resampled=res, match_frac=mf,
-                  est1=est1, ess1=ess1, resampled1=res1, match_frac1=mf1,
-                  **_state_arrays("s_", final), **_state_arrays("o_", final1))
+            est1, ess1, res1, mf1, final1, dig1 = run_filter(fc, fe, init, steps)
+            rec.update(est1=est1, ess1=ess1, resampled1=res1, match_frac1=mf1,
+                       digests1=np.array(dig1), **_state_arrays("o_", final1))
+        _save(out, name, **rec)
 
 
 def _resample_semantics(out, mesh):
@@ -301,6 +369,123 @@ def _ring_gathers(out, mesh, rank):
           **_state_arrays("state_", gst))
 
 
+class HostRead(AssertionError):
+    pass
+
+
+def host_read_patches() -> list:
+    """(object, attribute, replacement) of the host-read guard: the
+    Python-level reads of the device on the host and copies from it,
+    `Tensor.__bool__`, `item`, `tolist`, `cpu`, `numpy`, `__int__`,
+    `__float__`, `__index__`, `nonzero`, `torch.tensor`, `torch.as_tensor`,
+    `torch.nonzero` and `torch.masked_select`, raise `HostRead`, and so does
+    indexing with a 0-dim tensor (torch reads it on the host) or a boolean
+    one (through `nonzero`). tests/test_torch_capture.py applies them with
+    monkeypatch, the ranks here with `no_host_reads`."""
+    import torch
+
+    def refuse(name):
+        def fn(*args, **kwargs):
+            raise HostRead(f"{name} inside the step")
+
+        return fn
+
+    def device_index_only(get):
+        def checked(self, idx, *value):
+            for i in (idx if isinstance(idx, tuple) else (idx,)):
+                if isinstance(i, torch.Tensor) and (i.dim() == 0 or i.dtype == torch.bool):
+                    raise HostRead("indexing with a 0-dim or boolean tensor inside the step")
+            return get(self, idx, *value)
+
+        return checked
+
+    return ([(torch.Tensor, n, refuse(f"Tensor.{n}")) for n in (
+        "__bool__", "item", "tolist", "cpu", "numpy", "__int__", "__float__", "__index__",
+        "nonzero")]
+        + [(torch, n, refuse(f"torch.{n}")) for n in ("tensor", "as_tensor", "nonzero",
+                                                       "masked_select")]
+        + [(torch.Tensor, n, device_index_only(getattr(torch.Tensor, n)))
+           for n in ("__getitem__", "__setitem__")])
+
+
+@contextlib.contextmanager
+def no_host_reads():
+    """`host_read_patches` applied inside the block."""
+    saved = []
+    for obj, name, fn in host_read_patches():
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+
+
+def _host_read_guard(out, mesh, rank):
+    """One eager sharded step with a resample and one without (the ring
+    gather runs in both), the estimate and `best_particle_lanes`, each
+    under `no_host_reads` after an unguarded warm-up frame: "ok" or what
+    raised, and whether each guarded frame resampled."""
+    import torch
+
+    from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
+    from parakeet_slam_tpu_torch.filter import make_filter
+    from parakeet_slam_tpu_torch.filter.runner import draw_noise
+
+    fc, fe, init, steps = corridor_case()
+    slam = make_filter(fc, fe)
+    sh = ShardedFastSLAM(slam, mesh)
+    noise, u0 = draw_noise(len(steps), fc.num_particles, slam.noise_dim,
+                           torch.Generator().manual_seed(0), "cpu")
+    box = [sh.init_state(device="cpu")]
+
+    def frame(t):
+        u, obs = steps[t]
+        box[0], m = sh.step(box[0], u, obs, sh.local_draws(noise[t]), u0[t])
+        return m
+
+    frame(0)
+    rec = {}
+    calls = {"frame_1": lambda: frame(1), "frame_2": lambda: frame(2),
+             "estimate": lambda: sh.estimate_pose(box[0]),
+             "best_particle_lanes": lambda: sh.best_particle_lanes(box[0])}
+    for name, fn in calls.items():
+        try:
+            with no_host_reads():
+                got = fn()
+        except HostRead as e:
+            rec[name] = str(e)
+            continue
+        rec[name] = "ok"
+        if name.startswith("frame"):
+            rec[f"{name}_resampled"] = bool(got.resampled)
+    (out / f"guard_r{rank}.json").write_text(json.dumps(rec))
+
+
+def _best_lanes(out, mesh):
+    """`best_particle_lanes` of the test's states (ties of the top weight
+    within and across ranks, -0.0 lanes) on this rank's rows."""
+    import torch
+
+    from parakeet_slam_tpu_torch.core.config import FilterConfig
+    from parakeet_slam_tpu_torch.dist.sharded_filter import ShardedFastSLAM
+    from parakeet_slam_tpu_torch.filter import FastSLAM
+
+    inp = np.load(out / "inputs.npz")
+    cfg = FilterConfig(num_particles=16, max_landmarks=8, max_observations=4, sig_dim=3)
+    sh = ShardedFastSLAM(FastSLAM(cfg), mesh)
+    rec = {}
+    for case in ("tie_rank0", "tie_rank1", "tie_across"):
+        st = sh.init_state(device="cpu")
+        st = st.replace(**{f: sh.local_draws(torch.as_tensor(inp[f"lanes_{f}"])).clone()
+                           for f in ("lm_mean", "lm_valid", "lm_desc", "lm_count")},
+                        log_w=sh.local_draws(torch.as_tensor(inp[f"lanes_log_w_{case}"])).clone())
+        got = sh.best_particle_lanes(st)
+        rec.update({f"{case}_{k}": v for k, v in zip(("mean", "valid", "desc", "count"), got)})
+    _save(out, "lanes", **rec)
+
+
 CLI_ARGS = ["run", "--config", "configs/panoramic.yaml", "--device", "cpu", "--set",
             "filter.num_particles=8", "filter.max_landmarks=64", "filter.max_observations=16",
             "frontend.image_size=[48,96]", "frontend.max_features=16", "data.num_steps=5",
@@ -335,6 +520,8 @@ def suite_dist(out: Path):
     _ring_gathers(out, mesh, rank)
     _resample_semantics(out, mesh)
     _filter_runs(out, mesh, rank)
+    _host_read_guard(out, mesh, rank)
+    _best_lanes(out, mesh)
     rows = measure_scaling(device="cpu", particles_per_device=16, max_landmarks=64, steps=3)
     (out / f"scaling_r{rank}.json").write_text(json.dumps(rows))
 
@@ -357,12 +544,21 @@ def suite_ring(out: Path):
     for case in ("random", "ties"):
         qd = torch.as_tensor(inp[f"{case}_qd"])
         db, dbv = torch.as_tensor(inp[f"{case}_db"]), torch.as_tensor(inp[f"{case}_dbv"])
-        bi, b1, b2 = ring_hamming_top2(qd, torch.ones(qd.shape[0], dtype=torch.bool),
-                                       rows.take(db), rows.take(dbv), mesh)
+        qv = torch.ones(qd.shape[0], dtype=torch.bool)
+        bi, b1, b2 = ring_hamming_top2(qd, qv, rows.take(db), rows.take(dbv), mesh)
         res.update({f"{case}_bi": bi, f"{case}_b1": b1, f"{case}_b2": b2})
+        # through its CapturedStep (the captured path's buffer rules), twice:
+        # the second call runs the same step over its static buffers
+        for k in range(2):
+            got = ring_hamming_top2(qd, qv, rows.take(db), rows.take(dbv), mesh, capture=True)
+            res.update({f"cap{k}_{case}_{n}": v for n, v in zip(("bi", "b1", "b2"), got)})
     db = torch.as_tensor(inp["hit_db"])
-    idx, dist = ring_match(db[77:79], torch.ones(2, dtype=torch.bool), rows.take(db),
-                           torch.ones(db.shape[0] // 2, dtype=torch.bool), mesh)
+    args = (db[77:79], torch.ones(2, dtype=torch.bool), rows.take(db),
+            torch.ones(db.shape[0] // 2, dtype=torch.bool), mesh)
+    idx, dist = ring_match(*args)
+    for k in range(2):
+        res[f"cap{k}_hit_idx"], res[f"cap{k}_hit_dist"] = ring_match(*args, capture=True)
+    res["programs"] = np.array(len(mesh.programs))
     _save(out, "ring", hit_idx=idx, hit_dist=dist, **res)
 
 
@@ -410,8 +606,15 @@ def suite_ba(out: Path):
     m2 = mesh_mod.make_mesh(map_axis=1)
     p2, c2 = dist_ba.optimize_ba_distributed_2d(cam, dist_ba.shard_problem_2d(prob, 1, 2), m2,
                                                 **BA_KW)
+    # the captured path's buffer rules (capture=True, eager on the CPU)
+    q1, d1 = dist_ba.optimize_ba_distributed(cam, dist_ba.shard_problem(prob, 2), m1,
+                                             capture=True, **BA_KW)
+    q2, d2 = dist_ba.optimize_ba_distributed_2d(cam, dist_ba.shard_problem_2d(prob, 1, 2), m2,
+                                                capture=True, **BA_KW)
     _save(out, "ba", cam_1d=p1.cam_pose, pts_1d=p1.points, costs_1d=c1,
-          cam_2d=p2.cam_pose, pts_2d=p2.points, costs_2d=c2)
+          cam_2d=p2.cam_pose, pts_2d=p2.points, costs_2d=c2,
+          cap_cam_1d=q1.cam_pose, cap_pts_1d=q1.points, cap_costs_1d=d1,
+          cap_cam_2d=q2.cam_pose, cap_pts_2d=q2.points, cap_costs_2d=d2)
 
 
 def suite_ba4(out: Path):
@@ -512,6 +715,16 @@ def suite_system(out: Path):
     resumed = SLAMSystem(pano_config(2, 1), device="cpu")
     resumed.load_checkpoint(snap)
     rec["est_resumed_sharded"] = _drive(resumed, world, images, range(SYSTEM_CUT, SYSTEM_FRAMES))
+    # the captured path's buffer rules on the mesh (capture=True: eager on
+    # the CPU), and its snapshot resumed by another captured system
+    cap = SLAMSystem(pano_config(2, 1), device="cpu", capture=True)
+    est_c = _drive(cap, world, images, frames, SYSTEM_CUT, str(out / "snap_cap"))
+    rec.update({f"cap_{k}": v for k, v in _system_record(cap, est_c).items()})
+    rec["cap_capture"] = cap.capture and cap._sharded is not None
+    rec["cap_ba_cost_sharded"] = cap.run_ba(iters=3, distributed=True).costs
+    cap_resumed = SLAMSystem(pano_config(2, 1), device="cpu", capture=True)
+    cap_resumed.load_checkpoint(str(out / "snap_cap"))
+    rec["cap_est_resumed"] = _drive(cap_resumed, world, images, range(SYSTEM_CUT, SYSTEM_FRAMES))
     # the distributed BA over two point blocks (the filter replicated on dcn)
     dcn = SLAMSystem(pano_config(1, 2), device="cpu")
     dcn.load_checkpoint(snap)
