@@ -5,7 +5,7 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
   1. environment: torch/CUDA versions, card name and power limit, TF32 flags;
-  2. build the hand-written kernels from `parakeet_slam_tpu_torch/csrc` (five
+  2. build the hand-written kernels from `parakeet_slam_tpu_torch/csrc` (six
      sources);
   2b. the 2-D update kernel's bearing wrap against the twin's
      torch.atan2(torch.sin(a), torch.cos(a)), bit for bit, over all 2^32
@@ -86,9 +86,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      closure, so that the repeat below covers one, hamming_top2 launched
      twice per closure dispatch (forward and reverse) and at least once,
      one score_3d and one measurement_update_3d launch per frame, one gather
-     a frame; frames/s (from frame 3), keyframes, dispatches, accepted
-     closures, peak device memory, and the corrected, online and
-     dead-reckoning ATE (Sim(3), not gated); then the same run again from
+     a frame, rotation_fit three times per closure verification (Horn's
+     rounds) and at least once; frames/s (from frame 3), keyframes,
+     dispatches, accepted closures, peak device memory, and the corrected,
+     online and dead-reckoning ATE (Sim(3), not gated); then the same run again from
      the same seed: keyframe count, resample count, estimates and pose-graph
      poses equal bit for bit;
   11. every keyframe-store match of phase 10, replayed through the twin:
@@ -235,13 +236,21 @@ Run from the root of a checkout on a machine with an NVIDIA H100. Phases:
      the host, and a flush frame, then 6 frames unprofiled on the host's
      clock); config 2 with
      a 2-level pyramid, 3 frames captured against eager; closure
-     verification at Nc = 1, 4, 16 candidates of F = 256 with both refines
-     (rels and inliers bit-equal, one graph launch a verify); the pose-graph
+     verification, Horn's consensus and the refine in one graph, at Nc = 1,
+     4, 16 candidates of F = 256 with both refines (rels and inliers
+     bit-equal, one graph launch and three rotation_fit launches counted a
+     verify, its host CUDA API calls, ms a verify captured and eager in
+     turns, one eager verification under the sync check); rotation_fit
+     against its twin (linalg.svd and det on the card) and a float64 Kabsch
+     fit on closure covariances and on spread, coplanar, reflected, rank-1
+     and zero matrices (HORN_TOL_F64, HORN_TOL_TWIN + HORN_TWIN_SLOPE /
+     gap; proper and optimal rotations throughout), a strided input, and its
+     device time at B = 16 and 1 beside the twin's; the pose-graph
      solve at K = 64, 256, 2048 with E = 4K, 10 LM iterations (poses and
      costs bit-equal, one graph launch a solve, ms in turns with eager,
      capture, instantiation and pool); one eager step of configs 1-4, of
      the image frame (mono, pyramid, and phase 18's stereo and pano), of
-     both refines and of the solve under
+     both verifications and of the solve under
      `torch.cuda.set_sync_debug_mode("error")`.
 On the card phases 4, 5, 7, 10, 11b, 15, 17 and 18 run the captured step
 (the default; in 10, 11b, 15 and 18 the frame's graph holds the frontend,
@@ -253,14 +262,16 @@ Every kernel's record carries its bound: the larger of the bytes it must
 move (inputs read once, outputs written once) over 3.35 TB/s and its
 operations over the card's peak for their type (67 TFLOP/s float32, 1,979
 TOP/s int8, 495 TFLOP/s TF32 at three products per multiply-add for l2_top2,
-whose record keeps the float32 figure as bound_ms_fp32), counted from the
-inputs of this run and from the arithmetic of the plain twins (OPS_2D,
-OPS_3D, CINV_OPS).
+whose record keeps the float32 figure as bound_ms_fp32, 34 TFLOP/s float64
+for rotation_fit), counted from the inputs of this run and from the
+arithmetic of the plain twins (OPS_2D, OPS_3D, CINV_OPS) or, for
+rotation_fit, of the kernel with this run's Jacobi sweeps (HORN_OPS_*).
 Exits non-zero at the first failed check, and without a result when there
 is no CUDA device or no package beside the script. The last line is
 {"ok": true, "device": {...}}, the line before it the kernels' JSON record
-(the seven kernels: ekf_update_2d, gather_rows, measurement_update_3d,
-score_3d, hamming_top2, l2_top2, apply_cinv) and the line before that the
+(the eight kernels: ekf_update_2d, gather_rows, measurement_update_3d,
+score_3d, hamming_top2, l2_top2, apply_cinv, rotation_fit) and the line
+before that the
 card's name and power limit. The records of the five kernels on config 4's
 path carry its launches as `launches_config4`, those of the four on config
 5's distributed path as `launches_config5`, those of the three on
@@ -300,6 +311,8 @@ def cuda_ms(fn, reps, prepare=None):
 # bytes/s, float32 operations/s outside the tensor cores, int8 tensor-core
 # operations/s, TF32 tensor-core operations/s.
 PEAK_BYTES, PEAK_F32, PEAK_INT8, PEAK_TF32 = 3.35e12, 67e12, 1979e12, 495e12
+# float64 operations/s outside the tensor cores (NVIDIA's H100 SXM data sheet)
+PEAK_F64 = 34e12
 
 
 def nbytes(*tensors):
@@ -1281,14 +1294,15 @@ def phase_match(device):
     return res, err, l2_launches
 
 
-def recording_dispatches(calls):
+def recording_dispatches(calls, verifies=None):
     """Make every `SLAMSystem._dispatch_loop_closure` append what it
     matched to `calls`: (query descriptors, validity, the store, its
     validity with the dispatch's eligibility mask, the forward and reverse
     tables it left pending, the ratio), for the replays through the twin
     (`phase_desk_replay`). On the card a dispatch replays its store shape's
     graph, so the record is taken at the dispatch, not inside the match.
-    Returns the function that undoes the wrap."""
+    With `verifies`, every `SLAMSystem._verify_batch` appends its batch
+    shape there. Returns the function that undoes the wraps."""
     import numpy as np
     import torch
 
@@ -1308,8 +1322,20 @@ def recording_dispatches(calls):
                           self._kf_valid_dev & eligible[:, None], fwd.clone(), rev.clone(),
                           self.cfg.frontend.match_ratio))
 
+    verify = system.SLAMSystem._verify_batch
+
+    def counting(self, pa, pb, valid):
+        verifies.append(pa.shape)
+        return verify(self, pa, pb, valid)
+
+    def undo():
+        system.SLAMSystem._dispatch_loop_closure = dispatch
+        system.SLAMSystem._verify_batch = verify
+
     system.SLAMSystem._dispatch_loop_closure = recording
-    return lambda: setattr(system.SLAMSystem, "_dispatch_loop_closure", dispatch)
+    if verifies is not None:
+        system.SLAMSystem._verify_batch = counting
+    return undo
 
 
 def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
@@ -1321,7 +1347,7 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
     from parakeet_slam_tpu_torch import cli, system
     from parakeet_slam_tpu_torch.core.config import load_config
     from parakeet_slam_tpu_torch.data.synth_vision import make_desk_world
-    from parakeet_slam_tpu_torch.kernels import match
+    from parakeet_slam_tpu_torch.kernels import horn, match
 
     cfg = load_config(os.path.join(HERE, config))
     fc, fe = cfg.filter, cfg.frontend
@@ -1346,12 +1372,19 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts_3d()
     match.hamming_top2.launches = 0
-    restore = recording_dispatches(calls)
+    horn.rotation_fit.launches = 0
+    verifies = []
+    restore = recording_dispatches(calls, verifies)
     try:
         sys_, est, fps, wall, n_res, graph_poses = run()
         launches = _counts_3d() + (match.hamming_top2.launches,)
+        horn_launches = horn.rotation_fit.launches
     finally:
         restore()
+    # the state as the run left it (sequence_ate below verifies and solves
+    # the last window's closures, as phase 19's eager run does after its
+    # comparison of the states)
+    state = {f: getattr(sys_.state, f).clone() for f in STATE_KEYS + ("lm_desc",)}
     peak = torch.cuda.max_memory_allocated()
     # the same run again from the same seed: bit for bit the same
     sys2, est2, _, _, n_res2, graph_poses2 = run()
@@ -1371,7 +1404,7 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
     print(f"desk config 2: keyframes={len(sys_.keyframes)} dispatches={len(calls)} "
           f"loop_closures={len(sys_.loop_closures)} resamples={n_res} "
           f"launches score_3d={launches[0]} update_3d={launches[1]} gather={launches[2]} "
-          f"hamming_top2={launches[3]}")
+          f"hamming_top2={launches[3]} rotation_fit={horn_launches} (verifies {len(verifies)})")
     print(f"desk config 2: ate corrected={ates[0]:.4f} m online={ates[1]:.4f} m "
           f"dead_reckoning={ates[2]:.4f} m (Sim(3), not gated)")
     check(bool(np.isfinite(est).all()) and bool(np.isfinite(est_opt).all()),
@@ -1385,11 +1418,14 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
           f"desk launches score_3d={launches[0]} update_3d={launches[1]}, frames {frames}")
     check(launches[2] == frames and n_res > 0,
           f"desk gather launches {launches[2]} (frames {frames}), resamples {n_res}")
+    check(verifies and horn_launches == HORN_ROUNDS * len(verifies),
+          f"rotation_fit launches {horn_launches}, verifies {len(verifies)} x {HORN_ROUNDS}")
     return {"fps": fps, "launches": launches, "calls": calls, "ates": ates,
+            "horn_launches": horn_launches,
             "closures": len(sys_.loop_closures), "peak_gib": peak / 2**30,
             "system": sys_, "est": est, "gt": world.gt_pose, "cfg": cfg, "images": images,
             "odom": odom, "graph_poses": graph_poses, "est_opt": est_opt,
-            "state": {f: getattr(sys_.state, f).clone() for f in STATE_KEYS + ("lm_desc",)}}
+            "state": state}
 
 
 def phase_desk_replay(calls, what="desk"):
@@ -1854,6 +1890,12 @@ def phase_run_ba(desk):
     from parakeet_slam_tpu_torch.kernels import match, schur
 
     sys_, est, gt = desk["system"], desk["est"], desk["gt"]
+    # Phase 19 ran more frames on this system and may have left keyframe
+    # flags and closure matches pending: one flush materializes the flagged
+    # keyframes and dispatches their matches, the next verifies them, so
+    # that run_ba's own flush launches nothing but the dedup.
+    sys_.flush_flags()
+    sys_.flush_flags()
     logged = []
     sys_.metrics.log = lambda frame, **rec: logged.append(rec)
     out = os.path.join(HERE, "build", "chip_smoke_run_ba")
@@ -3034,6 +3076,7 @@ def phase_bench_system(device, rendered):
 CAPTURE_PROFILE = {"corridor": (20, 20), "config 3": (1, 3)}  # eager, captured
 CAPTURE_SPLIT_FRAMES = 6    # config 2's frames 91-96, timed one by one (flushes at 92, 96)
 VERIFY_BATCHES = (1, 4, 16)  # closure candidates a flush window, F = 256
+VERIFY_TURNS = 4            # steady verifies a batch shape, captured and eager in turns
 POSEGRAPH_K = (64, 256, 2048)  # keyframes of the solve at E = 4K, 10 LM iterations
 POSEGRAPH_TURNS = 2
 
@@ -3407,6 +3450,7 @@ def phase_captured(device, desk):
 
     res["pyramid"] = check_pyramid_frame(device, desk)
     res["verify"] = check_verify(device, cfg2)
+    res["rotation_fit"] = check_rotation_fit(device)
     res["posegraph"] = check_posegraph(device)
     check_offline_sync(device, cfg2)
     print(f"captured vs eager pyramid, verify, pose graph, offline programs: "
@@ -3486,17 +3530,22 @@ def _correspondences(rng, F, n, outliers):
 
 
 def check_verify(device, cfg2):
-    """Closure verification (`SLAMSystem._verify_batch`) captured against
-    eager at Nc = 1, 4, 16 candidates of F = 256 correspondences, with the
-    reprojection refine and the depth-relaxed one: three batches each (the
-    warm-up, the capture, a replay), rels and inliers bit-equal; one graph
-    launch a verify; one eager refine of each under the sync check."""
+    """Closure verification (`SLAMSystem._verify_batch`: Horn's three
+    consensus rounds with `rotation_fit`, then the refine, one graph)
+    captured against eager at Nc = 1, 4, 16 candidates of F = 256
+    correspondences, with the reprojection refine and the depth-relaxed
+    one: three batches each (the warm-up, the capture, a replay), rels and
+    inliers bit-equal; then VERIFY_TURNS more in turns on the host's clock;
+    one graph launch, HORN_ROUNDS rotation_fit launches counted and the host
+    CUDA API calls of a verify under the profiler; one eager verification of
+    each under the sync check."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from parakeet_slam_tpu_torch import system
+    from parakeet_slam_tpu_torch.kernels import horn
 
     rng = np.random.default_rng(13)
     F = cfg2.frontend.max_features
@@ -3509,12 +3558,14 @@ def check_verify(device, cfg2):
         name = "depth-relaxed refine" if sigma else "refine"
         for Nc in VERIFY_BATCHES:
             ms = {"captured": [], "eager": []}
-            for _ in range(3):
-                batch = [_correspondences(rng, F, int(rng.integers(20, F)),
-                                          int(rng.integers(0, 10))) for _ in range(Nc)]
-                pa, pb, v = (np.stack([b[i] for b in batch]) for i in range(3))
+            for turn in range(3 + VERIFY_TURNS):
+                if turn < 3:
+                    batch = [_correspondences(rng, F, int(rng.integers(20, F)),
+                                              int(rng.integers(0, 10))) for _ in range(Nc)]
+                    pa, pb, v = (np.stack([b[i] for b in batch]) for i in range(3))
                 res = {}
-                for mode, s_ in (("captured", cap), ("eager", eager)):
+                order = (("captured", cap), ("eager", eager))
+                for mode, s_ in order[::-1] if turn % 2 else order:
                     torch.cuda.synchronize()
                     t1 = time.perf_counter()
                     res[mode] = s_._verify_batch(pa, pb, v)
@@ -3523,38 +3574,171 @@ def check_verify(device, cfg2):
                       and _bit_equal(res["captured"][1], res["eager"][1]),
                       f"verify {name} Nc={Nc}: captured vs eager differ")
             names = {}
-            if Nc == VERIFY_BATCHES[-1]:
-                _profile(lambda: cap._verify_batch(pa, pb, v), names=names, host=True)
-                check(names.get("cudaGraphLaunch") == 1,
-                      f"verify {name} Nc={Nc}: {names.get('cudaGraphLaunch')} graph launches")
+            _profile(lambda: cap._verify_batch(pa, pb, v), names=names, host=True)
+            check(names.get("cudaGraphLaunch") == 1,
+                  f"verify {name} Nc={Nc}: {names.get('cudaGraphLaunch')} graph launches")
             api = sum(n for k, n in names.items() if _is_api(k) and k != "cudaDeviceSynchronize")
-            print(f"captured vs eager verify ({name}) Nc={Nc} F={F}: 3 batches, rels and inliers "
-                  f"bit-equal; " + (f"1 graph launch and {api} host CUDA API calls a verify "
-                                    f"(Horn's rounds eager); " if names else "")
-                  + f"ms a verify on the host's clock captured "
-                  f"{[round(t, 3) for t in ms['captured']]} eager "
-                  f"{[round(t, 3) for t in ms['eager']]} (the first captured one eager, the "
-                  f"second the capture)")
-            out[f"{name} Nc={Nc}"] = {"ms": ms, "api_calls": api}
-        x = next(iter(cap._verify_steps.values())).inputs
-        _sync_free(f"verify {name}", lambda: eager._refine()(x["rel0"], x["pa"], x["pb"],
-                                                            x["valid"]))
-        if not sigma:  # why Horn's consensus runs eagerly before the refine's graph
-            torch.cuda.synchronize()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                eager._horn_consensus_impl(x["pa"], x["pb"], x["valid"])
-                horn = "reads nothing on the host"
-            except RuntimeError as e:
-                horn = f"waits for the device ({str(e).splitlines()[0]})"
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-            print(f"captured vs eager verify: Horn's consensus (linalg.svd) {horn}, so it runs "
-                  "eagerly before the refine's graph")
+            n0 = horn.rotation_fit.launches
+            cap._verify_batch(pa, pb, v)
+            check(horn.rotation_fit.launches == n0 + HORN_ROUNDS,
+                  f"verify {name} Nc={Nc}: rotation_fit counted "
+                  f"{horn.rotation_fit.launches - n0} launches a replay")
+            steady = {m: float(np.median(t[3:])) for m, t in ms.items()}
+            print(f"captured vs eager verify ({name}) Nc={Nc} F={F}: {3 + VERIFY_TURNS} verifies "
+                  f"of 3 batches, rels and inliers bit-equal; 1 graph launch ({HORN_ROUNDS} "
+                  f"rotation_fit among its kernels) and {api} host CUDA API calls a verify; ms a "
+                  f"verify on the host's clock captured {[round(t, 3) for t in ms['captured']]} "
+                  f"eager {[round(t, 3) for t in ms['eager']]} (the first captured one eager, "
+                  f"the second the capture; medians of the last {VERIFY_TURNS}, in turns: "
+                  f"captured {steady['captured']:.3f}, eager {steady['eager']:.3f})")
+            x = {k: torch.as_tensor(a, device=device) for k, a in (("pa", pa), ("pb", pb),
+                                                                 ("valid", v))}
+            _sync_free(f"verify {name} Nc={Nc} (Horn's consensus and the refine)",
+                       lambda: eager._verify_candidates(x["pa"], x["pb"], x["valid"]))
+            out[f"{name} Nc={Nc}"] = {"ms": ms, "steady_ms": steady, "api_calls": api}
         print(f"captured vs eager verify ({name}): {_pool_facts(cap)}")
         del cap, eager
     return out
+
+
+# Horn's rotation fit (csrc/horn.cu): the rounds of a verify, the tolerances
+# and the operations of a matrix, counted from the kernel's float64
+# arithmetic: 14 to build N; 23 a convergence test (one more test than
+# sweeps); 57 a Jacobi rotation, six a sweep; 55 to normalize q and write R.
+HORN_ROUNDS = 3
+HORN_TOL_F64 = 1e-6    # |R - float64 Kabsch| where the fit is unique
+HORN_TOL_TWIN = 1e-5   # + HORN_TWIN_SLOPE * sigma_1 / gap against the float32 SVD twin
+HORN_TWIN_SLOPE = 1e-6
+HORN_OPS_FIXED, HORN_OPS_TEST, HORN_OPS_SWEEP = 14 + 23 + 55, 23, 6 * 57
+
+
+def _horn_covariances(rng, kind, n):
+    """n float64 cross-covariances M [n, 3, 3] of one kind: "closure" from
+    `_correspondences` as Horn's first round fits them, "spread" with
+    sigma_2 / sigma_1 log-uniform in [2.5e-3, 1] and sigma_3 in [0, sigma_2
+    / 2] (so the gap sigma_2 + sign(det M) sigma_3 stays above 1e-3 sigma_1
+    and the fit unique), det of either sign and scales from 1e-2 to 1e2,
+    "coplanar" (sigma_3 = 0), "reflection" (det < 0), "rank1", "zero"."""
+    import numpy as np
+
+    if kind == "closure":
+        out = []
+        for _ in range(n):
+            pa, pb, v = _correspondences(rng, 256, int(rng.integers(20, 256)),
+                                         int(rng.integers(0, 10)))
+            w = v[:, None].astype(np.float64)
+            cnt = max(w.sum(), 1.0)
+            xa = (pa - (pa * w).sum(0) / cnt) * w  # the round fits pb ~ T(pa)
+            xb = (pb - (pb * w).sum(0) / cnt) * w
+            out.append(xb.T @ xa / cnt)
+        return np.stack(out)
+    if kind == "zero":
+        return np.zeros((n, 3, 3))
+    U, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    V, _ = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    s2 = 10.0 ** rng.uniform(-2.6, 0, n)
+    s = np.stack([np.ones(n), s2, rng.uniform(0, 0.5, n) * s2], -1)
+    if kind == "coplanar":
+        s[:, 2] = 0.0
+    if kind == "rank1":
+        s[:, 1:] = 0.0
+    M = (U * s[:, None, :]) @ np.swapaxes(V, 1, 2) * 10.0 ** rng.uniform(-2, 2, (n, 1, 1))
+    if kind == "reflection":
+        M = M * np.sign(np.linalg.det(M))[:, None, None] * np.array([1.0, 1.0, -1.0])
+    return M
+
+
+def check_rotation_fit(device):
+    """`rotation_fit` (csrc/horn.cu) against its twin, `torch.linalg.svd` and
+    `det` on the card run eagerly, and against a float64 Kabsch fit on the
+    host: on closure covariances and spread, coplanar and reflected
+    matrices, where the fit is unique, within HORN_TOL_F64 of float64 and
+    within HORN_TOL_TWIN + HORN_TWIN_SLOPE * sigma_1 / gap of the twin (its
+    float32 SVD's error grows as the gap, sigma_2 + sign(det M) sigma_3,
+    closes); on every kind, rank-1 and zero too, a proper rotation (R R^T =
+    I and det R = 1 within 1e-6) that is optimal (tr(R^T M) within 1e-6
+    sigma_1 of the best); a strided input; one launch counted a call. Then
+    the times at the main path's largest batch (B = 16): the kernel's
+    device time and the twin's, and the bound from this run's sweeps."""
+    import numpy as np
+    import torch
+
+    from parakeet_slam_tpu_torch.kernels import horn
+
+    rng = np.random.default_rng(29)
+    err_f64 = err_twin = 0.0
+    sweeps_seen = []
+    for kind in ("closure", "spread", "coplanar", "reflection", "rank1", "zero"):
+        M = _horn_covariances(rng, kind, 64 if kind == "closure" else 4096)
+        M32 = torch.as_tensor(M, dtype=torch.float32, device=device)
+        M = M32.double().cpu().numpy()  # the float32 input, exactly
+        sweeps = torch.zeros(len(M), dtype=torch.int32, device=device)
+        n0 = horn.rotation_fit.launches
+        R = horn.rotation_fit(M32, sweeps)
+        torch.cuda.synchronize()
+        check(horn.rotation_fit.launches == n0 + 1, f"rotation_fit {kind}: not launched")
+        R = R.double().cpu().numpy()
+        sweeps_seen.append(int(sweeps.max()))
+        U, S, Vt = np.linalg.svd(M)
+        d = np.sign(np.linalg.det(U) * np.linalg.det(Vt))
+        best = S[:, 0] + S[:, 1] + d * S[:, 2]
+        check(np.isfinite(R).all(), f"rotation_fit {kind}: not finite")
+        orth = float(np.abs(R @ np.swapaxes(R, 1, 2) - np.eye(3)).max())
+        det = float(np.abs(np.linalg.det(R) - 1.0).max())
+        gap_obj = float((np.abs(np.einsum("nij,nij->n", R, M) - best)
+                         / np.maximum(S[:, 0], 1e-30)).max())
+        check(orth <= 1e-6 and det <= 1e-6 and gap_obj <= 1e-6,
+              f"rotation_fit {kind}: |R R^T - I| {orth:.3g}, |det - 1| {det:.3g}, objective "
+              f"{gap_obj:.3g} of sigma_1 below the best")
+        line = (f"rotation_fit {kind} B={len(M)}: proper (|R R^T - I| {orth:.2g}, |det - 1| "
+                f"{det:.2g}), optimal within {gap_obj:.2g} sigma_1, sweeps <= {sweeps_seen[-1]}")
+        if kind not in ("rank1", "zero"):
+            gap = (S[:, 1] + d * S[:, 2]) / S[:, 0]
+            check(gap.min() > 1e-3, f"rotation_fit {kind}: a case with gap {gap.min():.3g}")
+            ref = ((U * np.stack([np.ones_like(d), np.ones_like(d), d], -1)[:, None, :]) @ Vt)
+            twin = horn.rotation_fit_reference(M32).double().cpu().numpy()
+            e64 = np.abs(R - ref).max((1, 2))
+            etw = np.abs(R - twin).max((1, 2))
+            tol = HORN_TOL_TWIN + HORN_TWIN_SLOPE / gap
+            check(e64.max() <= HORN_TOL_F64, f"rotation_fit {kind}: {e64.max():.3g} from float64")
+            check((etw <= tol).all(), f"rotation_fit {kind}: {int((etw > tol).sum())} matrices "
+                                      f"beyond the twin's tolerance, max {etw.max():.3g}")
+            err_f64, err_twin = max(err_f64, float(e64.max())), max(err_twin, float(etw.max()))
+            line += (f"; max |R - float64 Kabsch| {e64.max():.3g}, max |R - twin| {etw.max():.3g}"
+                     f" (gap from {gap.min():.3g})")
+        print(line)
+    # a strided view, and an empty batch
+    M32 = torch.as_tensor(_horn_covariances(rng, "spread", 100), dtype=torch.float32,
+                          device=device)
+    wide = torch.zeros(100, 4, 5, device=device)
+    wide[:, :3, 1:4] = M32
+    check(_bit_equal(horn.rotation_fit(wide[:, :3, 1:4]), horn.rotation_fit(M32)),
+          "rotation_fit: a strided input differs")
+    n0 = horn.rotation_fit.launches
+    check(horn.rotation_fit(M32[:0]).shape == (0, 3, 3) and horn.rotation_fit.launches == n0,
+          "rotation_fit: an empty batch")
+    print("rotation_fit: a strided input bit-equal to its contiguous copy; an empty batch "
+          "launches nothing")
+
+    # times at B = 16 (three launches a verify at Nc = 16); the twin's
+    # svd and det wait on the host, so its time is between CUDA events
+    # around single calls
+    B = VERIFY_BATCHES[-1]
+    M32 = torch.as_tensor(_horn_covariances(rng, "closure", B), dtype=torch.float32,
+                          device=device)
+    sweeps = torch.zeros(B, dtype=torch.int32, device=device)
+    horn.rotation_fit(M32, sweeps)
+    ms = queued_ms(lambda i: horn.rotation_fit(M32))
+    plain = cuda_ms(lambda: horn.rotation_fit_reference(M32), 20)
+    n_sweeps = int(sweeps.sum())
+    ops = HORN_OPS_FIXED * B + HORN_OPS_TEST * n_sweeps + HORN_OPS_SWEEP * n_sweeps
+    bnd = bound(2 * nbytes(M32), ops, PEAK_F64)
+    ms_b1 = queued_ms(lambda i: horn.rotation_fit(M32[:1]))
+    print(f"rotation_fit B={B}: kernel={ms:.5f} ms (B=1 {ms_b1:.5f}) twin (linalg.svd, det, "
+          f"eager)={plain:.5f} ms bound={bnd[0]:.3g} ms ({bnd[1]}: {2 * nbytes(M32)} bytes, "
+          f"{ops} float64 operations over {n_sweeps} sweeps)")
+    return {"err": err_twin, "err_f64": err_f64, "ms": ms, "ms_b1": ms_b1, "plain": plain,
+            "bound": bnd, "sweeps_max": max(sweeps_seen)}
 
 
 def check_posegraph(device):
@@ -3728,6 +3912,7 @@ def main():
     x3, x2, x4 = k3["kitti_ext"][1], k3["config2_ext"][1], k3["config4_ext"][1]
     c2f, c2r = km["closure_config2"]
     pnf, pnr = km["closure_panoramic"]
+    hf, vf = captured["rotation_fit"], captured["verify"][f"refine Nc={VERIFY_BATCHES[-1]}"]
     record = {"kernels": [
         entry("ekf_update_2d", "ekf_update_2d.cu", "parakeet_slam_tpu/kernels/ekf_update.py:443",
               launches[0], ekf_err, ekf[1], ekf[2], ekf[3],
@@ -3801,6 +3986,13 @@ def main():
               bound_ms_all_of_c=cinv["bound_laid_out"],
               launches_run_ba=sys_ba["launches"][1], launches_config4=config4["launches"][4],
               launches_config5=config5["cinv_launches"]),
+        entry("rotation_fit", "horn.cu", "parakeet_slam_tpu/backend/graph.py:461",
+              desk["horn_launches"], hf["err"], hf["ms"], hf["plain"], hf["bound"],
+              library=hf["plain"], max_abs_err_float64=hf["err_f64"], ms_b1=hf["ms_b1"],
+              sweeps_max=hf["sweeps_max"],
+              ms_verify_captured_nc16=vf["steady_ms"]["captured"],
+              ms_verify_eager_nc16=vf["steady_ms"]["eager"],
+              api_calls_verify_nc16=vf["api_calls"]),
     ]}
     print(card)
     print(json.dumps(record))

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from parakeet_slam_tpu_torch.core import geometry
+from parakeet_slam_tpu_torch.kernels import horn
 
 _FIELDS = ("poses", "node_valid", "edge_ij", "edge_rel", "edge_info", "edge_valid")
 
@@ -152,8 +153,9 @@ def graph_to_numpy(g: PoseGraph) -> dict[str, np.ndarray]:
 
 def estimate_relative_pose_3d3d(pa: torch.Tensor, pb: torch.Tensor, valid: torch.Tensor):
     """SE(3) T with pa ~ T(pb) from masked 3-D correspondences [..., N, 3]
-    (Horn/Umeyama closed form, weights = the valid mask). Turns loop-closure
-    landmark matches into pose-graph edge measurements."""
+    (Horn/Umeyama closed form, weights = the valid mask; the rotation from
+    `kernels/horn.rotation_fit`). Turns loop-closure landmark matches into
+    pose-graph edge measurements."""
     w = valid.to(pa.dtype)
     n = torch.clamp(torch.sum(w, dim=-1), min=1.0)[..., None]
     mu_a = torch.sum(pa * w[..., None], dim=-2) / n
@@ -161,10 +163,7 @@ def estimate_relative_pose_3d3d(pa: torch.Tensor, pb: torch.Tensor, valid: torch
     xa = (pa - mu_a[..., None, :]) * w[..., None]
     xb = (pb - mu_b[..., None, :]) * w[..., None]
     cov = xa.transpose(-1, -2) @ xb / n[..., None]
-    U, _, Vt = torch.linalg.svd(cov)
-    d = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
-    D = torch.cat([torch.ones_like(U[..., 0, :2]), d[..., None]], dim=-1)
-    R = (U * D[..., None, :]) @ Vt
+    R = horn.rotation_fit(cov)
     t = mu_a - (R @ mu_b[..., None])[..., 0]
     return torch.cat([t, geometry.matrix_to_quat(R)], dim=-1)
 

@@ -140,19 +140,40 @@ def measure_corridor(device, num_steps: int = 500, seeds=range(5), cfg=None) -> 
 
 def cmd_run(args):
     import contextlib
+    import gc
     import io
+    import traceback
 
     from parakeet_slam_tpu_torch.dist.multihost import initialize_multihost, process_index
 
     device = resolve_device(args.device)
-    if not torch.distributed.is_initialized():
-        initialize_multihost()
-    if process_index() == 0:
-        return _cmd_run(args, device)
-    # every rank runs the program; rank 0 alone prints and writes files
-    args.out = ""
-    with contextlib.redirect_stdout(io.StringIO()):
-        return _cmd_run(args, device)
+    own_group = not torch.distributed.is_initialized() and initialize_multihost()
+    try:
+        if process_index() == 0:
+            _cmd_run(args, device)
+        else:
+            # every rank runs the program; rank 0 alone prints and writes files
+            args.out = ""
+            with contextlib.redirect_stdout(io.StringIO()):
+                _cmd_run(args, device)
+        if own_group:  # no rank tears the group down while another still runs
+            torch.distributed.barrier(
+                device_ids=[torch.cuda.current_device()] if device.type == "cuda" else None)
+    except BaseException as e:
+        # the failed run's frames would keep its systems alive
+        traceback.clear_frames(e.__traceback__)
+        raise
+    finally:
+        # The systems' captured programs (their steps, a mesh's programs)
+        # hold NCCL's communicators, so their graphs go first: the systems
+        # are unreachable once the run returns, and a step and its system
+        # hold each other, so a collection frees them. Then the group that
+        # this call made.
+        gc.collect()
+        if own_group:
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            torch.distributed.destroy_process_group()
 
 
 def _cmd_run(args, device):

@@ -46,6 +46,7 @@ _SIGNATURES = {
     "hamming_top2_launch": [_P] * 9 + [_I] * 3 + [_L] * 3 + [_I] * 2 + [_P],
     "l2_top2_launch": [_P] * 11 + [_I] * 5 + [_P],
     "apply_cinv_launch": [_P] * 3 + [_I] + [_L] * 5 + [_F, _P],
+    "rotation_fit_launch": [_P] * 3 + [_I] + [_L] * 3 + [_P],
 }
 
 

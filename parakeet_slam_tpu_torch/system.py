@@ -30,9 +30,10 @@ graph pool:
     from a pinned host slot, the draws are written into the graph's inputs),
     steps 3-4 for `process_obs` (`_fused_obs_impl`); one step per entry and
     image shape, all over the same state buffers;
-  - closure verification, one graph per batch shape [Nc, F]: the
-    reprojection refine (Horn's consensus runs eagerly before it: its
-    `linalg.svd` checks its convergence on the host);
+  - closure verification, one graph per batch shape [Nc, F]: Horn's three
+    consensus rounds (their rotation fits in `kernels/horn.py`'s kernel)
+    and the reprojection refine, the reference's jitted
+    `_verify_candidates`;
   - the pose-graph solve, one graph per view shape
     (`backend/posegraph.CapturedSolver`);
   - the closure match of a keyframe dispatch, one graph per store shape:
@@ -686,8 +687,8 @@ class SLAMSystem:
         """`_verify_candidates` of host arrays pa, pb [Nc, F, 3], valid [Nc,
         F]; the results come back in one device-to-host copy: (rel [Nc, 7]
         and inliers [Nc] on the host). Captured, the arrays go into the
-        static inputs of the batch shape's step, Horn's consensus runs
-        eagerly on them and the refine replays."""
+        static inputs of the batch shape's step and the whole verification
+        replays."""
         Nc = pa.shape[0]
         if not self.capture:
             rels, n_in = self._verify_candidates(
@@ -695,21 +696,18 @@ class SLAMSystem:
         else:
             cs = self._verify_steps.get(pa.shape)
             if cs is None:
-                refine = self._refine()
-                inputs = {"rel0": torch.zeros(Nc, 7, device=self.device),
-                          "pa": torch.zeros(pa.shape, device=self.device),
+                inputs = {"pa": torch.zeros(pa.shape, device=self.device),
                           "pb": torch.zeros(pb.shape, device=self.device),
                           "valid": torch.zeros(valid.shape, dtype=torch.bool, device=self.device)}
                 cs = self._verify_steps[pa.shape] = captured.CapturedStep(
-                    lambda state, x: (state, refine(x["rel0"], x["pa"], x["pb"], x["valid"])),
+                    lambda state, x: (state, self._verify_candidates(x["pa"], x["pb"],
+                                                                     x["valid"])),
                     (), inputs, graph=self.device.type == "cuda", pool=self._graph_pool())
             x = cs.inputs
             for k, a in (("pa", pa), ("pb", pb), ("valid", valid)):
                 x[k].copy_(torch.from_numpy(a))
-            rel0, n_in = self._horn_consensus_impl(x["pa"], x["pb"], x["valid"])
-            x["rel0"].copy_(rel0)
             cs()
-            rels = cs.take()
+            rels, n_in = cs.take()
         host = torch.cat([rels.reshape(-1), n_in.to(rels.dtype)]).cpu()
         return host[:Nc * 7].reshape(Nc, 7), host[Nc * 7:].numpy().astype(np.int32)
 

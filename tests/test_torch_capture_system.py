@@ -7,10 +7,9 @@ pose-graph solve (`posegraph.CapturedSolver`, `@jax.jit optimize_pose_graph`).
 (a) Capture safety: after one warm-up call, one call of each under the
     guard of tests/test_torch_capture.py, which makes the Python-level host
     reads and host-to-device copies raise: a mono frame with FAST and with
-    Harris, a pyramid frame (two levels), a stereo frame, the verify refine
-    and the depth-relaxed refine, a pose-graph solve. Horn's consensus is
-    left out: on the card its `linalg.svd` checks convergence on the host,
-    so it runs eagerly before the refine's graph.
+    Harris, a pyramid frame (two levels), a stereo frame, the whole
+    verification (Horn's consensus, then the refine or the depth-relaxed
+    refine), a pose-graph solve.
 (b) `SLAMSystem(capture=True)`, which on the CPU runs the captured path's
     buffer rules eagerly, equals `capture=False` bit for bit: config 2's
     filter over 26 frames of a small desk world from images, with accepted
@@ -22,8 +21,9 @@ pose-graph solve (`posegraph.CapturedSolver`, `@jax.jit optimize_pose_graph`).
     tests/test_torch_backend.py (poses atol 2e-3, costs rtol 2e-2 atol 1e-6)
     and tests/test_torch_system.py (rels atol 1e-4 up to the quaternion's
     sign, inlier counts equal).
-(d) The eager solve and both refines through `linalg.solve_ex` without its
-    check equal, bit for bit, the same through `linalg.solve`.
+(d) The eager solve and both verifications, their refines through
+    `linalg.solve_ex` without its check, equal bit for bit the same through
+    `linalg.solve`.
 """
 
 import dataclasses
@@ -103,8 +103,7 @@ def _verify_case(depth_sigma):
     rng = np.random.default_rng(3)
     pa, pb, valid = (torch.as_tensor(np.stack(a)) for a in zip(
         *(_correspondences(rng, "pinhole", noise=0.01, outliers=3)[:3] for _ in range(4))))
-    rel0, _ = p_sys._horn_consensus_impl(pa, pb, valid)
-    return lambda t: lambda: p_sys._refine()(rel0, pa, pb, valid)
+    return lambda t: lambda: p_sys._verify_candidates(pa, pb, valid)
 
 
 def _case(name, desk):

@@ -42,6 +42,7 @@ from parakeet_slam_tpu_torch.backend import graph as t_graph
 from parakeet_slam_tpu_torch.core import config as pcm
 from parakeet_slam_tpu_torch.core import geometry
 from parakeet_slam_tpu_torch.kernels import match
+from tests.test_torch_capture import one_thread  # noqa: F401  (a fixture)
 
 PANO_FRAMES = 24
 PARITY_FRAMES = 12
@@ -528,7 +529,7 @@ def test_build_ba_problem_capacity_and_gauge(capsys):
     assert np.isfinite(res.problem.cam_pose.numpy()).all() and res.costs.shape == (2,)
 
 
-def test_run_ba_low_damping_rejections_match_jax():
+def test_run_ba_low_damping_rejections_match_jax(one_thread):  # noqa: F811
     """`run_ba` starts LM at the config's lm_damping_init (1e-4 for
     configs/tum_fr1_desk.yaml). On the BA problem of a desk-world run (28
     frames at a small width) the first iterations are rejected while the

@@ -493,16 +493,19 @@ CLI_ARGS = ["run", "--config", "configs/panoramic.yaml", "--device", "cpu", "--s
 
 
 def suite_dist(out: Path):
-    """`cli run` under the process group (which it starts itself from the
-    environment), the mesh, the ring gather, the sharded filter against
-    the one-device filter, the reference's resampling case and the
+    """`cli run` under the process group (started from the environment
+    before it, so that it outlives the runs: `cmd_run` destroys only a
+    group it started itself), the mesh, the ring gather, the sharded filter
+    against the one-device filter, the reference's resampling case and the
     scaling harness."""
     import torch.distributed as tdist
 
     from parakeet_slam_tpu_torch import cli
     from parakeet_slam_tpu_torch.dist import mesh as mesh_mod
+    from parakeet_slam_tpu_torch.dist.multihost import initialize_multihost
     from parakeet_slam_tpu_torch.eval.scaling import measure_scaling
 
+    initialize_multihost()
     texts = {}
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -838,10 +841,36 @@ def suite_recover_resume(out: Path):
           **_state_arrays("w_", whole))
 
 
+# `cli run` on the panoramic config cut to a CPU's size, sharded 2 x 1 over
+# the 2 ranks
+CLI_RUN_SET = ["filter.num_particles=8", "filter.max_landmarks=128",
+               "filter.max_observations=16", "frontend.image_size=[64,128]",
+               "frontend.max_features=32", "data.num_landmarks=200", "data.num_steps=6",
+               "backend.max_keyframes=16", "dist.particle_axis=2", "dist.map_axis=1"]
+
+
+def suite_cli_run(out: Path):
+    """`cli run` under the group that `cmd_run` starts from the variables:
+    after it returns, the rank records whether a group is left and how many
+    systems (each owning its captured programs) are still alive."""
+    import gc
+
+    import torch.distributed as tdist
+
+    from parakeet_slam_tpu_torch import cli, system
+
+    cli.main(["run", "--config", "configs/panoramic.yaml", "--device", "cpu",
+              "--set", *CLI_RUN_SET])
+    rank = int(os.environ["PROCESS_ID"])
+    alive = sum(isinstance(o, system.SLAMSystem) for o in gc.get_objects())
+    (out / f"cli_run_r{rank}.json").write_text(json.dumps(
+        {"group_left": tdist.is_initialized(), "systems_alive": alive}))
+
+
 SUITES = {
     "dist": suite_dist, "ring": suite_ring, "reshard": suite_reshard, "ba": suite_ba, "ba4": suite_ba4,
     "system": suite_system, "recover_run": suite_recover_run,
-    "recover_resume": suite_recover_resume,
+    "recover_resume": suite_recover_resume, "cli_run": suite_cli_run,
 }
 
 
