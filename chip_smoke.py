@@ -976,6 +976,21 @@ def phase_kernels_3d(device):
     return res, err
 
 
+def _with_resamples(run):
+    """(run(), resamples): run() with the program's tracer on, so that the
+    systems' metrics drains count the frames that resampled; run() ends
+    with its systems' `flush_metrics()`."""
+    from parakeet_slam_tpu_torch.utils import trace
+
+    trace.reset()
+    trace.enable()
+    try:
+        out = run()
+    finally:
+        trace.disable()
+    return out, trace.counters().get("resamples", 0)
+
+
 def _reset_counts_3d():
     from parakeet_slam_tpu_torch.kernels import ekf_update_3d, resample_cuda
 
@@ -1360,13 +1375,15 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
     calls = []
 
     def run():
-        resampled = []
-        sys_ = system.SLAMSystem(cfg, device=device)
-        sys_.metrics.log = lambda frame, **rec: resampled.append(rec["resampled"])
-        est, fps, wall = cli.run_image_sequence(sys_, images, odom)
-        sys_.flush_flags()
-        sys_.flush_metrics()
-        return sys_, est, fps, wall, sum(resampled), sys_.graph.poses.cpu().numpy()
+        def drive():
+            sys_ = system.SLAMSystem(cfg, device=device)
+            est, fps, wall = cli.run_image_sequence(sys_, images, odom)
+            sys_.flush_flags()
+            sys_.flush_metrics()
+            return sys_, est, fps, wall
+
+        (sys_, est, fps, wall), n_res = _with_resamples(drive)
+        return sys_, est, fps, wall, n_res, sys_.graph.poses.cpu().numpy()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1493,23 +1510,25 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
     check(right is not None and len(odom) == n_all, "the KITTI loader gave no stereo pairs")
 
     dispatches = []
-    resampled = []
     sys_ = system.SLAMSystem(cfg, device=device)
-    sys_.metrics.log = lambda frame, **rec: resampled.append(rec["resampled"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts_3d()
     match.hamming_top2.launches = 0
     restore = recording_dispatches(dispatches)
-    try:
-        est, fps, wall = cli.run_image_sequence(sys_, left, odom[:frames], right=right)
+
+    def drive():
+        out = cli.run_image_sequence(sys_, left, odom[:frames], right=right)
         sys_.flush_flags()
         sys_.flush_metrics()
+        return out
+
+    try:
+        (est, fps, wall), n_res = _with_resamples(drive)
         launches = _counts_3d() + (match.hamming_top2.launches,)
     finally:
         restore()
     peak = torch.cuda.max_memory_allocated()
-    n_res = sum(resampled)
     # the frontend runs inside the frame's graph: its observations again,
     # eagerly, from the same images
     pairs = [tuple(torch.as_tensor(f(i), device=device) for f in (left, right))
@@ -2050,7 +2069,6 @@ def phase_config4(device):
     from parakeet_slam_tpu_torch.eval import ate_rmse
     from parakeet_slam_tpu_torch.filter.runner import draw_noise
     from parakeet_slam_tpu_torch.kernels import match, resample, schur
-    from parakeet_slam_tpu_torch.utils import metrics_log
 
     config = "configs/euroc_mh.yaml"
     out = os.path.join(HERE, "build", "chip_smoke_euroc")
@@ -2077,8 +2095,8 @@ def phase_config4(device):
 
     # the multi-session run, counted; every closure dispatch, the BA's dedup
     # and the last resample captured for the replays through the twins below
-    dispatches, dedups, gathers, resampled = [], [], [], []
-    assign, log = system._assign_point_ids, metrics_log.MetricsLogger.log
+    dispatches, dedups, gathers = [], [], []
+    assign = system._assign_point_ids
     gather = resample.gather_particles
 
     def counting_assign(desc, valid, world, *, cap, max_ham, **kw):
@@ -2093,10 +2111,6 @@ def phase_config4(device):
             idx.clone())]
         return gather(st, idx)
 
-    def logging(self, frame, **rec):
-        if "resampled" in rec:
-            resampled.append(rec["resampled"])
-
     args = argparse.Namespace(frames=0, ba=0, out="")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2106,17 +2120,16 @@ def phase_config4(device):
     restore = recording_dispatches(dispatches)
     system._assign_point_ids = counting_assign
     resample.gather_particles = capturing_gather
-    metrics_log.MetricsLogger.log = logging
     t0 = time.perf_counter()
     try:
-        run = cli._run_euroc_multisession(cfg, args, roots, device)
+        run, n_res = _with_resamples(
+            lambda: cli._run_euroc_multisession(cfg, args, roots, device))
         torch.cuda.synchronize()
         launches = _counts_3d() + (match.hamming_top2.launches, schur.apply_cinv.launches)
     finally:
         restore()
         system._assign_point_ids = assign
         resample.gather_particles = gather
-        metrics_log.MetricsLogger.log = log
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     sys_, est, gt = run["system"], run["est"], run["gt"]
@@ -2129,7 +2142,6 @@ def phase_config4(device):
     within = (sum(1 for a, b in lc if b < n_kf1), sum(1 for a, b in lc if a >= n_kf1))
     across = sum(1 for a, b in lc if a < n_kf1 <= b)
     nb = len(graph.pack_buckets(prob).p_cam)
-    n_res = sum(resampled)
     want_cinv = 2 * be.gn_iters * nb * (be.pcg_iters + 3)  # joint_ba solves twice
     bd = per[1]["boundary"]
     print(f"euroc config 4 (FastSLAM 2.0 pinhole_3d P={fc.num_particles} L={fc.max_landmarks} "
@@ -2987,14 +2999,18 @@ def phase_bench_system(device, rendered):
             torch.cuda.reset_peak_memory_stats()
             _reset_counts_3d()
             match.hamming_top2.launches = 0
-            row, sys_ = run_bench(kind, cfg, world, inputs, BENCH_FRAMES, device)
-            sys_.flush_flags()
+            def drive():
+                row, sys_ = run_bench(kind, cfg, world, inputs, BENCH_FRAMES, device)
+                sys_.flush_flags()
+                sys_.flush_metrics()
+                return row, sys_
+
+            (row, sys_), n_res = _with_resamples(drive)
             torch.cuda.synchronize()
             launches = _counts_3d() + (match.hamming_top2.launches,)
         finally:
             restore()
         peak = torch.cuda.max_memory_allocated()
-        n_res = sum(bool(p[1][3]) for p in sys_._metrics_pending)
         est = sys_.state.pose
         fc = cfg.filter
         print(f"bench_system {kind} (FastSLAM 1.0 {fc.measurement_model} P={fc.num_particles} "

@@ -43,6 +43,7 @@ candidate's cost.
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, NamedTuple
 
 import torch
@@ -53,6 +54,10 @@ from parakeet_slam_tpu_torch.backend.graph import BAProblem
 from parakeet_slam_tpu_torch.core import geometry
 from parakeet_slam_tpu_torch.filter import captured
 from parakeet_slam_tpu_torch.kernels import schur
+from parakeet_slam_tpu_torch.utils import trace
+
+# the number of each solve, the `rid` of its `ba.solve` span
+_SOLVE_IDS = itertools.count()
 
 
 class BAResult(NamedTuple):
@@ -600,14 +605,15 @@ def _lam(lam, like):
 def _solve_eager(camera, prob, layout, iters, lam, pose_edges=None, **kw):
     """The eager LM loop (the twin of `CapturedBA`): (poses, points, costs
     [iters], pcg residuals [iters])."""
-    fn, x = _program(camera, prob, layout, pose_edges, **kw)
-    state = (prob.cam_pose, prob.points, _lam(lam, prob.points))
-    costs, residuals = [], []
-    for _ in range(iters):
-        state, (cost, pcg_res) = fn(state, x)
-        costs.append(cost)
-        residuals.append(pcg_res)
-    return state[0], state[1], torch.stack(costs), torch.stack(residuals)
+    with trace.span("ba.solve", rid=next(_SOLVE_IDS)):
+        fn, x = _program(camera, prob, layout, pose_edges, **kw)
+        state = (prob.cam_pose, prob.points, _lam(lam, prob.points))
+        costs, residuals = [], []
+        for _ in range(iters):
+            state, (cost, pcg_res) = fn(state, x)
+            costs.append(cost)
+            residuals.append(pcg_res)
+        return state[0], state[1], torch.stack(costs), torch.stack(residuals)
 
 
 def _leaf_key(tree) -> tuple:
@@ -639,25 +645,26 @@ class CapturedBA:
               pcg_iters, pcg_tol, step_clamp=(10.0, 50.0)):
         """(poses, points, costs [iters], pcg residuals [iters]) of `prob`
         in `layout`, as `_solve_eager` returns them."""
-        kw = dict(huber_delta=float(huber_delta), solver=solver, pcg_iters=int(pcg_iters),
-                  pcg_tol=float(pcg_tol), step_clamp=tuple(float(c) for c in step_clamp))
-        fn, x = _program(camera, prob, layout, pose_edges, **kw)
-        key = (layout, camera, _leaf_key(x), tuple(sorted(kw.items())))
-        step = self.steps.get(key)
-        if step is None:
-            state = (prob.cam_pose.clone(), prob.points.clone(), _lam(lam, prob.points))
-            step = self.steps[key] = captured.CapturedStep(fn, state, captured.clone(x),
-                                                           graph=self.graph, pool=self.pool)
-        captured.copy_into(step.inputs, x)
-        captured.copy_into(step.state, (prob.cam_pose, prob.points, _lam(lam, prob.points)))
-        costs, residuals = [], []
-        for _ in range(iters):
-            step()
-            cost, pcg_res = step.take()
-            costs.append(cost)
-            residuals.append(pcg_res)
-        return (step.state[0].clone(), step.state[1].clone(), torch.stack(costs),
-                torch.stack(residuals))
+        with trace.span("ba.solve", rid=next(_SOLVE_IDS)):
+            kw = dict(huber_delta=float(huber_delta), solver=solver, pcg_iters=int(pcg_iters),
+                      pcg_tol=float(pcg_tol), step_clamp=tuple(float(c) for c in step_clamp))
+            fn, x = _program(camera, prob, layout, pose_edges, **kw)
+            key = (layout, camera, _leaf_key(x), tuple(sorted(kw.items())))
+            step = self.steps.get(key)
+            if step is None:
+                state = (prob.cam_pose.clone(), prob.points.clone(), _lam(lam, prob.points))
+                step = self.steps[key] = captured.CapturedStep(fn, state, captured.clone(x),
+                                                               graph=self.graph, pool=self.pool)
+            captured.copy_into(step.inputs, x)
+            captured.copy_into(step.state, (prob.cam_pose, prob.points, _lam(lam, prob.points)))
+            costs, residuals = [], []
+            for _ in range(iters):
+                step()
+                cost, pcg_res = step.take()
+                costs.append(cost)
+                residuals.append(pcg_res)
+            return (step.state[0].clone(), step.state[1].clone(), torch.stack(costs),
+                    torch.stack(residuals))
 
 
 # CapturedBA of direct `optimize_ba` callers, one per device, each with a

@@ -24,6 +24,7 @@ import torch
 
 from parakeet_slam_tpu_torch.core import geometry
 from parakeet_slam_tpu_torch.kernels import horn
+from parakeet_slam_tpu_torch.utils import trace
 
 _FIELDS = ("poses", "node_valid", "edge_ij", "edge_rel", "edge_info", "edge_valid")
 
@@ -228,20 +229,22 @@ def make_ba_problem(
     def put(a, dtype):
         return torch.as_tensor(a).to(device=device, dtype=dtype)
 
-    cam_pose, points = put(cam_pose, torch.float32), put(points, torch.float32)
-    obs_cam, obs_pt = put(obs_cam, torch.int32), put(obs_pt, torch.int32)
-    C, Lm, O = cam_pose.shape[0], points.shape[0], obs_cam.shape[0]
     ones = lambda n: torch.ones(n, dtype=torch.bool, device=device)  # noqa: E731
-    if cam_fixed is None:
-        cam_fixed = torch.zeros(C, dtype=torch.bool, device=device)
-        cam_fixed[0] = True
-    return BAProblem(
-        cam_pose=cam_pose, cam_valid=ones(C) if cam_valid is None else put(cam_valid, torch.bool),
-        points=points, pt_valid=ones(Lm) if pt_valid is None else put(pt_valid, torch.bool),
-        obs_cam=obs_cam, obs_pt=obs_pt, obs_uv=put(obs_uv, torch.float32),
-        obs_valid=ones(O) if obs_valid is None else put(obs_valid, torch.bool),
-        cam_fixed=put(cam_fixed, torch.bool),
-    )
+    with trace.span("ba.problem"):
+        cam_pose, points = put(cam_pose, torch.float32), put(points, torch.float32)
+        obs_cam, obs_pt = put(obs_cam, torch.int32), put(obs_pt, torch.int32)
+        C, Lm, O = cam_pose.shape[0], points.shape[0], obs_cam.shape[0]
+        if cam_fixed is None:
+            cam_fixed = torch.zeros(C, dtype=torch.bool, device=device)
+            cam_fixed[0] = True
+        return BAProblem(
+            cam_pose=cam_pose,
+            cam_valid=ones(C) if cam_valid is None else put(cam_valid, torch.bool),
+            points=points, pt_valid=ones(Lm) if pt_valid is None else put(pt_valid, torch.bool),
+            obs_cam=obs_cam, obs_pt=obs_pt, obs_uv=put(obs_uv, torch.float32),
+            obs_valid=ones(O) if obs_valid is None else put(obs_valid, torch.bool),
+            cam_fixed=put(cam_fixed, torch.bool),
+        )
 
 
 def ba_problem_from_numpy(arrays, *, device) -> BAProblem:
@@ -372,60 +375,61 @@ def pack_buckets(prob: BAProblem, caps=_BUCKET_CAPS) -> BAProblemBuckets:
     The K caps are the fixed ladder above, and bucket row counts round up to
     multiples of 512 (the reference's shapes, which its compiled optimizer
     reuses across similar problems)."""
-    obs_pt, obs_cam, obs_uv, valid = _obs_numpy(prob)
-    Lm = prob.num_points
-    Dz = obs_uv.shape[1]
+    with trace.span("ba.pack"):
+        obs_pt, obs_cam, obs_uv, valid = _obs_numpy(prob)
+        Lm = prob.num_points
+        Dz = obs_uv.shape[1]
 
-    idx = np.nonzero(valid)[0]
-    counts = np.bincount(obs_pt[idx], minlength=Lm)
-    need = int(counts.max()) if idx.size else 1
-    caps = [k for k in caps if k < need] + [max(4, int(2 ** np.ceil(np.log2(need))))]
-    caps = sorted(set(caps))
+        idx = np.nonzero(valid)[0]
+        counts = np.bincount(obs_pt[idx], minlength=Lm)
+        need = int(counts.max()) if idx.size else 1
+        caps = [k for k in caps if k < need] + [max(4, int(2 ** np.ceil(np.log2(need))))]
+        caps = sorted(set(caps))
 
-    # observations sorted by point; per-point slot = rank within the point
-    order = np.argsort(obs_pt[idx], kind="stable")
-    o_sorted = idx[order]
-    pts_sorted = obs_pt[o_sorted]
-    starts = np.concatenate(([0], np.cumsum(counts)))
-    slots = np.arange(o_sorted.size) - starts[pts_sorted]
+        # observations sorted by point; per-point slot = rank within the point
+        order = np.argsort(obs_pt[idx], kind="stable")
+        o_sorted = idx[order]
+        pts_sorted = obs_pt[o_sorted]
+        starts = np.concatenate(([0], np.cumsum(counts)))
+        slots = np.arange(o_sorted.size) - starts[pts_sorted]
 
-    # bucket id per point (points with no observation join no bucket)
-    bucket_of = np.searchsorted(caps, counts, side="left")
-    tables = []  # (pt_idx, row_valid, p_cam, p_uv, p_valid) per bucket
-    for b, K in enumerate(caps):
-        members = np.nonzero((bucket_of == b) & (counts > 0))[0]
-        if members.size == 0:
-            continue
-        Lb = int(-(-members.size // 512) * 512)
-        row_of = np.full(Lm, -1, np.int64)
-        row_of[members] = np.arange(members.size)
-        pt_idx = np.zeros(Lb, np.int32)
-        pt_idx[: members.size] = members
-        row_valid = np.zeros(Lb, bool)
-        row_valid[: members.size] = True
-        p_cam = np.zeros((Lb, K), np.int32)
-        p_uv = np.zeros((Lb, K, Dz), obs_uv.dtype)
-        p_valid = np.zeros((Lb, K), bool)
-        sel = row_of[pts_sorted] >= 0
-        r = row_of[pts_sorted[sel]]
-        s = slots[sel]
-        o = o_sorted[sel]
-        p_cam[r, s] = obs_cam[o]
-        p_uv[r, s] = obs_uv[o]
-        p_valid[r, s] = True
-        tables.append((pt_idx, row_valid, p_cam, p_uv, p_valid))
+        # bucket id per point (points with no observation join no bucket)
+        bucket_of = np.searchsorted(caps, counts, side="left")
+        tables = []  # (pt_idx, row_valid, p_cam, p_uv, p_valid) per bucket
+        for b, K in enumerate(caps):
+            members = np.nonzero((bucket_of == b) & (counts > 0))[0]
+            if members.size == 0:
+                continue
+            Lb = int(-(-members.size // 512) * 512)
+            row_of = np.full(Lm, -1, np.int64)
+            row_of[members] = np.arange(members.size)
+            pt_idx = np.zeros(Lb, np.int32)
+            pt_idx[: members.size] = members
+            row_valid = np.zeros(Lb, bool)
+            row_valid[: members.size] = True
+            p_cam = np.zeros((Lb, K), np.int32)
+            p_uv = np.zeros((Lb, K, Dz), obs_uv.dtype)
+            p_valid = np.zeros((Lb, K), bool)
+            sel = row_of[pts_sorted] >= 0
+            r = row_of[pts_sorted[sel]]
+            s = slots[sel]
+            o = o_sorted[sel]
+            p_cam[r, s] = obs_cam[o]
+            p_uv[r, s] = obs_uv[o]
+            p_valid[r, s] = True
+            tables.append((pt_idx, row_valid, p_cam, p_uv, p_valid))
 
-    if not tables:  # degenerate: no valid observation at all
-        tables = [(np.zeros(512, np.int32), np.zeros(512, bool), np.zeros((512, 4), np.int32),
-                   np.zeros((512, 4, Dz), obs_uv.dtype), np.zeros((512, 4), bool))]
+        if not tables:  # degenerate: no valid observation at all
+            tables = [(np.zeros(512, np.int32), np.zeros(512, bool), np.zeros((512, 4), np.int32),
+                       np.zeros((512, 4, Dz), obs_uv.dtype), np.zeros((512, 4), bool))]
 
-    dev = prob.points.device
-    cols = [tuple(torch.as_tensor(t[i], device=dev) for t in tables) for i in range(5)]
-    return BAProblemBuckets(
-        cam_pose=prob.cam_pose, cam_valid=prob.cam_valid, points=prob.points,
-        pt_valid=prob.pt_valid, cam_fixed=prob.cam_fixed,
-        pt_idx=cols[0], row_valid=cols[1], p_cam=cols[2], p_uv=cols[3], p_valid=cols[4],
-    )
+        dev = prob.points.device
+        cols = [tuple(torch.as_tensor(t[i], device=dev) for t in tables) for i in range(5)]
+        return BAProblemBuckets(
+            cam_pose=prob.cam_pose, cam_valid=prob.cam_valid, points=prob.points,
+            pt_valid=prob.pt_valid, cam_fixed=prob.cam_fixed,
+            pt_idx=cols[0], row_valid=cols[1], p_cam=cols[2], p_uv=cols[3], p_valid=cols[4],
+        )
 
 
 def cap_obs_per_point(prob: BAProblem, k: int) -> BAProblem:

@@ -1,7 +1,9 @@
 """Tracing and timing on the card (port of `parakeet_slam_tpu.eval.profiling`).
 
-`trace(log_dir)` profiles the enclosed block with `torch.profiler` and writes
-a Chrome/Perfetto trace into log_dir; `annotate(name)` names a region of it:
+`trace(log_dir)` profiles the enclosed block with `torch.profiler`, with the
+program's own spans on (`utils/trace.py`: the system's frames, flushes and
+solves, and every `annotate(name)` region), and writes a Chrome/Perfetto
+trace into log_dir that holds both, on the profiler's clock:
 
     from parakeet_slam_tpu_torch.eval.profiling import annotate, trace
     with trace("traces/run"):
@@ -17,29 +19,61 @@ host's work before its first launch; `queued` gives the device's time alone.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import statistics
 
 import torch
 
+from parakeet_slam_tpu_torch.utils import trace as program_trace
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the enclosed block: CPU activity, and the card's when there is
-    one. Yields the `torch.profiler.profile`; on exit writes `trace.json`
-    (Chrome trace format, which Perfetto opens) into log_dir."""
+    one, with the program's spans on (the tracer is reset first, and left as
+    it was found). Yields the `torch.profiler.profile`; on exit writes
+    `trace.json` (Chrome trace format, which Perfetto opens) into log_dir,
+    the block's spans added as complete events of a track of their own."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    was_on = program_trace.enabled()
+    program_trace.reset()
+    program_trace.enable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            yield prof
+    finally:
+        if not was_on:
+            program_trace.disable()
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path)
+
+
+def _add_spans(path: str) -> None:
+    """Add the program's spans to the Chrome trace at `path` as complete
+    events ("X") on the trace's clock: the export writes microseconds since
+    its `baseTimeNanoseconds` (absolute ones where it has none), and the
+    spans' `time.time_ns()` is the clock the profiler stamps."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    for s in program_trace.spans():
+        doc["traceEvents"].append({
+            "ph": "X", "cat": "program_span", "name": s.name, "pid": "program spans", "tid": 0,
+            "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+            "args": {"rid": s.rid, "wait": s.wait}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def annotate(name: str):
-    """A named region that shows up in `trace`'s timeline."""
-    return torch.profiler.record_function(name)
+    """A named region: a program span (`utils/trace.span`), which `trace`'s
+    timeline shows."""
+    return program_trace.span(name)
 
 
 def timed(fn, *args, reps: int = 10, warmup: int = 1, prepare=None):

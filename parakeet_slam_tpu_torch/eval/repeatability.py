@@ -67,13 +67,25 @@ def run_once(cfg, images, odom, device, digests: bool = True) -> dict:
     sys_ = SLAMSystem(cfg, device=device)
     resampled = []
     sys_.metrics.log = lambda frame, **rec: resampled.append(rec["resampled"])
-    per_frame, est = [], []
-    for i in range(len(odom)):
-        est.append(sys_.process_frame(images[i], odom[i]))
-        if digests:
-            per_frame.append(state_digests(sys_))
-    sys_.flush_flags()
-    sys_.flush_metrics()
+    # the metrics drain runs for a log file or the tracer (a tree older than
+    # the tracer drains always)
+    try:
+        from parakeet_slam_tpu_torch.utils import trace
+    except ImportError:
+        trace = None
+    if trace is not None:
+        trace.enable()
+    try:
+        per_frame, est = [], []
+        for i in range(len(odom)):
+            est.append(sys_.process_frame(images[i], odom[i]))
+            if digests:
+                per_frame.append(state_digests(sys_))
+        sys_.flush_flags()
+        sys_.flush_metrics()
+    finally:
+        if trace is not None:
+            trace.disable()
     return {"digests": per_frame, "est": torch.stack(est).cpu().numpy(),
             "keyframes": len(sys_.keyframes), "closures": len(sys_.loop_closures),
             "resamples": int(sum(resampled)), "graph_poses": sys_.graph.poses.cpu().numpy(),

@@ -59,6 +59,7 @@ import torch
 
 from parakeet_slam_tpu_torch.kernels import (ekf_update, ekf_update_3d, horn, match,
                                              resample_cuda, schur)
+from parakeet_slam_tpu_torch.utils import trace
 
 
 def leaves(tree) -> list[torch.Tensor]:
@@ -182,7 +183,10 @@ class CapturedStep:
             main.wait_stream(side)
             return self.outputs
         if self._graph is None:
-            self._capture()
+            with trace.span("capture"):
+                self._capture()
+            trace.count("captures")
+            trace.count("capture_ms", (self.capture_s + self.instantiate_s) * 1e3)
         self._graph.replay()
         for f, n in self._counts.items():
             f.launches += n

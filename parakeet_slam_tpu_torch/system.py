@@ -89,6 +89,15 @@ and the dispatched closure matches) in the reference's two files, so that a
 resumed run equals an uninterrupted one bit for bit; `checkpoint_every`
 snapshots automatically every that many keyframes. A snapshot holds the
 global state, so it resumes under any world size.
+
+With the program's tracer on (`utils/trace.py`, off by default) a frame is
+a `frame` span (its `rid` the frame's index) over `frame.upload` and
+`frame.replay`; the keyframe flush a `flush` span over its device reads
+(`*.wait`), the closures' fetch, selection, verification and acceptance,
+the pose-graph solve and each keyframe; and the system counts keyframes,
+closure dispatches, candidates and accepted closures, pose-graph solves
+and, in the metrics drain, resamples. The per-frame metrics are drained to
+the host only for a log file (`metrics_path`) or the tracer.
 """
 
 from __future__ import annotations
@@ -118,6 +127,7 @@ from parakeet_slam_tpu_torch.frontend.pyramid import detect_pyramid
 from parakeet_slam_tpu_torch.frontend.stereo import keypoint_disparity
 from parakeet_slam_tpu_torch.kernels import match as match_mod
 from parakeet_slam_tpu_torch.utils import checkpoint as ckpt
+from parakeet_slam_tpu_torch.utils import trace
 from parakeet_slam_tpu_torch.utils.metrics_log import MetricsLogger
 
 # hamming_top2 launches per closure dispatch: the forward and the reverse
@@ -480,34 +490,37 @@ class SLAMSystem:
         when given, is the raw emission-frame estimate (it differs from
         est_pose only when a correction was applied earlier in the same
         flush window)."""
-        est_pose = torch.as_tensor(est_pose, dtype=torch.float32, device=self.device)
-        if snap is None:
-            snap = self._kf_snapshot_impl(self.state, est_pose)
-        pose_np, pts_np, desc_np, valid_np = (t.cpu().numpy() for t in (est_pose, *snap))
-        fr = self.frame_idx if frame is None else frame
-        anchor_np = (pose_np.copy() if anchor_pose is None
-                     else torch.as_tensor(anchor_pose).cpu().numpy().astype(np.float32))
-        kf = Keyframe(
-            index=len(self.keyframes), pose=pose_np, points_kf=pts_np, desc=desc_np,
-            valid=valid_np, frame=fr, anchors=[(fr, anchor_np)],
-            gdesc=_global_descriptor(desc_np, valid_np),
-        )
-        self.keyframes.append(kf)
-        self._kf_store_append(kf)
-        self.graph = graph_mod.add_node(self.graph, est_pose)
-        if kf.index > 0:
-            prev = self.keyframes[kf.index - 1]
-            rel = geometry.se3_between(torch.as_tensor(prev.pose, device=self.device), est_pose)
-            # Odometry-edge information from the odometry noise accumulated
-            # over the edge's frame span plus an estimate-jitter floor.
-            df = max(kf.frame - prev.frame, 1)
-            it0, ir0 = self.cfg.backend.odom_edge_info
-            st, sr = self.cfg.data.odom_noise
-            it = 1.0 / (df * float(st) ** 2 + 1.0 / it0)
-            ir = 1.0 / (df * float(sr) ** 2 + 1.0 / ir0)
-            self.graph = graph_mod.add_edge(self.graph, kf.index - 1, kf.index, rel,
-                                            info=[it, it, it, ir, ir, ir])
-        return kf
+        with trace.span("flush.keyframe"):
+            trace.count("keyframes")
+            est_pose = torch.as_tensor(est_pose, dtype=torch.float32, device=self.device)
+            if snap is None:
+                snap = self._kf_snapshot_impl(self.state, est_pose)
+            with trace.span("flush.keyframe.wait", wait=True):
+                pose_np, pts_np, desc_np, valid_np = (t.cpu().numpy() for t in (est_pose, *snap))
+            fr = self.frame_idx if frame is None else frame
+            anchor_np = (pose_np.copy() if anchor_pose is None
+                         else torch.as_tensor(anchor_pose).cpu().numpy().astype(np.float32))
+            kf = Keyframe(
+                index=len(self.keyframes), pose=pose_np, points_kf=pts_np, desc=desc_np,
+                valid=valid_np, frame=fr, anchors=[(fr, anchor_np)],
+                gdesc=_global_descriptor(desc_np, valid_np),
+            )
+            self.keyframes.append(kf)
+            self._kf_store_append(kf)
+            self.graph = graph_mod.add_node(self.graph, est_pose)
+            if kf.index > 0:
+                prev = self.keyframes[kf.index - 1]
+                rel = geometry.se3_between(torch.as_tensor(prev.pose, device=self.device), est_pose)
+                # Odometry-edge information from the odometry noise accumulated
+                # over the edge's frame span plus an estimate-jitter floor.
+                df = max(kf.frame - prev.frame, 1)
+                it0, ir0 = self.cfg.backend.odom_edge_info
+                st, sr = self.cfg.data.odom_noise
+                it = 1.0 / (df * float(st) ** 2 + 1.0 / it0)
+                ir = 1.0 / (df * float(sr) ** 2 + 1.0 / ir0)
+                self.graph = graph_mod.add_edge(self.graph, kf.index - 1, kf.index, rel,
+                                                info=[it, it, it, ir, ir, ir])
+            return kf
 
     def _store_buffers(self, cap: int, F: int, W: int):
         """Zeroed keyframe-store tensors ([cap, F, W] descriptors, [cap, F]
@@ -573,37 +586,65 @@ class SLAMSystem:
         on the device until the next flush drains them. Captured, the query
         and the count go into the static inputs of the store shape's step
         and its graph replays; the tables are copied out."""
-        gap = self.cfg.backend.loop_min_frame_gap
-        n_old = sum(1 for k in self.keyframes[: kf.index] if k.frame <= kf.frame - gap)
-        if n_old == 0:
-            return
-        x = {"qd": torch.as_tensor(kf.desc.view(np.int32), device=self.device),
-             "qv": torch.as_tensor(kf.valid, device=self.device),
-             "db": self._kf_desc_dev, "dbv": self._kf_valid_dev,
-             "n_old": torch.full((), n_old, dtype=torch.int64, device=self.device)}
-        if not self.capture:
-            _, (fwd, rev) = _kf_match_step(self.cfg.frontend.match_ratio)((), x)
-        else:
-            cs = self._match_steps[tuple(self._kf_desc_dev.shape)]
-            captured.copy_into(cs.inputs, x)
-            cs()
-            fwd, rev = cs.take()
-        self._closure_pending.append((kf.index, n_old, fwd, rev))
+        with trace.span("flush.dispatch"):
+            gap = self.cfg.backend.loop_min_frame_gap
+            n_old = sum(1 for k in self.keyframes[: kf.index] if k.frame <= kf.frame - gap)
+            if n_old == 0:
+                return
+            trace.count("closure_dispatches")
+            x = {"qd": torch.as_tensor(kf.desc.view(np.int32), device=self.device),
+                 "qv": torch.as_tensor(kf.valid, device=self.device),
+                 "db": self._kf_desc_dev, "dbv": self._kf_valid_dev,
+                 "n_old": torch.full((), n_old, dtype=torch.int64, device=self.device)}
+            if not self.capture:
+                _, (fwd, rev) = _kf_match_step(self.cfg.frontend.match_ratio)((), x)
+            else:
+                cs = self._match_steps[tuple(self._kf_desc_dev.shape)]
+                captured.copy_into(cs.inputs, x)
+                cs()
+                fwd, rev = cs.take()
+            self._closure_pending.append((kf.index, n_old, fwd, rev))
 
     def _resolve_closures(self, min_matches: int = 12) -> bool:
         """Drain the dispatched closure matches (one device-to-host copy),
         cross-check the correspondences, verify the candidates in one
         batched Horn consensus + refine, and add the accepted edges.
         Returns True when an accepted closure passes the innovation gate."""
-        pend, self._closure_pending = self._closure_pending, []
-        if not pend:
-            return False
-        tables = [t for _, _, f, r in pend for t in (f, r)]
-        host = torch.cat([t.flatten() for t in tables]).cpu().numpy()
+        with trace.span("flush.closures"):
+            pend, self._closure_pending = self._closure_pending, []
+            if not pend:
+                return False
+            tables = [t for _, _, f, r in pend for t in (f, r)]
+            with trace.span("flush.closures.fetch.wait", wait=True):
+                host = torch.cat([t.flatten() for t in tables]).cpu().numpy()
+            with trace.span("flush.closures.select"):
+                cand_rows = self._closure_candidates(pend, tables, host, min_matches)
+            if not cand_rows:
+                return False
+            trace.count("closure_candidates", len(cand_rows))
+            # -- phase 2 (device, one batch): Horn consensus + reprojection
+            # refine of every candidate; T: p_old ~ T(p_kf) => Z_{old,kf}.
+            Nc = 1
+            while Nc < len(cand_rows):
+                Nc *= 2
+            F = cand_rows[0][2].shape[0]
+            pa_b = np.zeros((Nc, F, 3), np.float32)
+            pb_b = np.zeros((Nc, F, 3), np.float32)
+            v_b = np.zeros((Nc, F), bool)
+            for i, (_, _, pa, pb, v) in enumerate(cand_rows):
+                pa_b[i], pb_b[i], v_b[i] = pa, pb, v
+            rels, n_ins = self._verify_batch(pa_b, pb_b, v_b)
+            with trace.span("flush.closures.accept"):
+                return self._accept_closures(cand_rows, rels, n_ins, min_matches)
+
+    def _closure_candidates(self, pend, tables, host, min_matches: int) -> list:
+        """Phase 1 (host) of `_resolve_closures`: candidate selection and
+        correspondence tables from the fetched match tables (`host`, the
+        flat copy of `tables`). Returns [(kf_index, old_index, pa, pb,
+        valid)]."""
         ends = np.cumsum([t.numel() for t in tables])
         host = [h.reshape(t.shape) for h, t in zip(np.split(host, ends[:-1]), tables)]
         fetched = list(zip(host[0::2], host[1::2]))
-        # -- phase 1 (host): candidate selection + correspondence tables --
         cand_rows = []  # (kf_index, old_index, pa, pb, valid)
         for (kidx, n_old, _, _), (fwd, rev) in zip(pend, fetched):
             kf = self.keyframes[kidx]
@@ -637,21 +678,11 @@ class SLAMSystem:
                 pa[: len(sel)] = kf.points_kf[sel]                # kf frame
                 pb[: len(sel)] = old.points_kf[fwd[k_best, sel]]  # old frame
                 cand_rows.append((kidx, k_best, pa, pb, np.arange(F) < len(sel)))
-        if not cand_rows:
-            return False
-        # -- phase 2 (device, one batch): Horn consensus + reprojection
-        # refine of every candidate; T: p_old ~ T(p_kf) => Z_{old,kf}.
-        Nc = 1
-        while Nc < len(cand_rows):
-            Nc *= 2
-        F = cand_rows[0][2].shape[0]
-        pa_b = np.zeros((Nc, F, 3), np.float32)
-        pb_b = np.zeros((Nc, F, 3), np.float32)
-        v_b = np.zeros((Nc, F), bool)
-        for i, (_, _, pa, pb, v) in enumerate(cand_rows):
-            pa_b[i], pb_b[i], v_b[i] = pa, pb, v
-        rels, n_ins = self._verify_batch(pa_b, pb_b, v_b)
-        # -- phase 3 (host): accept edges, innovation-gate the optimize --
+        return cand_rows
+
+    def _accept_closures(self, cand_rows, rels, n_ins, min_matches: int) -> bool:
+        """Phase 3 (host) of `_resolve_closures`: accept the verified edges
+        and innovation-gate the optimize."""
         need_opt = False
         for (kidx, oldidx, _, _, _), rel, n_in in zip(cand_rows, rels, n_ins):
             if int(n_in) < max(min_matches, 4):
@@ -662,6 +693,7 @@ class SLAMSystem:
             self.graph = graph_mod.add_edge(self.graph, old.index, kf.index, rel,
                                             info=[it, it, it, ir, ir, ir])
             self.loop_closures.append((old.index, kf.index))
+            trace.count("closures_accepted")
             # Innovation gate: the edge is kept either way; the inline
             # optimize + correct runs only when it disagrees with the graph.
             gate = self.cfg.backend.loop_min_innovation
@@ -689,27 +721,30 @@ class SLAMSystem:
         and inliers [Nc] on the host). Captured, the arrays go into the
         static inputs of the batch shape's step and the whole verification
         replays."""
-        Nc = pa.shape[0]
-        if not self.capture:
-            rels, n_in = self._verify_candidates(
-                *(torch.as_tensor(a, device=self.device) for a in (pa, pb, valid)))
-        else:
-            cs = self._verify_steps.get(pa.shape)
-            if cs is None:
-                inputs = {"pa": torch.zeros(pa.shape, device=self.device),
-                          "pb": torch.zeros(pb.shape, device=self.device),
-                          "valid": torch.zeros(valid.shape, dtype=torch.bool, device=self.device)}
-                cs = self._verify_steps[pa.shape] = captured.CapturedStep(
-                    lambda state, x: (state, self._verify_candidates(x["pa"], x["pb"],
-                                                                     x["valid"])),
-                    (), inputs, graph=self.device.type == "cuda", pool=self._graph_pool())
-            x = cs.inputs
-            for k, a in (("pa", pa), ("pb", pb), ("valid", valid)):
-                x[k].copy_(torch.from_numpy(a))
-            cs()
-            rels, n_in = cs.take()
-        host = torch.cat([rels.reshape(-1), n_in.to(rels.dtype)]).cpu()
-        return host[:Nc * 7].reshape(Nc, 7), host[Nc * 7:].numpy().astype(np.int32)
+        with trace.span("flush.verify"):
+            Nc = pa.shape[0]
+            if not self.capture:
+                rels, n_in = self._verify_candidates(
+                    *(torch.as_tensor(a, device=self.device) for a in (pa, pb, valid)))
+            else:
+                cs = self._verify_steps.get(pa.shape)
+                if cs is None:
+                    z = lambda shape, dtype=torch.float32: torch.zeros(  # noqa: E731
+                        shape, dtype=dtype, device=self.device)
+                    inputs = {"pa": z(pa.shape), "pb": z(pb.shape),
+                              "valid": z(valid.shape, torch.bool)}
+                    cs = self._verify_steps[pa.shape] = captured.CapturedStep(
+                        lambda state, x: (state, self._verify_candidates(x["pa"], x["pb"],
+                                                                         x["valid"])),
+                        (), inputs, graph=self.device.type == "cuda", pool=self._graph_pool())
+                x = cs.inputs
+                for k, a in (("pa", pa), ("pb", pb), ("valid", valid)):
+                    x[k].copy_(torch.from_numpy(a))
+                cs()
+                rels, n_in = cs.take()
+            with trace.span("flush.verify.wait", wait=True):
+                host = torch.cat([rels.reshape(-1), n_in.to(rels.dtype)]).cpu()
+            return host[:Nc * 7].reshape(Nc, 7), host[Nc * 7:].numpy().astype(np.int32)
 
     def _refine_rel_impl(self, rel0, pa, pb, valid):
         """Reprojection-refine closure edges rel0 [..., 7] (Z_{old,kf}: maps
@@ -843,6 +878,7 @@ class SLAMSystem:
 
     def _optimize_graph(self):
         """Optimize the pose graph at its live size (a power-of-two view)."""
+        trace.count("pose_graph_solves")
         view, _, _ = graph_mod.shrink_to_active(self.graph)
         if not self.capture:
             view, _ = pg_mod.optimize_pose_graph(view, iters=self.cfg.backend.gn_iters)
@@ -860,33 +896,35 @@ class SLAMSystem:
         """Optimize the pose graph and left-apply the resulting correction of
         the latest keyframe to the filter state. Returns the correction [7]
         (numpy) for the pending frames of the flush window."""
-        self.graph = self._optimize_graph()
-        k = len(self.keyframes) - 1
-        opt_pose = self.graph.poses[k]
-        est_pose = torch.as_tensor(self.keyframes[k].pose, device=self.device)
-        corr = geometry.se3_compose(opt_pose, geometry.se3_inverse(est_pose))
-        self._set_state(self.state.replace(
-            pose=geometry.se3_compose(corr, self.state.pose),
-            lm_mean=geometry.se3_apply(corr, self.state.lm_mean),
-        ))
-        # the keyframe-motion reference lives in the filter-estimate frame
-        self._set_kf_ref(geometry.se3_compose(corr, self._last_kf_dev))
-        poses_np = self.graph.poses[: len(self.keyframes)].cpu().numpy()
-        corr_np = corr.cpu().numpy()
-        for i, kf in enumerate(self.keyframes):
-            kf.pose = poses_np[i]
-        # Estimates emitted after this correction are relative to the
-        # shifted filter frame: a new anchor segment on the latest keyframe
-        # from the next frame on.
-        last = self.keyframes[-1]
-        shifted = geometry.se3_compose(torch.as_tensor(corr_np),
-                                       torch.as_tensor(last.anchor)).numpy()
-        start = self.frame_idx + 1
-        if last.anchors[-1][0] >= start:
-            last.anchors[-1] = (last.anchors[-1][0], shifted)
-        else:
-            last.anchors.append((start, shifted))
-        return corr_np
+        with trace.span("flush.optimize"):
+            self.graph = self._optimize_graph()
+            k = len(self.keyframes) - 1
+            opt_pose = self.graph.poses[k]
+            est_pose = torch.as_tensor(self.keyframes[k].pose, device=self.device)
+            corr = geometry.se3_compose(opt_pose, geometry.se3_inverse(est_pose))
+            self._set_state(self.state.replace(
+                pose=geometry.se3_compose(corr, self.state.pose),
+                lm_mean=geometry.se3_apply(corr, self.state.lm_mean),
+            ))
+            # the keyframe-motion reference lives in the filter-estimate frame
+            self._set_kf_ref(geometry.se3_compose(corr, self._last_kf_dev))
+            with trace.span("flush.optimize.wait", wait=True):
+                poses_np = self.graph.poses[: len(self.keyframes)].cpu().numpy()
+                corr_np = corr.cpu().numpy()
+            for i, kf in enumerate(self.keyframes):
+                kf.pose = poses_np[i]
+            # Estimates emitted after this correction are relative to the
+            # shifted filter frame: a new anchor segment on the latest keyframe
+            # from the next frame on.
+            last = self.keyframes[-1]
+            shifted = geometry.se3_compose(torch.as_tensor(corr_np),
+                                           torch.as_tensor(last.anchor)).numpy()
+            start = self.frame_idx + 1
+            if last.anchors[-1][0] >= start:
+                last.anchors[-1] = (last.anchors[-1][0], shifted)
+            else:
+                last.anchors.append((start, shifted))
+            return corr_np
 
     # -- per-frame step ---------------------------------------------------
 
@@ -968,15 +1006,19 @@ class SLAMSystem:
         u = torch.as_tensor(np.asarray(odom_u, np.float32), device=self.device)
         x = {"u": u, "obs": obs, "noise": noise, "u0": u0, "has_kf": self._has_kf_dev}
         if not self.capture:
-            (self.state, self._last_kf_dev), out = self._frame((self.state, self._last_kf_dev), x)
+            with trace.span("frame.replay"):
+                carry, out = self._frame((self.state, self._last_kf_dev), x)
+            self.state, self._last_kf_dev = carry
             return self._post_step(*out)
         if "obs" not in self._frame_steps:
             self._frame_step("obs", self._frame, {
                 k: (v if k == "has_kf" else captured.clone(v)) for k, v in x.items()})
         cs = self._frame_steps["obs"]
         captured.copy_into(cs.inputs, x)
-        cs()
-        return self._post_step(*cs.take())
+        with trace.span("frame.replay"):
+            cs()
+            out = cs.take()
+        return self._post_step(*out)
 
     def _image_frame(self, n_images: int, shape):
         """The captured function of an image entry: x["frame"] holds the
@@ -1006,23 +1048,25 @@ class SLAMSystem:
         only after the host has read the device since its last copy (the
         flag flush reads it every kf_flag_lag frames; past STAGING_SLOTS
         uploads without a read the host waits here)."""
-        if dst.device.type != "cuda":
-            dst.copy_(torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays])))
-            return
-        if self._uploads_unread >= STAGING_SLOTS:
-            torch.cuda.current_stream(self.device).synchronize()
-            self._uploads_unread = 0
-        ring = self._staging.setdefault(dst.numel(), [None] * STAGING_SLOTS)
-        i = self._uploads % STAGING_SLOTS
-        if ring[i] is None:
-            ring[i] = torch.empty(dst.numel(), dtype=torch.float32, pin_memory=True)
-        host, off = ring[i].numpy(), 0
-        for a in arrays:
-            host[off:off + a.size] = a.reshape(-1)
-            off += a.size
-        dst.copy_(ring[i], non_blocking=True)
-        self._uploads += 1
-        self._uploads_unread += 1
+        with trace.span("frame.upload"):
+            if dst.device.type != "cuda":
+                dst.copy_(torch.from_numpy(np.concatenate([a.reshape(-1) for a in arrays])))
+                return
+            if self._uploads_unread >= STAGING_SLOTS:
+                with trace.span("frame.upload.wait", wait=True):
+                    torch.cuda.current_stream(self.device).synchronize()
+                self._uploads_unread = 0
+            ring = self._staging.setdefault(dst.numel(), [None] * STAGING_SLOTS)
+            i = self._uploads % STAGING_SLOTS
+            if ring[i] is None:
+                ring[i] = torch.empty(dst.numel(), dtype=torch.float32, pin_memory=True)
+            host, off = ring[i].numpy(), 0
+            for a in arrays:
+                host[off:off + a.size] = a.reshape(-1)
+                off += a.size
+            dst.copy_(ring[i], non_blocking=True)
+            self._uploads += 1
+            self._uploads_unread += 1
 
     def _draw_into(self, key, x, motion_noise, resample_u0):
         """This frame's draws in an image step's inputs, as `_draws` makes
@@ -1060,8 +1104,10 @@ class SLAMSystem:
         cs = self._frame_steps[key]
         self._upload(cs.inputs["frame"], arrays + [u])
         self._draw_into(key, cs.inputs, motion_noise, resample_u0)
-        cs()
-        return self._post_step(*cs.take())
+        with trace.span("frame.replay"):
+            cs()
+            out = cs.take()
+        return self._post_step(*out)
 
     # -- main entry -------------------------------------------------------
 
@@ -1069,14 +1115,16 @@ class SLAMSystem:
         """One camera frame [H, W] in [0, 1] + odometry increment [6].
         Returns the pose estimate [7] as a device tensor. `motion_noise`
         [P, noise_dim] and `resample_u0` replace this frame's draws."""
-        if self.capture:
-            return self._captured_frame("mono", (img,), odom_u, motion_noise, resample_u0)
-        img = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
-        return self._step(self._mono_observation(img), odom_u, motion_noise, resample_u0)
+        with trace.span("frame", rid=self.frame_idx):
+            if self.capture:
+                return self._captured_frame("mono", (img,), odom_u, motion_noise, resample_u0)
+            img = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+            return self._step(self._mono_observation(img), odom_u, motion_noise, resample_u0)
 
     def process_obs(self, obs: Observation, odom_u, motion_noise=None, resample_u0=None):
         """Bypass the image frontend with a ready Observation."""
-        return self._step(obs, odom_u, motion_noise, resample_u0)
+        with trace.span("frame", rid=self.frame_idx):
+            return self._step(obs, odom_u, motion_noise, resample_u0)
 
     def process_stereo_frame(self, img_left, img_right, odom_u, motion_noise=None,
                              resample_u0=None):
@@ -1088,25 +1136,30 @@ class SLAMSystem:
         estimate [7] as a device tensor; the draws as in `process_frame`."""
         if self.cfg.filter.obs_dim != 3:
             raise ValueError("stereo frames need obs_dim=3 (stereo_3d model)")
-        if self.capture:
-            if np.shape(img_left) != np.shape(img_right):
-                raise ValueError(f"stereo pair of {np.shape(img_left)} and {np.shape(img_right)}")
-            return self._captured_frame("stereo", (img_left, img_right), odom_u, motion_noise,
-                                        resample_u0)
-        left, right = (torch.as_tensor(np.asarray(a, np.float32), device=self.device)
-                       for a in (img_left, img_right))
-        return self._step(self._stereo_observation(left, right), odom_u, motion_noise,
-                          resample_u0)
+        with trace.span("frame", rid=self.frame_idx):
+            if self.capture:
+                if np.shape(img_left) != np.shape(img_right):
+                    raise ValueError(f"stereo pair of {np.shape(img_left)} and "
+                                     f"{np.shape(img_right)}")
+                return self._captured_frame("stereo", (img_left, img_right), odom_u,
+                                            motion_noise, resample_u0)
+            left, right = (torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+                           for a in (img_left, img_right))
+            return self._step(self._stereo_observation(left, right), odom_u, motion_noise,
+                              resample_u0)
 
     def _post_step(self, est, kf_flag, snap, metrics):
         self.frame_idx += 1
-        self._metrics_pending.append((
-            self.frame_idx,
-            (metrics.ess, metrics.num_landmarks, metrics.match_frac, metrics.resampled),
-            len(self.keyframes),
-        ))
-        if len(self._metrics_pending) >= 256:
-            self.flush_metrics()
+        # the per-frame metrics go to the host only for a log file or the
+        # tracer: nothing else reads them
+        if self.metrics.writing or trace.enabled():
+            self._metrics_pending.append((
+                self.frame_idx,
+                (metrics.ess, metrics.num_landmarks, metrics.match_frac, metrics.resampled),
+                len(self.keyframes),
+            ))
+            if len(self._metrics_pending) >= 256:
+                self.flush_metrics()
         self._flag_pending.append((self.frame_idx, est, kf_flag, snap))
         # absolute-phase flushes: a function of the frame index alone
         if not self._has_kf or self.frame_idx % self.kf_flag_lag == 0:
@@ -1119,42 +1172,47 @@ class SLAMSystem:
         snapshot. The closure matches dispatched in the previous window are
         resolved first; a resulting correction is composed into this
         window's pending estimates."""
-        pend, self._flag_pending = self._flag_pending, []
-        flags = torch.stack([f for _, _, f, _ in pend]).tolist() if pend else []
-        if pend:  # the read waited for every copy of `_upload` so far
-            self._uploads_unread = 0
-        pend_corr = None
-        if self._resolve_closures():
-            pend_corr = self._optimize_and_correct()
-        if not any(flags):
-            return
-        for (fi, est, _, snap), f in zip(pend, flags):
-            if not f:
-                continue
-            est_raw = est
-            if pend_corr is not None:
-                est = geometry.se3_compose(torch.as_tensor(pend_corr, device=est.device), est)
-            kf = self._make_keyframe(est, snap, frame=fi, anchor_pose=est_raw)
-            if pend_corr is not None:
-                # rows already emitted are relative to the raw estimate; rows
-                # after the flush live in the corrected frame
-                kf.anchors.append((self.frame_idx + 1, est.cpu().numpy().astype(np.float32)))
-            self.last_kf_pose = kf.pose
-            self._set_has_kf(True)
-            self._dispatch_loop_closure(kf)
-        ce = self.cfg.checkpoint_every
-        if ce > 0 and self.cfg.checkpoint_dir and len(self.keyframes) % ce == 0:
-            self.save_checkpoint(f"{self.cfg.checkpoint_dir}/ckpt_{self.frame_idx:08d}")
+        with trace.span("flush"):
+            pend, self._flag_pending = self._flag_pending, []
+            with trace.span("flush.flags.wait", wait=True):
+                flags = torch.stack([f for _, _, f, _ in pend]).tolist() if pend else []
+            if pend:  # the read waited for every copy of `_upload` so far
+                self._uploads_unread = 0
+            pend_corr = None
+            if self._resolve_closures():
+                pend_corr = self._optimize_and_correct()
+            if not any(flags):
+                return
+            for (fi, est, _, snap), f in zip(pend, flags):
+                if not f:
+                    continue
+                est_raw = est
+                if pend_corr is not None:
+                    est = geometry.se3_compose(torch.as_tensor(pend_corr, device=est.device), est)
+                kf = self._make_keyframe(est, snap, frame=fi, anchor_pose=est_raw)
+                if pend_corr is not None:
+                    # rows already emitted are relative to the raw estimate; rows
+                    # after the flush live in the corrected frame
+                    kf.anchors.append((self.frame_idx + 1, est.cpu().numpy().astype(np.float32)))
+                self.last_kf_pose = kf.pose
+                self._set_has_kf(True)
+                self._dispatch_loop_closure(kf)
+            ce = self.cfg.checkpoint_every
+            if ce > 0 and self.cfg.checkpoint_dir and len(self.keyframes) % ce == 0:
+                self.save_checkpoint(f"{self.cfg.checkpoint_dir}/ckpt_{self.frame_idx:08d}")
 
     def flush_metrics(self):
         """Drain the device-side metrics buffer into the JSONL logger (one
-        batched copy)."""
+        batched copy), counting its resamples for the tracer."""
         pend, self._metrics_pending = self._metrics_pending, []
         if not pend:
             return
         vals = torch.stack([torch.stack([torch.as_tensor(v, dtype=torch.float32,
                                                          device=self.device) for v in p[1]])
-                            for p in pend]).cpu().numpy()
+                            for p in pend])
+        with trace.span("metrics.drain", wait=True):
+            vals = vals.cpu().numpy()
+        trace.count("resamples", int((vals[:, 3] != 0).sum()))
         for (fi, _, nkf), (ess, lms, mf, rs) in zip(pend, vals):
             self.metrics.log(fi, ess=float(ess), landmarks=float(lms), match_frac=float(mf),
                              resampled=bool(rs), keyframes=nkf)

@@ -23,6 +23,11 @@ class MetricsLogger:
             self.path.parent.mkdir(parents=True, exist_ok=True)
             self._fh = open(self.path, "a")
 
+    @property
+    def writing(self) -> bool:
+        """Whether `log` writes anywhere (a file is open)."""
+        return self._fh is not None
+
     def log(self, frame: int, **fields):
         if self._fh is None:
             return
