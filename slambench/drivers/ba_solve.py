@@ -10,11 +10,17 @@ configuration's backend settings, captured, and brings the poses, points
 and costs back to the host. `ba_solve_s` is the window's time over the
 solves it completed.
 
-`--trace 1` profiles one whole solve in the middle of the window.
+`--trace 1` profiles one whole solve in the middle of the window, and
+turns the program's tracer and the card's clock sampler on over the window
+(`harness/spans.py`).
 
 Correct: every solve's final cost, and the poses and points of one solve
 drawn from the seed, against the frozen reference's eager solve of the
-same problem in float32 (`reference/ba.py`)."""
+same problem in float32 (`reference/ba.py`). A control run also solves the
+reference in float32 with the problem's observations in a seed-drawn order
+and prints that reordering's numbers beside the TF32 control's: same
+precision, another order of summation, so it is printed and never held in
+the program's place."""
 
 from __future__ import annotations
 
@@ -22,10 +28,16 @@ import random
 import statistics
 import time
 
-from slambench.harness import spec
+from slambench.harness import spans, spec
 from slambench.harness.trace import Stretch
 from slambench.reference import ba as ba_ref
 from slambench.worlds import ba_problem
+
+
+# how the reordering's note begins; its permutation is drawn from the run's
+# seed XOR REORDER_SEED, so that it is not the problem's own draw
+REORDERING = "reordering (the reference in float32, its observations in a seed-drawn order)"
+REORDER_SEED = 0x0BDE
 
 
 def solver_settings(cfg) -> dict:
@@ -60,6 +72,7 @@ def run(run):
     run.setup_done()
 
     outs, n, ends = [], 0, []
+    w = spans.window_begin(run)
     t0 = time.perf_counter()
     trace_at = run.seconds / 2
     while True:
@@ -75,6 +88,7 @@ def run(run):
         if ends[-1] >= run.seconds:
             break
     window = time.perf_counter() - t0
+    spans.window_end(run, w)
     run.e2e["ba_solve_s"] = window / n
     run.attempted = n
     if dev.type == "cuda":
@@ -109,5 +123,12 @@ def run(run):
         cn = ba_ref.compare([float(ctl[2][-1])], ctl[0], ctl[1], ref)
         run.note("control (the reference in TF32) against the reference: "
                  + " ".join(f"{k}={v!r}" for k, v in cn.items()))
+        reo = ba_ref.solve(p["camera"], ba_ref.reorder(raw, run.seed ^ REORDER_SEED), kw, dev)
+        run.counters["reordering"] = ba_ref.compare([float(reo[2][-1])], reo[0], reo[1], ref)
+        run.note(f"{REORDERING} against the reference: "
+                 + " ".join(f"{k}={v!r}" for k, v in run.counters["reordering"].items()))
+        run.note("the relative cost gap by LM iteration (printed, not compared): control "
+                 + " ".join(f"{g:.3g}" for g in ba_ref.cost_gaps(ctl[2], ref)) + "; reordering "
+                 + " ".join(f"{g:.3g}" for g in ba_ref.cost_gaps(reo[2], ref)))
     run.note("program against the reference: " + " ".join(f"{k}={v!r}" for k, v in nums.items()))
     run.hold([nums], [cn])

@@ -1,17 +1,18 @@
 """A closed loop of stereo pairs through the online system (traffic kind
 `stereo_drive`).
 
-Set-up makes the street world from the seed, renders every frame the run
-may use on the card (enough for `max_rate_fps` over `--seconds`, after
+Set-up makes the street world from the seed, renders the run's frame
+supply on the card (`max_rate_fps` over `--seconds`, plus 8, after
 `warmup_frames`), draws each frame's odometry noise and the filter's draws
 (`motion_noise`, `resample_u0`), builds `SLAMSystem` on the card and runs
 the warm-up frames through `process_stereo_frame` (the frame graph's eager
 first frame and its capture, the first keyframes), then warms the shapes
 the keyframe flush meets later (`flush_shapes`). The window hands the
 frames to `process_stereo_frame` one after the other, as host float32
-arrays, until `--seconds` have passed. The frames stay on the lap's
-outbound stretch: no revisit falls in the window at any rate a run can
-reach, and a run that uses up its frames is not correct.
+arrays, until `--seconds` have passed or the supply is used up, whichever
+comes first: `max_rate_fps` sizes the supply and does not cap the rate. A
+run that ends on its supply is correct, and notes it. The frames stay on
+the lap's outbound stretch: no revisit falls in the supply.
 
 Per frame, the latency is the time from the host's submission of the frame
 to a CUDA event recorded after the call (its estimate complete on the
@@ -20,7 +21,10 @@ synchronisation at the window's start; no synchronisation is added to the
 loop. `frames_per_s` is the window's frames over the time to the last
 one's completion.
 
-`--trace 1` profiles `trace_frames` frames in the middle of the window.
+`--trace 1` profiles `trace_frames` frames from the earlier of half of
+`--seconds` and the middle of the supply, so that a run which ends on its
+supply profiles them too, and turns the program's tracer and the card's
+clock sampler on over the window (`harness/spans.py`).
 
 Correct: `checked_frames` frames drawn from the seed among the window's
 first frames, each worked out again by the reference from the state the
@@ -35,7 +39,7 @@ import statistics
 import time
 from types import SimpleNamespace
 
-from slambench.harness import spec
+from slambench.harness import spans, spec
 from slambench.harness.trace import Stretch
 from slambench.reference import filter as fref
 from slambench.worlds.drive import DriveWorld
@@ -168,8 +172,9 @@ def run(run):
     snaps = {}
     lat_sub, calls, events, ests = [], [], [], []
     stretch_at = None
-    t_trace = run.seconds / 2
+    t_trace, i_trace = run.seconds / 2, warm + (n_frames - warm) // 2
     ev0 = torch.cuda.Event(enable_timing=True) if cuda else None
+    w = spans.window_begin(run)
     sync()
     if cuda:
         ev0.record()
@@ -177,12 +182,14 @@ def run(run):
     i = warm
     while True:
         if i >= n_frames:
-            run.errors.append(f"the window used up its {n_frames - warm} frames")
+            run.note(f"stereo_drive: the window ended on its frame supply after {i - warm} "
+                     f"frames, {time.perf_counter() - t0:.3f} s")
             break
-        tracing = run.trace and stretch_at is None and time.perf_counter() - t0 >= t_trace
+        tracing = (run.trace and stretch_at is None and i > max(checked, default=-1)
+                   and (i >= i_trace or time.perf_counter() - t0 >= t_trace))
         if tracing:
             stretch_at = i
-            n_tr = int(p["trace_frames"])
+            n_tr = min(int(p["trace_frames"]), n_frames - i)
             # the valid lanes a traced frame starts from: the frame before's
             traced = [seen["out"][3].num_landmarks]
             with Stretch() as st:
@@ -217,20 +224,26 @@ def run(run):
             break
     sync()
     window = time.perf_counter() - t0
+    if w is not None:
+        sys_.flush_metrics()
+    spans.window_end(run, w)
     n = i - warm
     run.attempted = n
+    # each frame's completion, in ms after the window's start: on the card by
+    # its event; on the CPU, which runs a call to its end, when the call returned
+    done = ([ev0.elapsed_time(e) for e in events] if cuda
+            else [(e - t0) * 1e3 for e in events])
+    lat = [d - s * 1e3 for d, s in zip(done, lat_sub)]
+    window = max(window, done[-1] / 1e3)
+    run.e2e["frames_per_s"] = n / (done[-1] / 1e3)
+    q = statistics.quantiles(lat, n=20, method="inclusive")
+    flush = [lat[k] for k in range(n) if (warm + k + 1) % sys_.kf_flag_lag == 0]
+    run.counters["flush_frame_ms"] = statistics.median(flush) if flush else None
+    run.note(f"stereo_drive: {n} frames in {window:.3f} s, latency samples {len(lat)}, "
+             f"median {statistics.median(lat):.2f} ms, p95 {q[18]:.2f} ms, "
+             f"max {max(lat):.2f} ms; flush frames {len(flush)}, median "
+             f"{run.counters['flush_frame_ms']} ms")
     if cuda:
-        done = [ev0.elapsed_time(e) for e in events]
-        lat = [d - s * 1e3 for d, s in zip(done, lat_sub)]
-        window = max(window, done[-1] / 1e3)
-        run.e2e["frames_per_s"] = n / (done[-1] / 1e3)
-        q = statistics.quantiles(lat, n=20, method="inclusive")
-        flush = [lat[k] for k in range(n) if (warm + k + 1) % sys_.kf_flag_lag == 0]
-        run.counters["flush_frame_ms"] = statistics.median(flush) if flush else None
-        run.note(f"stereo_drive: {n} frames in {window:.3f} s, latency samples {len(lat)}, "
-                 f"median {statistics.median(lat):.2f} ms, p95 {q[18]:.2f} ms, "
-                 f"max {max(lat):.2f} ms; flush frames {len(flush)}, median "
-                 f"{run.counters['flush_frame_ms']} ms")
         run.memory_peak_bytes = torch.cuda.max_memory_allocated()
         _note_where_time_went(run, warm, n, sys_.kf_flag_lag, calls, done, lat)
     est_host = torch.stack(ests).cpu()
@@ -283,7 +296,7 @@ def _event(cuda):
     import torch
 
     if not cuda:
-        return None
+        return time.perf_counter()
     e = torch.cuda.Event(enable_timing=True)
     e.record()
     return e

@@ -4,8 +4,10 @@ in memory and reduced to a summary; no trace file is written.
 
 The summary holds every device activity (kernels, copies, memsets) with
 its interval, the host's CUDA API calls by name, the device's busy time
-(the union of the activities' intervals) and the stretch's wall time on
-the host's clock between two synchronisations."""
+(the union of the activities' intervals), the stretch's wall time on the
+host's clock between two synchronisations, and the program's spans over
+the stretch on the profiler's clock (`spans.stretch_spans`; none unless
+the driver's window turned the program's tracer on)."""
 
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import re
 import time
 from collections import Counter
 from dataclasses import dataclass, field
+
+from slambench.harness import spans
 
 _API = re.compile(r"cu[A-Z]|cuda[A-Z]")
 # idle gaps shorter than this are the device's own latency between queued
@@ -26,6 +30,7 @@ class Summary:
     api: Counter = field(default_factory=Counter)  # host CUDA API calls by name
     api_events: list = field(default_factory=list)  # (name, start_us, end_us)
     wall_s: float = 0.0
+    spans: list = field(default_factory=list)  # spans.stretch_spans' tuples
 
     def kernels(self, pattern: str | None = None) -> list:
         """Device activities whose name contains `pattern` (all when None)."""
@@ -42,7 +47,8 @@ class Summary:
     def breakdown(self, top: int = 10) -> dict:
         """The device operations that took most time, and the longest idle
         gaps by the host's CUDA call in them (or none), with the operation
-        that ended each gap."""
+        that ended each gap, and first the program's innermost span open
+        over at least half of the gap where there is one."""
         by_name = Counter()
         for name, s, e in self.ops:
             by_name[name[:120]] += (e - s) / 1e6
@@ -59,7 +65,9 @@ class Summary:
                     calls.add(api[k][0])
                     k += 1
                 host = ",".join(sorted(calls))[:60] if calls else "no CUDA call"
-                gaps[f"host {host} | then {name[:60]}"] += (s - end) / 1e6
+                span = spans.label(self.spans, end, s)
+                where = f"{span} | " if span else ""
+                gaps[f"{where}host {host} | then {name[:60]}"] += (s - end) / 1e6
             elif end is not None and s > end:
                 gaps[f"gaps under {SHORT_GAP_US:g} us (between queued operations)"] += \
                     (s - end) / 1e6
@@ -106,6 +114,8 @@ class Stretch:
         self._prof.__exit__(*exc)
         if exc[0] is None:
             self.summary = summarize(self._prof.events(), wall)
+            self.summary.spans = spans.stretch_spans(
+                self._prof.profiler.kineto_results.trace_start_ns(), wall)
         return False
 
 

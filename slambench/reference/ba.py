@@ -2,7 +2,10 @@
 (`frozen/backend/ba.py`, the LM iteration as a Python loop with the
 plain twin of `apply_cinv`) of the same problem, from the same arrays, in
 float32 with TF32 off; with `tf32=True` the control, the same solve in
-TF32."""
+TF32. `reorder` gives the same problem with its observations in another
+order: solved in float32 it adds the per-camera sums in another order at
+the same precision, the reading that a reordered summation (sorted segment
+sums in place of the dense selector products) may give."""
 
 from __future__ import annotations
 
@@ -24,6 +27,18 @@ def solve(camera, raw: dict, kw: dict, device, tf32: bool = False):
         frozen.set_tf32(False)
 
 
+def reorder(raw: dict, seed: int) -> dict:
+    """`raw` with its observations permuted by a permutation drawn from
+    `seed`. The pack sorts by point with a stable sort, so the permutation
+    survives inside each point's slots, and each camera's terms land in other
+    columns of the flattened selector products."""
+    n = raw["obs_cam"].shape[0]
+    dev = raw["obs_cam"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    perm = torch.randperm(n, generator=g, device=dev)
+    return {**raw, **{k: raw[k][perm] for k in ("obs_cam", "obs_pt", "obs_uv")}}
+
+
 def compare(finals, poses, points, ref) -> dict:
     """The numbers compared: the largest relative gap of a solve's final
     cost to the reference's; of the checked solve, the largest gap of a
@@ -40,3 +55,10 @@ def compare(finals, poses, points, ref) -> dict:
     d = torch.where(torch.isfinite(d), d, torch.full_like(d, float("inf")))
     return {"ba_cost_rel_gap": cost_gap, "ba_pose_gap": pose_gap,
             "ba_point_max_gap_m": float(d.max()), "ba_point_median_gap_m": float(d.median())}
+
+
+def cost_gaps(costs, ref) -> list:
+    """The relative gap of each LM iteration's cost to the reference's, in
+    order: how far the two solves have drifted apart by each iteration."""
+    r = ref[2]
+    return [float(abs(c - q) / abs(q)) for c, q in zip(costs.tolist(), r.tolist())]

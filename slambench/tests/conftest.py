@@ -19,12 +19,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# tiny sizes of each cell for the CPU: (traffic params, config sections)
+# tiny sizes of each cell for the CPU: (traffic params, config sections).
+# kitti00's window ends on its supply of 0.1 x 120 + 8 = 20 frames (SECONDS)
+# however slow the CPU, so that it always reaches its checked frames.
 TINY = {
     "euroc_mh.joint_ba": ({"cameras": 4, "points": 300, "obs_per_cam": 120},
                           {"backend": {"gn_iters": 3, "pcg_iters": 10}}),
     "kitti00.stereo_drive": (
-        {"image_size": [96, 320], "intrinsics": [180.0, 180.0, 160.0, 48.0], "max_rate_fps": 40,
+        {"image_size": [96, 320], "intrinsics": [180.0, 180.0, 160.0, 48.0], "max_rate_fps": 0.1,
          "warmup_frames": 6, "checked_window_frames": [2, 8], "trace_frames": 2},
         {"filter": {"num_particles": 16, "max_landmarks": 256, "max_observations": 32},
          "frontend": {"max_features": 64, "image_size": [96, 320],
@@ -35,6 +37,8 @@ TINY = {
         {"filter": {"num_particles": 16, "max_landmarks": 256, "max_observations": 32},
          "dist": {"particle_axis": 1}}),
 }
+
+SECONDS = {"kitti00.stereo_drive": 120.0}
 
 # The sharded filter's cell is not in BENCHMARK.json until its world is
 # sized from its source; its driver is run here from this definition (the
@@ -63,8 +67,21 @@ def card():
         pytest.skip("no CUDA card here: the test runs on the card")
 
 
-def tiny_run(name: str, seed: int = 2**31 + 11, seconds: float = 3.0):
-    """A `Run` of cell `name` at its tiny CPU size."""
+@pytest.fixture
+def tracer():
+    """The port's tracer, off and empty before and after the test."""
+    from parakeet_slam_tpu_torch.utils import trace
+
+    trace.disable()
+    trace.reset()
+    yield trace
+    trace.disable()
+    trace.reset()
+
+
+def tiny_run(name: str, seed: int = 2**31 + 11, seconds: float | None = None):
+    """A `Run` of cell `name` at its tiny CPU size (`--seconds` from
+    SECONDS, else 3)."""
     from slambench.harness import cli, spec
 
     if name == SHARDED["name"]:
@@ -82,5 +99,6 @@ def tiny_run(name: str, seed: int = 2**31 + 11, seconds: float = 3.0):
     cell.traffic["params"].update(params)
     for sec, vals in sections.items():
         cell.config["run"][sec].update(vals)
+    seconds = SECONDS.get(name, 3.0) if seconds is None else seconds
     return cli.Run(cell=cell, root=ROOT, seed=seed, seconds=seconds, trace=False,
                    t0_wall=time.time(), device="cpu")

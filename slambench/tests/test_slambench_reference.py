@@ -1,16 +1,22 @@
 """The reference against tiny CPU runs of the port through its plain
-twins: every cell's driver, run on the CPU at a tiny size, is correct; and
-with the timed path broken underneath (the card's look skipped, the rest of
-the run driven), `correct` comes out false for each fault the cell can
-have: a step that returns its state unchanged, the exchange between ranks
-left out, an answer altered where it is produced, covariances written
-wrong, one rank's particles gone wrong."""
+twins: every cell's driver, run on the CPU at a tiny size, is correct and
+measures its end-to-end metrics (kitti00's window ends on its frame
+supply, and a traced run takes its stretch all the same); and with the
+timed path broken underneath (the card's look skipped, the rest of the run
+driven), `correct` comes out false for each fault the cell can have: a
+step that returns its state unchanged, the exchange between ranks left
+out, an answer altered where it is produced, covariances written wrong,
+one rank's particles gone wrong. A BA control run prints the reordering's
+numbers."""
 
 from __future__ import annotations
 
+import time
+
 import pytest
 
-from slambench.harness import cli
+from slambench.harness import cli, clocks, spans, spec
+from slambench.harness import trace as trace_mod
 from slambench.tests.conftest import tiny_run
 
 CELLS = ["euroc_mh.joint_ba", "kitti00.stereo_drive", "panoramic.sharded_filter4"]
@@ -27,6 +33,57 @@ def test_tiny_cpu_run_is_correct(name):
     run = _drive(name)
     assert cli.correct(run), (run.errors, [(c.name, c.value, c.limit) for c in run.checks])
     assert run.attempted > 0 and "setup_s" in run.e2e
+    assert {m["name"] for m in run.cell.end_to_end} <= set(run.e2e)
+
+
+class _HostStretch:
+    """`trace.Stretch` on the CPU: one host interval stands for the device's
+    activity; the program's spans are brought over as the real one does."""
+
+    def __enter__(self):
+        self._ns, self._t0 = time.time_ns(), time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        wall = time.perf_counter() - self._t0
+        self.summary = trace_mod.Summary(ops=[("host", 0.0, wall * 1e6)], wall_s=wall,
+                                         spans=spans.stretch_spans(self._ns, wall))
+        return False
+
+
+def test_kitti00_traced_run_ends_on_its_supply_and_takes_its_stretch(monkeypatch, tracer):
+    """The tiny kitti00 run uses up its supply of 0.1 x 120 + 8 = 20 frames
+    long before its 120 s: correct, `frames_per_s` measured, and with
+    `--trace 1` its 2 traced frames taken from the supply's middle, with
+    the program's spans over them."""
+    monkeypatch.setattr(trace_mod, "Stretch", _HostStretch)
+    monkeypatch.setattr(clocks.shutil, "which", lambda _: None)
+    run = tiny_run("kitti00.stereo_drive")
+    run.trace = True
+    run.cell.driver().run(run)
+    assert cli.correct(run), (run.errors, [(c.name, c.value, c.limit) for c in run.checks])
+    assert run.attempted == 20
+    assert any("the window ended on its frame supply after 20 frames" in n for n in run.notes)
+    assert run.e2e["frames_per_s"] > 0
+    assert run.counters["frames_traced"] == 2
+    assert "frame" in {s[0] for s in run.stretch.spans}
+    assert spec.metric_reader("flush_host_ms")(run) > 0
+    assert not tracer.enabled()
+
+
+def test_ba_control_run_prints_the_reordering():
+    """A BA control run also solves the reference in float32 with the
+    problem's observations in a seed-drawn order: another order of the same
+    sums, which moves its numbers off 0, printed beside the control's."""
+    run = tiny_run("euroc_mh.joint_ba")
+    run.with_control = True
+    driver = run.cell.driver()
+    driver.run(run)
+    reo = run.counters["reordering"]
+    assert set(run.cell.workload["limits"]) <= set(reo)
+    assert reo["ba_cost_rel_gap"] > 0
+    assert any(n.startswith(driver.REORDERING + " against the reference: ba_cost_rel_gap=")
+               for n in run.notes)
 
 
 def _ba_unchanged(monkeypatch):

@@ -1,8 +1,8 @@
 """The readers of the program's spans and counters and of the card's
 clocks, on a synthetic stretch; the idle-gap label; the window's brackets
 (off with `--trace 0`); the clock sampler's parsing and its silence without
-nvidia-smi; and, on the card, the one clock that the device trace and the
-program's spans share."""
+nvidia-smi. The one clock that the device trace and the program's spans
+share is checked on the card (`test_slambench_card.py`)."""
 
 from __future__ import annotations
 
@@ -11,17 +11,6 @@ import pytest
 from slambench.harness import clocks, spans, spec
 from slambench.harness.trace import Summary
 from slambench.tests.conftest import tiny_run
-
-
-@pytest.fixture
-def tracer():
-    from parakeet_slam_tpu_torch.utils import trace
-
-    trace.disable()
-    trace.reset()
-    yield trace
-    trace.disable()
-    trace.reset()
 
 
 def _stretch():
@@ -61,6 +50,15 @@ def test_gap_label_is_the_innermost_span_over_half_the_gap():
     assert spans.label(st.spans, 5600.0, 6000.0) == "flush"
     assert spans.label(st.spans, 10000.0, 11800.0) == "ba.pack"
     assert spans.label(st.spans, 12000.0, 13000.0) is None
+
+
+def test_breakdown_names_the_span_over_each_gap():
+    gaps = dict(_stretch().breakdown()["idle_gaps"])
+    assert gaps == pytest.approx({
+        "flush.closures.select | host no CUDA call | then graph": 4e-3,
+        "ba.pack | host no CUDA call | then graph": 1.8e-3})
+    bare = Summary(ops=_stretch().ops, wall_s=0.012)
+    assert set(dict(bare.breakdown()["idle_gaps"])) == {"host no CUDA call | then graph"}
 
 
 def _run_with(**counters):
@@ -158,26 +156,3 @@ def test_clock_lines_parse():
     assert clocks.parse("2026/10/18, [N/A], 1980, 2619, 1, 1, 0x0") is None
     assert clocks.parse("Failed to initialize NVML") is None
     assert clocks.low_share([]) is None
-
-
-@pytest.mark.card
-def test_device_trace_and_spans_share_a_clock(card, tracer):
-    """On the card: a sleep kernel's end falls inside the wait span of the
-    synchronise that waits for it, within 0.1 ms, once the span is brought
-    onto the profiler's clock."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    cuda = torch.autograd.DeviceType.CUDA
-    torch.cuda.synchronize()
-    tracer.enable()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(50_000_000)
-        with tracer.span("sync.wait", wait=True):
-            torch.cuda.synchronize()
-    t0 = prof.profiler.kineto_results.trace_start_ns()
-    ((_, a, b, _, _, _),) = spans.stretch_spans(t0, 60.0)
-    end = max(e.time_range.end for e in prof.events() if e.device_type == cuda)
-    print(f"sleep kernel ends at {end:.1f} us; the wait span {a:.1f}-{b:.1f} us: "
-          f"{end - a:.1f} us after its start, {b - end:.1f} us before its end")
-    assert a - 100.0 <= end <= b + 100.0
