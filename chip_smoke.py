@@ -992,11 +992,12 @@ def _with_resamples(run):
 
 
 def _reset_counts_3d():
-    from parakeet_slam_tpu_torch.kernels import ekf_update_3d, resample_cuda
+    from parakeet_slam_tpu_torch.kernels import ekf_update_3d, propose_3d, resample_cuda
 
     ekf_update_3d.score_3d.launches = 0
     ekf_update_3d.measurement_update_3d.launches = 0
     resample_cuda.gather_state.launches = 0
+    propose_3d.propose_3d.launches = 0
 
 
 def _counts_3d():
@@ -1004,6 +1005,17 @@ def _counts_3d():
 
     return (ekf_update_3d.score_3d.launches, ekf_update_3d.measurement_update_3d.launches,
             resample_cuda.gather_state.launches)
+
+
+def _propose_launches(what, frames):
+    """propose_3d's launches since `_reset_counts_3d`: one a frame on the
+    FastSLAM 2.0 vision configurations."""
+    from parakeet_slam_tpu_torch.kernels import propose_3d
+
+    n = propose_3d.propose_3d.launches
+    print(f"{what}: propose_3d launches {n} in {frames} frames")
+    check(n == frames, f"{what}: propose_3d launches {n}, frames {frames}")
+    return n
 
 
 def vision_sequence(world, frames, Z, W, device):
@@ -1023,19 +1035,37 @@ def vision_sequence(world, frames, Z, W, device):
 
 def _twin_path():
     """Route the filter through the plain twins (the check of the kernel path)."""
-    from parakeet_slam_tpu_torch.kernels import ekf_update_3d, resample_cuda
+    from parakeet_slam_tpu_torch.eval import propose_check
+    from parakeet_slam_tpu_torch.kernels import ekf_update_3d, propose_3d, resample_cuda
 
     saved = (ekf_update_3d.measurement_update_3d, ekf_update_3d.score_3d,
-             resample_cuda.gather_state)
+             resample_cuda.gather_state, propose_3d.propose_3d)
     ekf_update_3d.measurement_update_3d = ekf_update_3d.measurement_update_3d_reference
     ekf_update_3d.score_3d = ekf_update_3d.score_3d_reference
     resample_cuda.gather_state = resample_cuda.gather_state_reference
+    propose_3d.propose_3d = propose_check.twin
 
     def restore():
         (ekf_update_3d.measurement_update_3d, ekf_update_3d.score_3d,
-         resample_cuda.gather_state) = saved
+         resample_cuda.gather_state, propose_3d.propose_3d) = saved
 
     return restore
+
+
+def phase_propose(device):
+    """The FastSLAM 2.0 proposal kernel against its twin, the refinement
+    loop, bit for bit (`eval/propose_check.py`): each product, reduction
+    and cross product of the loop against the kernel's order on the loop's
+    own operands; `_propose` through both from filter states at kitti00's
+    and config 2's shapes (refined and sampled poses, P_cov, log_w); every
+    frame of the eager online system on rendered kitti00 and config 2
+    frames; the crafted edge frame; one launch a frame graph replay; the
+    kernel's device time against its twin's and its bound."""
+    from parakeet_slam_tpu_torch.eval import propose_check
+
+    for part in ("rules", "edges", "filter", "system", "capture"):
+        propose_check.PARTS[part](device)
+    return propose_check.part_time(device)
 
 
 def phase_vision(device, frames=10, config="configs/kitti_00.yaml", check_frames=2):
@@ -1066,6 +1096,7 @@ def phase_vision(device, frames=10, config="configs/kitti_00.yaml", check_frames
     est = est.cpu()
     dt = time.perf_counter() - t0
     launches = _counts_3d()
+    n_propose = _propose_launches("vision config 3", frames)
     peak = torch.cuda.max_memory_allocated()
     n_res = int(sum(bool(m.resampled) for m in metrics))
     gt = torch.as_tensor(world.gt_pose[:frames])
@@ -1104,8 +1135,8 @@ def phase_vision(device, frames=10, config="configs/kitti_00.yaml", check_frames
     pose_err = float((kernel_est - twin_est).abs().max())
     print(f"vision kernel vs twin path, {check_frames} frames: lm_valid and lm_count equal "
           f"({int(kernel_final.lm_valid.sum())} live lanes), est max |diff| {pose_err:.3g}")
-    return {"fps": frames / dt, "launches": launches, "ate": ate, "ate_dr": ate_dr,
-            "peak_gib": peak / 2**30}
+    return {"fps": frames / dt, "launches": launches, "propose_launches": n_propose, "ate": ate,
+            "ate_dr": ate_dr, "peak_gib": peak / 2**30}
 
 
 def phase_bench_rows(device):
@@ -1396,6 +1427,7 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
         sys_, est, fps, wall, n_res, graph_poses = run()
         launches = _counts_3d() + (match.hamming_top2.launches,)
         horn_launches = horn.rotation_fit.launches
+        n_propose = _propose_launches("desk config 2", frames)
     finally:
         restore()
     # the state as the run left it (sequence_ate below verifies and solves
@@ -1437,8 +1469,8 @@ def phase_desk(device, frames=DESK_FRAMES, config="configs/tum_fr1_desk.yaml"):
           f"desk gather launches {launches[2]} (frames {frames}), resamples {n_res}")
     check(verifies and horn_launches == HORN_ROUNDS * len(verifies),
           f"rotation_fit launches {horn_launches}, verifies {len(verifies)} x {HORN_ROUNDS}")
-    return {"fps": fps, "launches": launches, "calls": calls, "ates": ates,
-            "horn_launches": horn_launches,
+    return {"fps": fps, "launches": launches, "propose_launches": n_propose, "calls": calls,
+            "ates": ates, "horn_launches": horn_launches,
             "closures": len(sys_.loop_closures), "peak_gib": peak / 2**30,
             "system": sys_, "est": est, "gt": world.gt_pose, "cfg": cfg, "images": images,
             "odom": odom, "graph_poses": graph_poses, "est_opt": est_opt,
@@ -1526,6 +1558,7 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
     try:
         (est, fps, wall), n_res = _with_resamples(drive)
         launches = _counts_3d() + (match.hamming_top2.launches,)
+        n_propose = _propose_launches("stereo config 3", frames)
     finally:
         restore()
     peak = torch.cuda.max_memory_allocated()
@@ -1609,7 +1642,8 @@ def phase_stereo(device, frames=STEREO_FRAMES, config="configs/kitti_00.yaml"):
     print(f"stereo profile: the eager frontend alone {np.mean(fe_ms):.2f} ms a frame (host "
           "clock)")
     shutil.rmtree(out, ignore_errors=True)
-    return {"fps": fps, "fps_eager": fps_e, "launches": launches, "ates": ates,
+    return {"fps": fps, "fps_eager": fps_e, "launches": launches, "propose_launches": n_propose,
+            "ates": ates,
             "peak_gib": peak / 2**30, "obs_per_frame": obs_per_frame, "split": split}
 
 
@@ -3898,6 +3932,7 @@ def main():
         renders[0].shutdown(cancel_futures=True)
         raise
     rendered = finish_bench_renders(renders)
+    propose = run(phase_propose, device)
     vision = run(phase_vision, device)
     run(phase_bench_rows, device)
     km, l2_err, l2_launches = run(phase_match, device)
@@ -4002,6 +4037,15 @@ def main():
               bound_ms_all_of_c=cinv["bound_laid_out"],
               launches_run_ba=sys_ba["launches"][1], launches_config4=config4["launches"][4],
               launches_config5=config5["cinv_launches"]),
+        entry("propose_3d", "propose_3d.cu", "parakeet_slam_tpu_torch/filter/fastslam2.py loop",
+              stereo["propose_launches"], 0.0, propose["kitti00"]["ms"],
+              propose["kitti00"]["plain_ms"],
+              (propose["kitti00"]["bound_ms"], propose["kitti00"]["bound_by"]),
+              ms_single_call=propose["kitti00"]["ms_single_call"],
+              ms_config2=propose["config2"]["ms"], plain_ms_config2=propose["config2"]["plain_ms"],
+              bound_ms_config2=propose["config2"]["bound_ms"],
+              launches_desk=desk["propose_launches"],
+              launches_vision=vision["propose_launches"]),
         entry("rotation_fit", "horn.cu", "parakeet_slam_tpu/backend/graph.py:461",
               desk["horn_launches"], hf["err"], hf["ms"], hf["plain"], hf["bound"],
               library=hf["plain"], max_abs_err_float64=hf["err_f64"], ms_b1=hf["ms_b1"],

@@ -58,7 +58,7 @@ import time
 import torch
 
 from parakeet_slam_tpu_torch.kernels import (ekf_update, ekf_update_3d, horn, match,
-                                             resample_cuda, schur)
+                                             propose_3d, resample_cuda, schur)
 from parakeet_slam_tpu_torch.utils import trace
 
 
@@ -112,7 +112,8 @@ def counted_wrappers() -> list:
     of this moment: a wrapper replaced by its twin counts nothing)."""
     fns = (ekf_update.measurement_update_2d, ekf_update_3d.score_3d,
            ekf_update_3d.measurement_update_3d, resample_cuda.gather_state,
-           match.hamming_top2, match.l2_top2, schur.apply_cinv, horn.rotation_fit)
+           match.hamming_top2, match.l2_top2, schur.apply_cinv, horn.rotation_fit,
+           propose_3d.propose_3d)
     return [f for f in fns if hasattr(f, "launches")]
 
 

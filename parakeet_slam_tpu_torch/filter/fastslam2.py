@@ -14,19 +14,23 @@ Association: "hoisted" scores the whole frame once at the motion-mean pose
 (one `score_3d` sweep, or the generic scoring, reused by the map pass);
 "sequential" re-associates each observation at the progressively refined
 pose, appearance terms included. "auto" is hoisted on the vision models
-that `score_3d` covers (no float signature) and sequential otherwise. The refinement is
-sequential over the observations either way: a Python loop of small [P, 6]
-tensor programs.
+that `score_3d` covers (no float signature) and sequential otherwise. The
+refinement is sequential over the observations either way. Hoisted, on an
+SE(3) motion model and a model that `kernels/propose_3d` covers (stereo_3d,
+pinhole_3d), it is one `propose_3d` call: one kernel launch a frame on
+CUDA, the loop `propose_3d.refine` on the CPU. Everywhere else it is that
+loop of small [P, dt] tensor programs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from parakeet_slam_tpu_torch.core import linalg
+from parakeet_slam_tpu_torch.core.config import FrontendConfig
 from parakeet_slam_tpu_torch.core.state import Observation, ParticleState
 from parakeet_slam_tpu_torch.filter import models as model_zoo
 from parakeet_slam_tpu_torch.filter.fastslam import FastSLAM
+from parakeet_slam_tpu_torch.kernels import propose_3d
 
 _JITTER = 1e-9
 
@@ -40,6 +44,10 @@ class FastSLAM2(FastSLAM):
             model_zoo.get_motion_mean_cov(cfg.motion_model)
         )
         self.noise_dim = self.tangent_dim  # the proposal's draw replaces the motion draw
+        # the fused refinement covers SE(3) poses on these camera models
+        self.propose_kernel = self.tangent_dim == 6 and self.model.name in propose_3d.MODELS
+        fe = fe_cfg or FrontendConfig()  # the constants the model was built with
+        self._camera = (*(float(x) for x in fe.intrinsics[:4]), float(fe.baseline))
 
     # -- proposal stage -----------------------------------------------------
 
@@ -69,60 +77,30 @@ class FastSLAM2(FastSLAM):
         Returns (state with sampled poses and log-weights, the (best, best_ll)
         scores for the map pass, None in sequential mode)."""
         c = self.cfg
-        P, dt = state.num_particles, self.tangent_dim
         dev, dtype = state.pose.device, state.pose.dtype
-        rows = torch.arange(P, device=dev)
-        R = self._r_matrix(True, state.pose)
-        eye_t = torch.eye(dt, dtype=dtype, device=dev)
-        log_p0 = self._log_p0_assoc()
-        unmatched_w = 0.0 if c.weight_only_matched else c.new_landmark_loglik
+        eye_t = torch.eye(self.tangent_dim, dtype=dtype, device=dev)
+        kw = dict(log_p0=self._log_p0_assoc(),
+                  unmatched_w=0.0 if c.weight_only_matched else c.new_landmark_loglik,
+                  weight_min_count=c.weight_min_count)
 
         pose, P_cov = self.motion_mean_cov(state.pose, u, c.motion_noise)
         hoist = self._hoist_association()
         scores = self._frame_scores(state.replace(pose=pose), obs) if hoist else None
         any_valid = state.lm_valid.any(dim=-1)
-        log_w = state.log_w
-        for i in range(obs.capacity):
+        frame = (state.lm_mean, state.lm_cov, state.lm_count, any_valid, obs.z, obs.valid)
+        if hoist and self.propose_kernel:
+            pose, P_cov, log_w = propose_3d.propose_3d(
+                pose, P_cov, state.log_w, *scores, *frame, measurement=self.model,
+                retract=self.retract, camera=self._camera, r_var=self._meas_var(assoc=True),
+                **kw)
+        else:
             if hoist:
-                best, best_ll = scores[0][:, i].long(), scores[1][:, i]
+                assoc = lambda _, i: (scores[0][:, i].long(), scores[1][:, i])  # noqa: E731
             else:
-                best, best_ll = self._associate(pose, state, obs, i)
-            valid = obs.valid[i]
-            matched = valid & any_valid & (best_ll >= log_p0)
-            mu, cv = state.lm_mean[rows, best], state.lm_cov[rows, best]
-            if c.weight_min_count > 0:
-                matched = matched & (state.lm_count[rows, best] >= c.weight_min_count)
-
-            zhat = self.model.h(pose, mu)
-            Hm = self.model.jac(pose, mu)
-            Hx = self._pose_jacobian(pose, mu)
-            nu = self.model.residual(obs.z[i], zhat)
-            Q = Hm @ cv @ Hm.transpose(-1, -2) + R
-            S = Hx @ P_cov @ Hx.transpose(-1, -2) + Q
-            Sinv, _ = linalg.inv_psd(S)
-            K = P_cov @ Hx.transpose(-1, -2) @ Sinv
-            delta = (K @ nu[..., None])[..., 0]
-            # Joseph form: PSD by construction, where (I - KH) P can go
-            # indefinite in float32 and NaN the sampling Cholesky.
-            IKH = eye_t - K @ Hx
-            P_new = IKH @ P_cov @ IKH.transpose(-1, -2) + K @ Q @ K.transpose(-1, -2)
-            P_new = 0.5 * (P_new + P_new.transpose(-1, -2))
-            # One degenerate landmark must not poison the particle: skip the
-            # observation when the step or the likelihood is not finite.
-            ll_s = linalg.gaussian_loglik(S, nu)
-            ok = (
-                torch.isfinite(delta).all(dim=-1)
-                & torch.isfinite(P_new).all(dim=-1).all(dim=-1)
-                & torch.isfinite(ll_s)
-                & (torch.linalg.vector_norm(delta, dim=-1) < 1.0)
-            )
-            matched = matched & ok
-            pose = torch.where(matched[:, None], self.retract(pose, delta), pose)
-            P_cov = torch.where(matched[:, None, None], P_new, P_cov)
-            log_w = log_w + torch.where(
-                matched, ll_s,
-                torch.where(valid, torch.full_like(ll_s, unmatched_w), torch.zeros_like(ll_s)),
-            )
+                assoc = lambda pose, i: self._associate(pose, state, obs, i)  # noqa: E731
+            pose, P_cov, log_w = propose_3d.refine(
+                self.model, self.retract, pose, P_cov, state.log_w, *frame,
+                self._r_matrix(True, state.pose), assoc, **kw)
 
         # Sample pose ~ N(mean, P) in tangent coordinates; a failed or
         # non-finite factor samples at the refined mean.

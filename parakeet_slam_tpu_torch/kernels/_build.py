@@ -47,6 +47,8 @@ _SIGNATURES = {
     "l2_top2_launch": [_P] * 11 + [_I] * 5 + [_P],
     "apply_cinv_launch": [_P] * 3 + [_I] + [_L] * 5 + [_F, _P],
     "rotation_fit_launch": [_P] * 3 + [_I] + [_L] * 3 + [_P],
+    "propose_3d_launch": [_P] * 15 + [_I] * 5 + [_P, _P],
+    "propose_3d_orders_launch": [_P] * 10 + [_I] * 2 + [_P],
 }
 
 

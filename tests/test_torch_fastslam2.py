@@ -28,7 +28,7 @@ from parakeet_slam_tpu_torch.core.state import state_from_numpy
 from parakeet_slam_tpu_torch.data import make_drive_world
 from parakeet_slam_tpu_torch.eval.kernel_inputs import drive_observations, project_np
 from parakeet_slam_tpu_torch.filter import FastSLAM, FastSLAM2, make_filter, run_sequence
-from parakeet_slam_tpu_torch.kernels import ekf_update_3d, resample_cuda
+from parakeet_slam_tpu_torch.kernels import ekf_update_3d, propose_3d, resample_cuda
 
 KITTI = "configs/kitti_00.yaml"
 FRAMES, P, Z = 3, 16, 32
@@ -139,18 +139,25 @@ def test_fastslam2_corridor_sequential_matches_jax():
 
 def test_filter_routes_through_the_3d_kernel_wrappers(monkeypatch):
     """The KITTI configuration calls score_3d and measurement_update_3d once
-    per frame (the shaped split), the gather once per resample."""
-    calls = {"score": 0, "update": 0, "gather": 0}
+    per frame (the shaped split), the gather once per resample; its
+    FastSLAM 2.0 calls propose_3d once a frame, FastSLAM 1.0 never, and
+    neither does the corridor's sequential FastSLAM 2.0."""
+    calls = {"score": 0, "update": 0, "gather": 0, "propose": 0}
     wrap = lambda name, fn: lambda *a, **k: (calls.__setitem__(name, calls[name] + 1), fn(*a, **k))[1]  # noqa: E731
     monkeypatch.setattr(ekf_update_3d, "score_3d", wrap("score", ekf_update_3d.score_3d))
     monkeypatch.setattr(ekf_update_3d, "measurement_update_3d",
                         wrap("update", ekf_update_3d.measurement_update_3d))
     monkeypatch.setattr(resample_cuda, "gather_state", wrap("gather", resample_cuda.gather_state))
+    monkeypatch.setattr(propose_3d, "propose_3d", wrap("propose", propose_3d.propose_3d))
     for algorithm in ("fastslam2", "fastslam1"):
-        calls.update(score=0, update=0, gather=0)
+        calls.update(score=0, update=0, gather=0, propose=0)
         final = _vision_run_against_jax(algorithm, "stereo_3d", {})
         assert calls["score"] == calls["update"] == FRAMES, calls
+        assert calls["propose"] == (FRAMES if algorithm == "fastslam2" else 0), calls
         assert final.lm_valid.any()
+    calls.update(propose=0)
+    test_fastslam2_corridor_sequential_matches_jax()
+    assert calls["propose"] == 0, calls
 
 
 def test_make_drive_world_matches_jax():
