@@ -24,6 +24,10 @@ the identity, with no launch.
 NCCL has no `bool` reduction and wants one message rather than one per
 leaf: payloads of several leaves travel as one flat byte buffer
 (`pack_bytes` / `unpack_bytes`).
+
+With the program's tracer on, the counter `dist.gather_bytes` adds the
+bytes each all-gather delivers to this rank (the gathered tensor, every
+rank's rows; inside a captured program once a replay, `utils/trace.py`).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed as tdist
+
+from parakeet_slam_tpu_torch.utils import trace
 
 PARTICLE_AXIS = "ici"
 MAP_AXIS = "dcn"
@@ -233,6 +239,7 @@ def all_gather_rows(t: torch.Tensor, mesh: Mesh, axis=PARTICLE_AXIS) -> torch.Te
                       device=flat.device)
     gather = getattr(tdist, "all_gather_single", None) or tdist.all_gather_into_tensor
     gather(out, flat, group=g)
+    trace.count("dist.gather_bytes", out.numel() * out.element_size())
     return out
 
 

@@ -29,6 +29,11 @@ Estimates, the best particle's map and checkpoints read across particles,
 so they are collectives too (`estimate_pose`, `best_particle_lanes`,
 `gather_state`).
 
+With the program's tracer on, the counter `dist.ring_bytes` adds the bytes
+this rank's ring gather sends (S - 1 blocks a gather; inside the captured
+step once a replay, `utils/trace.py`), and `dist.gather_bytes` the
+all-gathers' (`dist/mesh.py`).
+
 **Draws depart from the reference.** It folds the motion key with the
 shard index (a stream per shard), and its threefry streams cannot be
 reproduced in torch in any case. Here every rank draws the *global*
@@ -52,6 +57,7 @@ from parakeet_slam_tpu_torch.filter.fastslam import FastSLAM, StepMetrics
 from parakeet_slam_tpu_torch.filter.fastslam2 import FastSLAM2
 from parakeet_slam_tpu_torch.kernels import resample as resample_kernel
 from parakeet_slam_tpu_torch.kernels import resample_cuda
+from parakeet_slam_tpu_torch.utils import trace
 
 _STATE_FIELDS = tuple(f.name for f in dataclasses.fields(ParticleState))
 
@@ -127,6 +133,7 @@ def ring_gather_rows(payload, global_idx: torch.Tensor, mesh: Mesh, axis: str = 
     names, leaves = _payload_leaves(payload)
     Pl = leaves[0].shape[0]
     buf, layout = mesh_mod.pack_bytes(leaves)
+    trace.count("dist.ring_bytes", (S - 1) * buf.numel())
     out = None
     for s in range(S):
         reqs = None

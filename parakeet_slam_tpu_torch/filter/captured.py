@@ -27,7 +27,9 @@ The rules, the same in both modes:
     one device copy: call it for what is kept past the frame.
   - The kernel wrappers count their launches in Python, so a capture, which
     launches nothing, counts once and a replay, which runs no Python, not at
-    all. The capture's counts are taken back and added once per replay.
+    all. The capture's counts are taken back and added once per replay; so
+    are the program tracer's counts made inside the capture (the bytes of
+    the sharded step's collectives: `utils/trace.recording`).
   - The random draws stay outside: the caller draws them, or injects them,
     and writes them into the inputs.
 
@@ -137,6 +139,7 @@ class CapturedStep:
         self._packed = None
         self._graph = None
         self._counts = {}
+        self._tallies = {}
         self.capture_s = self.instantiate_s = 0.0
         self.pool_bytes = 0
 
@@ -191,6 +194,8 @@ class CapturedStep:
         self._graph.replay()
         for f, n in self._counts.items():
             f.launches += n
+        if self._tallies:
+            trace.add(self._tallies)
         return self.outputs
 
     def _capture(self):
@@ -210,8 +215,9 @@ class CapturedStep:
         t0 = time.perf_counter()
         distributed = torch.distributed.is_available() and torch.distributed.is_initialized()
         try:
-            with torch.cuda.graph(g, pool=self.pool,
-                                  capture_error_mode="thread_local" if distributed else "global"):
+            with trace.recording() as self._tallies, torch.cuda.graph(
+                    g, pool=self.pool,
+                    capture_error_mode="thread_local" if distributed else "global"):
                 copy_into(self.outputs, self._run())
         except RuntimeError as e:
             raise RuntimeError(f"CapturedStep: the step could not be captured: {e}") from e

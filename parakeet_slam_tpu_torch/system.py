@@ -68,8 +68,13 @@ for bit. The reads across particles are collectives: the estimate gathers
 the poses and weights, the keyframe snapshot takes the best particle's
 lanes from the rank that holds it, a checkpoint gathers the state to rank 0,
 which alone writes files. The keyframe backend is replicated: every rank
-runs the same host logic on the same data. Otherwise the system runs on
-one device, as the reference does when its mesh does not fit.
+runs the same host logic on the same data, and every device value that
+logic reads (the flags, a keyframe's estimate and snapshot, the closure
+tables, the verification's results, the solved pose graph) is rank 0's,
+broadcast over the mesh before the read (`_agree`), so that the ranks'
+decisions, and the collectives that follow them, cannot part. Otherwise the
+system runs on one device, as the reference does when its mesh does not
+fit.
 
 Offline, `run_ba` refines the keyframe poses and a deduplicated point table
 by bundle adjustment (`backend/ba.py`): `build_ba_problem` merges the
@@ -96,8 +101,11 @@ a `frame` span (its `rid` the frame's index) over `frame.upload` and
 (`*.wait`), the closures' fetch, selection, verification and acceptance,
 the pose-graph solve and each keyframe; and the system counts keyframes,
 closure dispatches, candidates and accepted closures, pose-graph solves
-and, in the metrics drain, resamples. The per-frame metrics are drained to
-the host only for a log file (`metrics_path`) or the tracer.
+and, in the metrics drain, resamples and the valid lanes a particle
+(`lanes_valid`, the sum of each drained frame's mean, over
+`drained_frames`). The per-frame metrics are drained to the host only for a
+log file (`metrics_path`) or the tracer. Sharded, the step's collectives
+count their bytes (`dist.ring_bytes`, `dist.gather_bytes`).
 """
 
 from __future__ import annotations
@@ -455,6 +463,16 @@ class SLAMSystem:
 
     # -- keyframe / loop closure -----------------------------------------
 
+    def _agree(self, *tensors):
+        """The device tensors as rank 0 holds them, on every rank of a
+        sharded system (one broadcast over the mesh, which every rank makes
+        at the same point of the replicated host logic); the tensors
+        themselves on one device. Called on what the keyframe backend is
+        about to read on the host."""
+        if self._sharded is None or self.mesh.axis_group(mesh_mod.BOTH_AXES) is None:
+            return list(tensors)
+        return mesh_mod.broadcast_packed(tensors, self.mesh, mesh_mod.BOTH_AXES, 0)
+
     def _best_particle_lanes(self, state):
         """(lm_mean, lm_valid, lm_desc, lm_count) of the highest-weight
         particle (from the rank that holds it when sharded)."""
@@ -495,6 +513,7 @@ class SLAMSystem:
             est_pose = torch.as_tensor(est_pose, dtype=torch.float32, device=self.device)
             if snap is None:
                 snap = self._kf_snapshot_impl(self.state, est_pose)
+            est_pose, *snap = self._agree(est_pose, *snap)
             with trace.span("flush.keyframe.wait", wait=True):
                 pose_np, pts_np, desc_np, valid_np = (t.cpu().numpy() for t in (est_pose, *snap))
             fr = self.frame_idx if frame is None else frame
@@ -615,8 +634,9 @@ class SLAMSystem:
             if not pend:
                 return False
             tables = [t for _, _, f, r in pend for t in (f, r)]
+            flat, = self._agree(torch.cat([t.flatten() for t in tables]))
             with trace.span("flush.closures.fetch.wait", wait=True):
-                host = torch.cat([t.flatten() for t in tables]).cpu().numpy()
+                host = flat.cpu().numpy()
             with trace.span("flush.closures.select"):
                 cand_rows = self._closure_candidates(pend, tables, host, min_matches)
             if not cand_rows:
@@ -742,8 +762,9 @@ class SLAMSystem:
                     x[k].copy_(torch.from_numpy(a))
                 cs()
                 rels, n_in = cs.take()
+            flat, = self._agree(torch.cat([rels.reshape(-1), n_in.to(rels.dtype)]))
             with trace.span("flush.verify.wait", wait=True):
-                host = torch.cat([rels.reshape(-1), n_in.to(rels.dtype)]).cpu()
+                host = flat.cpu()
             return host[:Nc * 7].reshape(Nc, 7), host[Nc * 7:].numpy().astype(np.int32)
 
     def _refine_rel_impl(self, rel0, pa, pb, valid):
@@ -890,6 +911,7 @@ class SLAMSystem:
             view, _ = self._pg_solver(view)
         poses = self.graph.poses.clone()
         poses[: view.poses.shape[0]] = view.poses
+        poses, = self._agree(poses)
         return self.graph.replace(poses=poses)
 
     def _optimize_and_correct(self):
@@ -1174,8 +1196,9 @@ class SLAMSystem:
         window's pending estimates."""
         with trace.span("flush"):
             pend, self._flag_pending = self._flag_pending, []
+            flags = self._agree(torch.stack([f for _, _, f, _ in pend]))[0] if pend else None
             with trace.span("flush.flags.wait", wait=True):
-                flags = torch.stack([f for _, _, f, _ in pend]).tolist() if pend else []
+                flags = flags.tolist() if pend else []
             if pend:  # the read waited for every copy of `_upload` so far
                 self._uploads_unread = 0
             pend_corr = None
@@ -1213,6 +1236,8 @@ class SLAMSystem:
         with trace.span("metrics.drain", wait=True):
             vals = vals.cpu().numpy()
         trace.count("resamples", int((vals[:, 3] != 0).sum()))
+        trace.count("lanes_valid", float(vals[:, 1].sum()))
+        trace.count("drained_frames", len(pend))
         for (fi, _, nkf), (ess, lms, mf, rs) in zip(pend, vals):
             self.metrics.log(fi, ess=float(ess), landmarks=float(lms), match_frac=float(mf),
                              resampled=bool(rs), keyframes=nkf)

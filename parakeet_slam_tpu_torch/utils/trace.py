@@ -13,10 +13,16 @@ running counts, kept in memory; off by default.
 Off (the default), `span()` returns one shared context manager that does
 nothing and `count()` returns at once: a site costs one test of a module
 flag; no clock is read, nothing is allocated and no profiler range is
-entered. On, each span records its name, its start and end from
-`time.time_ns()`, the index of the span it was opened in (-1 for none),
-`rid` (a frame's index, a solve's number: a span opened without one takes
-its parent's, so every span of a frame or a solve shares it) and `wait`
+entered. The one exception is a CUDA graph's capture (`recording()`, which
+`filter/captured.CapturedStep` opens around it): the counts made while it
+records, tracer on or off, are the captured work's, kept by the step and
+added again after each replay (`add`), as the kernel wrappers' launches
+are; the capture itself runs nothing, so they are not counted then.
+
+On, each span records its name, its start and end from `time.time_ns()`,
+the index of the span it was opened in (-1 for none), `rid` (a frame's
+index, a solve's number: a span opened without one takes its parent's, so
+every span of a frame or a solve shares it) and `wait`
 (the span does nothing but block on the device: a device-to-host read, a
 synchronise). A span's self time, its host time outside its waits, is its
 duration less that of the outermost wait spans under it (`self_ns`).
@@ -32,6 +38,7 @@ threads at once would nest wrongly."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple
 
@@ -62,6 +69,8 @@ _on = False
 _spans: list = []      # Span, or [name, start, None, parent, rid, wait] while open
 _open: list = []       # indices of the open spans, innermost last
 _counters: dict = {}
+_rec: dict | None = None   # the counts of the capture that records now
+_live = False              # _on, or a capture recording: count() records
 
 
 class _On:
@@ -95,20 +104,44 @@ def span(name: str, rid: int | None = None, wait: bool = False):
 
 
 def count(name: str, n=1) -> None:
-    """Add n to counter `name`."""
+    """Add n to counter `name` (while a capture records, to its counts)."""
+    if not _live:
+        return
+    into = _counters if _rec is None else _rec
+    into[name] = into.get(name, 0) + n
+
+
+def add(counts: dict) -> None:
+    """Add a recorded capture's counts to the counters: once a replay."""
     if not _on:
         return
-    _counters[name] = _counters.get(name, 0) + n
+    for name, n in counts.items():
+        _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """While a CUDA graph captures: `count()` records into the dict this
+    yields, whether the tracer is on or off, and not into the counters."""
+    global _rec, _live
+    outer, _rec = _rec, {}
+    _live = True
+    try:
+        yield _rec
+    finally:
+        _rec = outer
+        _live = _on or _rec is not None
 
 
 def enable() -> None:
-    global _on
-    _on = True
+    global _on, _live
+    _on = _live = True
 
 
 def disable() -> None:
-    global _on
+    global _on, _live
     _on = False
+    _live = _rec is not None
 
 
 def enabled() -> bool:

@@ -90,6 +90,29 @@ def test_off_path_records_nothing_and_is_one_shared_object():
     assert trace.spans() == [] and trace.counters() == {}
 
 
+@pytest.mark.parametrize("on", [False, True], ids=["off", "on"])
+def test_a_capture_records_its_counts_for_its_replays(on):
+    """Counts made while a capture records go to the recording, tracer on
+    or off, and not to the counters; `add` puts a recording's counts into
+    the counters once a replay, and only with the tracer on; after the
+    recording the off path is the flag test again."""
+    if on:
+        trace.enable()
+    trace.count("keyframes")
+    with trace.recording() as rec:
+        trace.count("dist.ring_bytes", 96)
+        trace.count("dist.ring_bytes", 32)
+        trace.count("dist.gather_bytes", 8)
+    assert rec == {"dist.ring_bytes": 128, "dist.gather_bytes": 8}
+    assert trace.counters() == ({"keyframes": 1} if on else {})
+    trace.add(rec)
+    trace.add(rec)
+    trace.count("dist.gather_bytes", 1)
+    want = {"keyframes": 1, "dist.ring_bytes": 256, "dist.gather_bytes": 17}
+    assert trace.counters() == (want if on else {})
+    assert trace.enabled() is on
+
+
 def test_off_path_reads_no_clock_and_enters_no_profiler_range(monkeypatch):
     """A whole flush with a closure, the tracer off: the tracer's clock and
     `record_function` raise if any site reaches them, and the metrics

@@ -748,6 +748,122 @@ def suite_system(out: Path):
     _demo(out, rank)
 
 
+PANO_FRAMES, PANO_L, PANO_Z = 14, 16, 16
+
+
+def pano_obs_config():
+    """pano_config(2, 1) with a map of PANO_L lanes, which the world's
+    observations fill within a few frames: from then on a new landmark
+    finds no free lane."""
+    import dataclasses
+
+    cfg = pano_config(2, 1)
+    return dataclasses.replace(cfg, filter=dataclasses.replace(
+        cfg.filter, max_landmarks=PANO_L, max_observations=PANO_Z))
+
+
+def _drive_obs(sys_, world, frames, perturb=False):
+    """process_obs over the world's equirect observations; with `perturb`
+    every frame's keyframe flag and snapshot reach the flush altered (the
+    flag inverted, the points moved 1 m), as a rank whose flush inputs
+    differed from rank 0's would see them."""
+    import torch
+
+    from parakeet_slam_tpu_torch.core.state import Observation
+    from parakeet_slam_tpu_torch.eval.kernel_inputs import panoramic_observations
+
+    if perturb:
+        post = sys_._post_step
+        sys_._post_step = lambda est, flag, snap, m: post(
+            est, ~flag, (snap[0] + 1.0, *snap[1:]), m)
+    est, match, lanes = [], [], []
+    seen = {}
+    post_m = sys_._post_step
+
+    def keep(*o):
+        seen["m"] = o[3]
+        return post_m(*o)
+
+    sys_._post_step = keep
+    for t in frames:
+        z, desc, valid = panoramic_observations(world, t, PANO_Z, 8, seed=3)
+        obs = Observation(z=torch.as_tensor(z), sig=torch.zeros(PANO_Z, 0),
+                          desc=torch.as_tensor(desc.view(np.int32)), valid=torch.as_tensor(valid))
+        est.append(sys_.process_obs(obs, world.odom[t]))
+        match.append(float(seen["m"].match_frac))
+        lanes.append(float(seen["m"].num_landmarks))
+    sys_.flush_flags()
+    return torch.stack(est), np.array(match), np.array(lanes)
+
+
+def _expected_bytes(sys_, frames):
+    """(ring, all-gather) bytes a frame of the sharded step and the
+    frame's snapshot, from the shapes alone: the ring's S - 1 packed blocks
+    of the rank's rows; the all-gathered weights (twice: the step's and the
+    snapshot's), landmark counts, estimate (poses and weights, packed) and
+    the best row's lanes (packed), each S times a rank's block."""
+    from parakeet_slam_tpu_torch.dist import mesh as mesh_mod
+    from parakeet_slam_tpu_torch.kernels import resample_cuda
+
+    st = sys_.state
+    S = sys_.mesh.axis_size(mesh_mod.PARTICLE_AXIS)
+    Pl = st.pose.shape[0]
+    pad = lambda n: -(-n // 16) * 16  # noqa: E731
+    nb = lambda t: t.numel() * t.element_size()  # noqa: E731
+    ring = (S - 1) * sum(pad(nb(getattr(st, f))) for f in resample_cuda._LEAVES)
+    lw = S * nb(st.log_w)
+    counts = S * Pl * 8
+    est = S * (pad(nb(st.pose)) + pad(nb(st.log_w)))
+    best = S * sum(pad(nb(t[:1])) for t in (st.lm_mean, st.lm_valid, st.lm_desc, st.lm_count))
+    return frames * ring, frames * (2 * lw + counts + est + best)
+
+
+def suite_pano_obs(out: Path):
+    """The captured sharded system through process_obs on a map that fills
+    (2 ranks) against the one-device system; the same with rank 1's flush
+    inputs altered; the tracer's byte and lane counters."""
+    import torch.distributed as tdist
+
+    from parakeet_slam_tpu_torch.data.panoramic import make_panoramic_world
+    from parakeet_slam_tpu_torch.dist.multihost import initialize_multihost
+    from parakeet_slam_tpu_torch.system import SLAMSystem
+    from parakeet_slam_tpu_torch.utils import trace
+
+    initialize_multihost()
+    rank = tdist.get_rank()
+    world = make_panoramic_world(num_landmarks=200, num_steps=PANO_FRAMES,
+                                 image_size=(96, 192), seed=7)
+    frames = range(PANO_FRAMES)
+    cap = SLAMSystem(pano_obs_config(), device="cpu", capture=True)
+    trace.reset()
+    trace.enable()
+    est, match, lanes = _drive_obs(cap, world, frames)
+    cap.flush_metrics()
+    trace.disable()
+    counters = trace.counters()
+    trace.reset()
+    rec = _system_record(cap, est)
+    rec["match"], rec["lanes"] = match, lanes
+    ring, gath = _expected_bytes(cap, PANO_FRAMES)
+    rec.update(ring_bytes=counters.get("dist.ring_bytes", -1), ring_expected=ring,
+               gather_bytes=counters.get("dist.gather_bytes", -1), gather_expected=gath,
+               lanes_valid=counters.get("lanes_valid", -1),
+               drained_frames=counters.get("drained_frames", -1))
+    pert = SLAMSystem(pano_obs_config(), device="cpu", capture=True)
+    est_p, _, _ = _drive_obs(pert, world, frames, perturb=rank == 1)
+    rec.update({f"pert_{k}": v for k, v in _system_record(pert, est_p).items()})
+    if rank == 0:
+        import dataclasses
+
+        cfg1 = pano_obs_config()
+        one = SLAMSystem(dataclasses.replace(cfg1, dist=dataclasses.replace(
+            cfg1.dist, particle_axis=1)), device="cpu", capture=True)
+        est1, match1, _ = _drive_obs(one, world, frames)
+        rec.update({f"one_{k}": v for k, v in _system_record(one, est1).items()})
+        rec["one_match"] = match1
+    _save(out, "pano_obs", **rec)
+
+
 def _demo(out, rank):
     """eval/config5_demo's rows at small sizes."""
     from parakeet_slam_tpu_torch.eval import config5_demo as demo
@@ -869,7 +985,7 @@ def suite_cli_run(out: Path):
 
 SUITES = {
     "dist": suite_dist, "ring": suite_ring, "reshard": suite_reshard, "ba": suite_ba, "ba4": suite_ba4,
-    "system": suite_system, "recover_run": suite_recover_run,
+    "system": suite_system, "pano_obs": suite_pano_obs, "recover_run": suite_recover_run,
     "recover_resume": suite_recover_resume, "cli_run": suite_cli_run,
 }
 
